@@ -1,0 +1,44 @@
+"""Carry state across from the JAX package: NumPy arrays -> port tensors.
+
+The port imports nothing of `esoo_tpu`; what crosses is plain NumPy, e.g.
+`np.asarray` of an `esoo_tpu` FusedOptOrbVQE's `_h_sp`, `_g_sp`, `_U0`,
+`_theta0`, or of a SectorUCC's `_str_tabs._asdict()`.  The parity tests
+feed both packages the same state this way.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .sim import strings as _strings
+
+
+def tensors_from_numpy(h_sp, g_sp, U, theta, *, dtype: torch.dtype,
+                       device) -> tuple:
+    """(h_sp, g_sp, U, theta) as contiguous tensors of `dtype` on
+    `device` (copied: the arrays of the other package may be read-only)."""
+    return tuple(torch.as_tensor(np.array(a, dtype=np.float64, order="C"),
+                                 device=device).to(dtype)
+                 for a in (h_sp, g_sp, U, theta))
+
+
+def string_tables_from_numpy(host: dict, *, dtype: torch.dtype,
+                             device) -> dict:
+    """String tables (a StringTables._asdict() of either package) as the
+    port's device tables: index tables int64, float and operator-stack
+    tables at `dtype`, plus the per-gate fields of strings.gate_fields
+    under "M", "S" and "flat".  The host-only string bitmasks A/B are
+    dropped."""
+    out = {}
+    for k, a in host.items():
+        if k in ("A", "B"):
+            continue
+        a = np.asarray(a)
+        if np.issubdtype(a.dtype, np.integer) and k not in ("MA", "MB"):
+            out[k] = torch.as_tensor(a.astype(np.int64), device=device)
+        else:
+            out[k] = torch.as_tensor(a.astype(np.float64),
+                                     device=device).to(dtype)
+    out["M"], out["S"], out["flat"] = _strings.gate_fields(out)
+    return out

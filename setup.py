@@ -15,8 +15,11 @@ setup(
     long_description=long_description,
     long_description_content_type="text/markdown",
     license="Apache-2.0",
-    packages=find_packages(include=["esoo_tpu", "esoo_tpu.*"]),
-    package_data={"esoo_tpu.native": ["*.cpp"]},
+    packages=find_packages(include=["esoo_tpu", "esoo_tpu.*",
+                                    "esoo_torch", "esoo_torch.*"]),
+    package_data={"esoo_tpu.native": ["*.cpp"],
+                  "esoo_torch": ["csrc/*.cu"],
+                  "esoo_torch.native": ["*.cpp"]},
     python_requires=">=3.10",
     install_requires=[
         "jax>=0.4.30",
@@ -25,6 +28,8 @@ setup(
     ],
     extras_require={
         "dev": ["pytest>=7"],
+        # the PyTorch/CUDA port (esoo_torch); its kernels build with nvcc
+        "torch": ["torch>=2.4"],
     },
     classifiers=[
         "License :: OSI Approved :: Apache Software License",
