@@ -26,12 +26,12 @@ of the JAX package.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
-from functools import partial
 
 H4_GEOM = "H 0 0 0; H 0 0 1.23; H 0 0 2.46; H 0 0 3.69"
 H2_GEOM = "H 0 0 0; H 0 0 0.735"
@@ -69,20 +69,57 @@ def peaks(name: str):
     raise AssertionError("unreachable")
 
 
-def time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
-    """Device time per call: CUDA events around `reps` back-to-back calls
-    after warm-up, divided by `reps` (host launch gaps included)."""
+@functools.cache
+def _spin_cycles_per_ms() -> float:
+    """Clock cycles of torch.cuda._sleep (a device spin) per millisecond."""
     import torch
-    for _ in range(warmup):
-        fn()
+    cycles = 20_000_000
+    torch.cuda._sleep(1000)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    torch.cuda._sleep(cycles)
     stop.record()
     stop.synchronize()
-    return start.elapsed_time(stop) / reps
+    return cycles / start.elapsed_time(stop)
+
+
+def time_ms(fn, reps: int = 50, warmup: int = 5) -> float:
+    """Device time per call: the median over `reps` back-to-back calls,
+    after warm-up, of CUDA events recorded just before and just after each
+    call.  The calls are queued behind a device spin that outlasts the
+    host's enqueueing of all of them, so each pair of events brackets the
+    call's device work alone and no host launch gap; if the spin ended
+    before the last call was queued, it is lengthened and the run
+    repeated."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    for attempt in range(4):
+        spin_ms = (2.0 * host_ms + 20.0) * 4 ** attempt
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(reps)]
+        spun = torch.cuda.Event()
+        torch.cuda._sleep(int(spin_ms * _spin_cycles_per_ms()))
+        spun.record()
+        for start, stop in events:
+            start.record()
+            fn()
+            stop.record()
+        drained = spun.query()
+        torch.cuda.synchronize()
+        if not drained:
+            times = sorted(s.elapsed_time(e) for s, e in events)
+            return times[reps // 2]
+    raise AssertionError("the device spin never outlasted the host's "
+                         "enqueueing of the timed calls")
 
 
 def _device_events(prof):
@@ -96,8 +133,9 @@ def _device_events(prof):
 
 def device_profile(fn, reps: int = 20, match: str = ""):
     """(milliseconds, events) per call of the device kernels and copies
-    whose name contains `match` (torch.profiler/CUPTI): the device work
-    alone, without the host launch gaps that `time_ms` includes."""
+    whose name contains `match` (torch.profiler/CUPTI): the kernels'
+    durations alone, without the gaps between kernels that `time_ms`
+    includes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -251,8 +289,9 @@ def phase_kernels(card: str) -> dict:
          checks=checks, tolerance="f32 atol 5e-6*max(1,max|ref|); "
          "f64 1e-12*max(1,max|ref|)", peak_bytes_per_s=bw,
          peak_f32_flops=fl32, matmul=k1, rotate_two_body_cuda=k2,
-         timing=f"ms: CUDA events over 50 back-to-back calls after 5 "
-         f"warm-up; kernel_ms: profiler kernel time per call; {card}")
+         timing=f"ms: median over 50 calls after 5 warm-up of CUDA events "
+         f"around each call, the calls queued behind a device spin (no host "
+         f"launch gaps); kernel_ms: profiler kernel time per call; {card}")
     return {"gemm.matmul": k1, "gemm.rotate_two_body_cuda": k2}
 
 
@@ -320,7 +359,7 @@ def phase_main_path():
                                        K.rotate_two_body(g_sp, U))
     vals = sec.build_values(h_so, g_so)
     sector_vag = value_and_grad(sec.energy_values)
-    scalar = partial(torch.tensor, dtype=torch.float32, device="cuda")
+    scalar = functools.partial(torch.tensor, dtype=torch.float32, device="cuda")
     bb_steps = 50
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -342,16 +381,13 @@ def phase_main_path():
     eval_ms, eval_events = device_profile(lbfgs_eval)
     per_iter = dict(
         bb_iteration_wall_ms=bb_wall_ms,
-        orbital_value_and_grad_ms=time_ms(lambda: _ORBITAL_VAG(U, *data)),
         orbital_value_and_grad_kernel_ms=vag_ms,
         orbital_value_and_grad_device_events=vag_events,
-        kron_sandwich_ms=time_ms(lambda: K.rotate_two_body_kron(g_sp, U)),
         kron_sandwich_kernel_ms=kernel_ms(
             lambda: K.rotate_two_body_kron(g_sp, U)),
         lbfgs_evaluation_wall_ms=lbfgs_wall_ms,
         lbfgs_evaluation_kernel_ms=eval_ms,
-        lbfgs_evaluation_device_events=eval_events,
-        rotate_two_body_ms=time_ms(lambda: K.rotate_two_body(g_sp, U)))
+        lbfgs_evaluation_device_events=eval_events)
     stats = r_warm.stage_stats
     emit("main_path", problem="H4 cc-pVTZ m=56 -> 8 spin orbitals, UCCSD "
          "(26 parameters), f32", energy=E, energy_warm=r_warm.eigenvalue,

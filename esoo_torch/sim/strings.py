@@ -363,7 +363,7 @@ def quadform(V: torch.Tensor, ops: dict, tabs: dict) -> torch.Tensor:
 
 # -- RDMs -------------------------------------------------------------------
 
-def build_rdm_maps(n: int, q_pad: int = None):
+def build_rdm_maps(n: int):
     """Host-side maps turning the pair-correlation matrix
     G2f[a, b] = (D_a v) . (D_b v) into the spin-orbital 2-RDM
     Gamma[p, q, r, s] = <a+_p a+_q a_s a_r>:
@@ -378,13 +378,11 @@ def build_rdm_maps(n: int, q_pad: int = None):
     SGN (N^4,) in {0, +-1}, CASE_A the (N, N, N, N) 0/1 delta mask."""
     N = 2 * n
     sp = (np.arange(N) >= n).astype(np.int64)
-    if q_pad is None:
-        q_pad = n * n
-    P = 2 * q_pad
+    P = 2 * n * n
 
     def pair(x, y):
         # same-spin pair index in the MA/MB ordering (alpha block first)
-        return sp[x] * q_pad + (x % n) * n + (y % n)
+        return sp[x] * n * n + (x % n) * n + (y % n)
 
     p = np.arange(N)[:, None, None, None]
     q = np.arange(N)[None, :, None, None]
@@ -411,13 +409,15 @@ def rdms(V: torch.Tensor, tabs: dict, maps):
     nsp = N // 2
     MA = tabs["MA"].to(dt)
     MB = tabs["MB"].to(dt)
-    q_pad = MA.shape[0]
+    if MA.shape[0] != nsp * nsp:
+        raise ValueError("padded operator stacks belong to the sharded "
+                         "placement, which is not ported")
     T = _t_tensor(V, MA, MB)
     v = V.reshape(-1)
-    gpairs = T @ v                                   # (2 q_pad,)
+    gpairs = T @ v                                   # (2 n^2,)
     gamma = torch.zeros((N, N), dtype=dt, device=dev)
     gamma[:nsp, :nsp] = gpairs[: nsp * nsp].reshape(nsp, nsp)
-    gamma[nsp:, nsp:] = gpairs[q_pad: q_pad + nsp * nsp].reshape(nsp, nsp)
+    gamma[nsp:, nsp:] = gpairs[nsp * nsp:].reshape(nsp, nsp)
     G2f = (T @ T.T).reshape(-1)                      # (P*P,)
     Gamma = (SGN.to(dt) * G2f[IDX.long()]).reshape(N, N, N, N)
     eye = torch.eye(N, dtype=dt, device=dev)
