@@ -32,6 +32,7 @@ import torch
 from . import _build
 
 _KERNEL_DTYPES = (torch.float32, torch.float64)
+_NARROW_N = 16                   # trans_x and N <= 16: gemm_narrow_tx, 1-D grid
 _MAX_TILE_ROWS = 65535 * 64      # gemm_tiled grid.y limit
 
 
@@ -79,20 +80,17 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *,
         raise ValueError(f"contraction mismatch: x gives K={K}, y is "
                          f"{tuple(y.shape)}")
     N = y.shape[1]
-    if max(M, K, N) >= 2 ** 31 or M > _MAX_TILE_ROWS:
+    tiled = not (trans_x and N <= _NARROW_N)      # see csrc/gemm.cu launch()
+    if max(M, K, N) >= 2 ** 31 or (tiled and M > _MAX_TILE_ROWS):
         raise ValueError(f"matmul kernel shape out of range: M={M} K={K} "
-                         f"N={N}")
+                         f"N={N} trans_x={trans_x}")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     lib = _lib()
     fn = lib.esoo_matmul_f32 if x.dtype == torch.float32 else \
         lib.esoo_matmul_f64
-    args = (x.data_ptr(), y.data_ptr(), out.data_ptr(), M, K, N,
-            int(bool(trans_x)))
-    if x.device.index in (None, torch.cuda.current_device()):
-        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(x.device):     # launch on x's own device
-            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(x.device):             # launch on x's own device
+        rc = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), M, K, N,
+                int(bool(trans_x)), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gemm kernel launch failed: CUDA error {rc}")
     matmul.launches += 1

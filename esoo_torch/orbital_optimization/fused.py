@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..solvers.lbfgs import lbfgs_minimize
-from ..utils.config import precision_mode, resolve_device
+from ..utils.config import resolve_device
 from .checkpoint import load_checkpoint, save_checkpoint
 from .kernels import (expand_spin_tensors, rotate_one_body, rotate_two_body,
                       rotated_energy_spatial, spatial_blocks,
@@ -335,8 +335,7 @@ class FusedOptOrbVQE:
         self.checkpoint_dir = checkpoint_dir
 
     def compute_minimum_energy(self) -> FusedOptOrbResult:
-        mode = "fast" if torch.finfo(self.dtype).bits < 64 else "high"
-        with precision_mode(mode), torch.no_grad():
+        with torch.no_grad():
             return self._run()
 
     def _run(self) -> FusedOptOrbResult:

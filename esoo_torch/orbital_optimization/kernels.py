@@ -142,11 +142,9 @@ def rotate_two_body(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         g_rot[i,j,k,l] = sum_pqrs g[p,q,r,s] u[p,i] u[q,j] u[r,k] u[s,l]
 
     O(m^4 n + m^3 n^2 + m^2 n^3 + m n^4).  CUDA tensors run the
-    hand-written kernel (ops/gemm.py::rotate_two_body_cuda); CPU tensors
-    the plain tensordot chain."""
-    if g.device.type == "cuda":
-        return gemm.rotate_two_body_cuda(g, u)
-    return gemm.rotate_two_body_plain(g, u)
+    hand-written kernel (ops/gemm.py::rotate_two_body_cuda), which runs
+    the plain tensordot chain for CPU tensors."""
+    return gemm.rotate_two_body_cuda(g, u)
 
 
 def rotate_two_body_auto(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

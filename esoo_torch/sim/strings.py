@@ -231,23 +231,12 @@ def _perm(V: torch.Tensor, flat_k: torch.Tensor) -> torch.Tensor:
     return V.reshape(-1)[flat_k].reshape(V.shape)
 
 
-def _gate_step_str(V, flat_k, M_k, S_k, th):
-    """One factorized Givens-bank gate on the string matrix V (nB, nA):
+def _gate_step_str(V, flat_k, M_k, S_k, c_k, s_k):
+    """One factorized Givens-bank gate on the string matrix V (nB, nA),
+    given c_k = cos th and s_k = sin th:
         V' = V + (cos th - 1) * M (.) V + sin th * S (.) V[pB][:, pA]"""
-    c = torch.cos(th)
-    s = torch.sin(th)
     G = _perm(V, flat_k)
-    return V + (c - 1.0) * (M_k * V) + s * (S_k * G)
-
-
-def _apply_gates_str(V0, theta, tabs):
-    """Plain gate scan, differentiated by autograd (the oracle for the
-    reversible backward of `apply_gates`)."""
-    M, S, flat = gate_fields(tabs)
-    V = V0
-    for k in range(theta.shape[0]):
-        V = _gate_step_str(V, flat[k], M[k], S[k], theta[k])
-    return V
+    return V + (c_k - 1.0) * (M_k * V) + s_k * (S_k * G)
 
 
 class _ApplyRevStr(torch.autograd.Function):
@@ -265,8 +254,7 @@ class _ApplyRevStr(torch.autograd.Function):
         s = torch.sin(theta)
         V = V0
         for k in range(theta.shape[0]):
-            G = _perm(V, flat[k])
-            V = V + (c[k] - 1.0) * (M[k] * V) + s[k] * (S[k] * G)
+            V = _gate_step_str(V, flat[k], M[k], S[k], c[k], s[k])
         ctx.save_for_backward(V, theta, M, S, flat)
         return V
 

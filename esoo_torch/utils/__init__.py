@@ -1,5 +1,3 @@
-from .config import (complex_dtype, precision_mode, real_dtype,
-                     resolve_device, set_precision)
+from .config import resolve_device
 
-__all__ = ["complex_dtype", "precision_mode", "real_dtype",
-           "resolve_device", "set_precision"]
+__all__ = ["resolve_device"]

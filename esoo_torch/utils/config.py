@@ -1,66 +1,14 @@
-"""Global dtype / device policy.
+"""Device policy.
 
-Mirrors esoo_tpu/utils/config.py: float64 by default, with an opt-in fast
-mode that runs the hot loops in float32/complex64.  The device half of the
-policy is explicit: entry points take `device=` (default "cuda") and
-`resolve_device` raises instead of falling back to the CPU.
+Entry points take `device=` (default "cuda") and `resolve_device` raises
+instead of falling back to the CPU.  The JAX package's dtype policy
+(esoo_tpu/utils/config.py precision_mode) has no reader in this package:
+its only reader there is the full-space simulator, not ported yet.
 """
 
 from __future__ import annotations
 
-import dataclasses
-
 import torch
-
-
-@dataclasses.dataclass
-class Precision:
-    real_dtype: torch.dtype = torch.float64
-    complex_dtype: torch.dtype = torch.complex128
-
-
-_precision = Precision()
-
-
-def set_precision(mode: str = "high"):
-    """mode: 'high' (f64/c128) or 'fast' (f32/c64 hot loops)."""
-    global _precision
-    if mode == "high":
-        _precision = Precision(torch.float64, torch.complex128)
-    elif mode == "fast":
-        _precision = Precision(torch.float32, torch.complex64)
-    else:
-        raise ValueError(f"unknown precision mode {mode!r}")
-
-
-def real_dtype() -> torch.dtype:
-    return _precision.real_dtype
-
-
-def complex_dtype() -> torch.dtype:
-    return _precision.complex_dtype
-
-
-class precision_mode:
-    """Context manager: temporarily switch the dtype policy.
-
-    with precision_mode('fast'):   # f32/c64 hot loops
-        ...
-    """
-
-    def __init__(self, mode: str):
-        self.mode = mode
-
-    def __enter__(self):
-        global _precision
-        self._saved = _precision
-        set_precision(self.mode)
-        return self
-
-    def __exit__(self, *exc):
-        global _precision
-        _precision = self._saved
-        return False
 
 
 def resolve_device(device) -> torch.device:

@@ -47,6 +47,20 @@ def test_matmul_kernel_matches_plain(card, dtype, M, K, N, trans_x):
     _close(out, gemm.matmul_plain(x, y, trans_x=trans_x))
 
 
+def test_matmul_narrow_kernel_takes_rows_beyond_the_tile_grid(card):
+    """trans_x with N <= 16 runs on a 1-D grid: M above the tiled kernel's
+    65535 * 64 rows (stage 1 of the transform at m >= 162) must run."""
+    M, K, N = 65535 * 64 + 1000, 3, 4
+    rng = np.random.default_rng(1)
+    x = torch.as_tensor(rng.normal(size=(K, M)), device=card).float()
+    y = torch.as_tensor(rng.normal(size=(K, N)), device=card).float()
+    out = gemm.matmul(x, y, trans_x=True)
+    torch.cuda.synchronize()
+    _close(out, gemm.matmul_plain(x, y, trans_x=True))
+    with pytest.raises(ValueError, match="out of range"):
+        gemm.matmul(x.T.contiguous(), y)          # the tiled kernel's limit
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("m,n", [(56, 4), (24, 8), (9, 3)])
 def test_rotate_two_body_kernel_matches_plain(card, dtype, m, n):
