@@ -8,8 +8,11 @@ Phases, one JSON line each:
             (nvcc for every csrc/*.cu and g++ for the ERI engine, all
             started together);
   kernels   each hand-written kernel against its plain PyTorch version at
-            the main path's shapes (stated tolerances), and its time
-            beside its bound, the plain version's and the library call's;
+            the main path's shapes (stated tolerances), both routes of the
+            transform (the one-pass kernel for n <= 8, the four-launch
+            GEMM chain beyond), and its time beside its bound, the plain
+            version's and the library call's (the transform also beside
+            the chain's, in the same run);
   main path FusedOptOrbVQE on H4 cc-pVTZ (m=56 -> 8 spin orbitals,
             UCCSD, f32) with the launch counts zeroed before and read
             after; energy gates against the reference values; per-step
@@ -155,6 +158,19 @@ def kernel_ms(fn, reps: int = 20, match: str = "") -> float:
     return device_profile(fn, reps, match)[0]
 
 
+def host_calls_ms(fn, reps: int = 100) -> float:
+    """Host wall time of `reps` back-to-back calls and one
+    torch.cuda.synchronize() after the last: launch overheads included."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def check_close(out, ref, dtype, what: str) -> float:
     """f32: atol 5e-6 * max(1, max|ref|); f64: 1e-12 relative."""
     import torch
@@ -218,16 +234,31 @@ def phase_kernels(card: str) -> dict:
                               dtype, f"matmul {M}x{K}x{N} trans_x={tr}")
             checks.append(dict(kernel="gemm.matmul", M=M, K=K, N=N,
                                trans_x=tr, dtype=str(dtype), err=err))
-        for (mm, nn) in ((56, 4), (24, 8)):
+        # the one-pass kernel (transform.cu) at the headline shape, n = 8,
+        # odd m (element-wise copies) and more blocks than slabs; the
+        # four-launch chain (gemm.cu) at n = 12
+        for (mm, nn, route) in ((56, 4, "fused"), (24, 8, "fused"),
+                                (9, 3, "fused"), (4, 2, "fused"),
+                                (24, 12, "chain")):
             g = torch.randn(mm, mm, mm, mm, dtype=torch.float64,
                             generator=gen).to(dtype).to(dev)
             u = _partial_unitary(mm, nn, dtype, gen).to(dev)
+            planned = gemm._transform_plan(mm, nn, g.element_size())[0]
+            if planned != route:
+                raise AssertionError(f"m={mm} n={nn} planned {planned}, "
+                                     f"expected {route}")
             out = gemm.rotate_two_body_cuda(g, u)
+            again = gemm.rotate_two_body_cuda(g, u)
             torch.cuda.synchronize()
             err = check_close(out, gemm.rotate_two_body_plain(g, u), dtype,
-                              f"rotate_two_body_cuda m={mm} n={nn}")
-            checks.append(dict(kernel="gemm.rotate_two_body_cuda", m=mm,
-                               n=nn, dtype=str(dtype), err=err))
+                              f"rotate_two_body_cuda m={mm} n={nn} {route}")
+            if route == "fused" and not torch.equal(out, again):
+                raise AssertionError(f"two fused calls at m={mm} n={nn} "
+                                     f"{dtype} differ")
+            checks.append(dict(kernel="gemm.rotate_two_body_cuda",
+                               route=route, m=mm, n=nn, dtype=str(dtype),
+                               err=err, repeat_bit_identical=bool(
+                                   torch.equal(out, again))))
 
     # timings at the main path's shapes, float32
     f32 = torch.float32
@@ -251,6 +282,9 @@ def phase_kernels(card: str) -> dict:
     def k2_plain():
         return gemm.rotate_two_body_plain(g, u)
 
+    def k2_chain():
+        return gemm.rotate_two_body_chain(g, u)
+
     def k2_library():
         t = torch.tensordot(g, u, dims=([0], [0]))
         t = torch.tensordot(t, u, dims=([0], [0]))
@@ -258,10 +292,14 @@ def phase_kernels(card: str) -> dict:
         return torch.tensordot(t, u, dims=([0], [0]))
 
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    evict = torch.ones(32 * 2 ** 20, dtype=torch.float32, device=dev)
 
     # *_cold: the operand is evicted from the 50 MB L2 first, so the
     # kernel reads it from HBM; the warm numbers re-read an L2-resident
-    # operand, as the main path does (the BB loop has just read g_sp)
+    # operand, as the main path does (the BB loop has just read g_sp).
+    # The fill writes 128 MB and leaves L2 full of dirty lines, whose
+    # write-back shares HBM with the kernel's reads; *_read_evicted
+    # evicts by reading 128 MB instead (clean lines, no write-back).
     def k1_cold():
         flush.zero_()
         return gemm.matmul(x, u, trans_x=True)
@@ -269,6 +307,18 @@ def phase_kernels(card: str) -> dict:
     def k2_cold():
         flush.zero_()
         return gemm.rotate_two_body_cuda(g, u)
+
+    def k2_chain_cold():
+        flush.zero_()
+        return gemm.rotate_two_body_chain(g, u)
+
+    def k2_read_evicted():
+        evict.sum()
+        return gemm.rotate_two_body_cuda(g, u)
+
+    def k2_chain_read_evicted():
+        evict.sum()
+        return gemm.rotate_two_body_chain(g, u)
 
     k1 = dict(ms=time_ms(k1_call), plain_ms=time_ms(k1_plain),
               library_ms=time_ms(k1_library),
@@ -278,15 +328,33 @@ def phase_kernels(card: str) -> dict:
               max_abs_err=float((k1_call() - k1_library()).abs().max()))
     k1_bytes = 4 * (K1 * M1 + K1 * N1 + M1 * N1)
     k1_flops = 2 * M1 * K1 * N1
+    # K2: the one-pass kernel (two launches, both named transform_*)
+    # beside the four-launch chain (gemm_*) in the same run
+    fused_kernel_ms, fused_events = device_profile(k2_call,
+                                                   match="transform_")
     k2 = dict(ms=time_ms(k2_call), plain_ms=time_ms(k2_plain),
               library_ms=time_ms(k2_library),
-              kernel_ms=kernel_ms(k2_call, match="gemm_"),
-              kernel_ms_l2_flushed=kernel_ms(k2_cold, match="gemm_"),
+              kernel_ms=fused_kernel_ms, kernel_launches_per_call=fused_events,
+              pass_kernel_ms=kernel_ms(k2_call, match="transform_slab_pass"),
+              reduce_kernel_ms=kernel_ms(k2_call, match="transform_reduce"),
+              kernel_ms_l2_flushed=kernel_ms(k2_cold, match="transform_"),
+              kernel_ms_read_evicted=kernel_ms(k2_read_evicted,
+                                               match="transform_"),
               plain_kernel_ms=kernel_ms(k2_plain),
+              chain_ms=time_ms(k2_chain),
+              chain_kernel_ms=kernel_ms(k2_chain, match="gemm_"),
+              chain_kernel_ms_l2_flushed=kernel_ms(k2_chain_cold,
+                                                   match="gemm_"),
+              chain_kernel_ms_read_evicted=kernel_ms(k2_chain_read_evicted,
+                                                     match="gemm_"),
+              host_100_calls_ms=host_calls_ms(k2_call),
+              chain_host_100_calls_ms=host_calls_ms(k2_chain),
               max_abs_err=float((k2_call() - k2_library()).abs().max()))
     k2_bytes = 4 * (m ** 4 + m * n + n ** 4)
-    k2_flops = 2 * (m ** 4 * n + m ** 3 * n ** 2 + m ** 2 * n ** 3
-                    + m * n ** 4)
+    # the one-pass kernel's FMAs: per slab m^2 n (T') and n^2 m (Y), per p
+    # n^3 m (V) and n^4 (the accumulators)
+    k2_flops = 2 * (m * m * (m * m * n + m * n * n)
+                    + m * (m * n ** 3 + n ** 4))
     for rec, nbytes, flops in ((k1, k1_bytes, k1_flops),
                                (k2, k2_bytes, k2_flops)):
         t_bytes, t_ops = nbytes / bw * 1e3, flops / fl32 * 1e3
@@ -299,7 +367,8 @@ def phase_kernels(card: str) -> dict:
          peak_f32_flops=fl32, matmul=k1, rotate_two_body_cuda=k2,
          timing=f"ms: median over 50 calls after 5 warm-up of CUDA events "
          f"around each call, the calls queued behind a device spin (no host "
-         f"launch gaps); kernel_ms: profiler kernel time per call; {card}")
+         f"launch gaps); kernel_ms: profiler kernel time per call; "
+         f"host_100_calls_ms: host wall of 100 calls and one sync; {card}")
     return {"gemm.matmul": k1, "gemm.rotate_two_body_cuda": k2}
 
 
@@ -335,6 +404,7 @@ def phase_main_path():
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     launches = gemm.launch_counts()
+    routes = gemm.route_launch_counts()
 
     t0 = time.perf_counter()
     r_warm = _solver(problem, 4, torch.float32,
@@ -343,9 +413,11 @@ def phase_main_path():
     warm_s = time.perf_counter() - t0
 
     E = r.eigenvalue
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"{name} never launched on the main path")
+    # at n = 4 the transform takes the one-pass route; K1 (gemm.matmul)
+    # runs only in the chain route, held in the kernels phase
+    if launches["gemm.rotate_two_body_cuda"] <= 0 or routes["fused"] <= 0:
+        raise AssertionError(f"the one-pass transform never launched on the "
+                             f"main path: {launches} {routes}")
     if not (E <= H4_BASELINE and abs(E - H4_REFERENCE) <= H4_TOL):
         raise AssertionError(f"H4 energy {E!r} fails the gates "
                              f"(<= {H4_BASELINE}, within {H4_TOL} of "
@@ -403,7 +475,7 @@ def phase_main_path():
          outer_iterations=r.outer_iterations, warm_stage_stats=stats,
          chem_s=chem_s, cold_s=cold_s, warm_s=warm_s,
          eri_engine=problem.eri_engine, launches=launches,
-         per_step=per_iter)
+         transform_route_launches=routes, per_step=per_iter)
     return launches, problem
 
 
@@ -442,6 +514,7 @@ def phase_parity() -> None:
     r_gpu = _solver(problem, 2, torch.float64, "cuda").compute_minimum_energy()
     gpu_s = time.perf_counter() - t0
     launches = gemm.launch_counts()
+    routes = gemm.route_launch_counts()
     r_cpu = _solver(problem, 2, torch.float64, "cpu").compute_minimum_energy()
     E = r_gpu.eigenvalue
     if not abs(E - H2_REFERENCE) <= H2_TOL:
@@ -450,12 +523,12 @@ def phase_parity() -> None:
     if not abs(E - r_cpu.eigenvalue) <= 1e-8:
         raise AssertionError(f"H2 f64 card {E!r} vs CPU "
                              f"{r_cpu.eigenvalue!r} differ by > 1e-8")
-    if launches["gemm.rotate_two_body_cuda"] <= 0:
+    if routes["fused"] <= 0:
         raise AssertionError("the f64 run did not launch the transform")
     emit("parity", problem="H2 6-31G -> 4 spin orbitals, f64",
          energy_gpu=E, energy_cpu=r_cpu.eigenvalue,
          reference=H2_REFERENCE, tolerance=H2_TOL, gpu_s=gpu_s,
-         launches=launches)
+         launches=launches, transform_route_launches=routes)
 
 
 def main() -> int:
@@ -474,17 +547,23 @@ def main() -> int:
     phase_parity()
 
     table = []
-    sources = {"gemm.matmul": "esoo_tpu/ops/pallas_kernels.py:80",
-               "gemm.rotate_two_body_cuda":
-                   "esoo_tpu/ops/pallas_kernels.py:108"}
-    for name, replaces in sources.items():
+    # K2's source is the one-pass kernel for n <= 8 (the main path's);
+    # n > 8 keeps the four-launch chain of gemm.cu
+    sources = {"gemm.matmul": ("esoo_tpu/ops/pallas_kernels.py:80",
+                               "esoo_torch/csrc/gemm.cu", {}),
+               "gemm.rotate_two_body_cuda": (
+                   "esoo_tpu/ops/pallas_kernels.py:108",
+                   "esoo_torch/csrc/transform.cu",
+                   {"chain_source": "esoo_torch/csrc/gemm.cu (n > 8)"})}
+    for name, (replaces, source, extra) in sources.items():
         rec = timed[name]
         table.append(dict(
-            name=name, route="cuda", source="esoo_torch/csrc/gemm.cu",
+            name=name, route="cuda", source=source,
             replaces=replaces, launches=launches[name],
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-            bound_by=rec["bound_by"], library_ms=rec["library_ms"]))
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+            **extra))
     emit("done", total_s=time.perf_counter() - t_start)
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)

@@ -1,25 +1,29 @@
-"""Hand-written CUDA GEMM and the 4-index integral transform built on it.
+"""Hand-written CUDA GEMM and the 4-index integral transform.
 
 Counterparts of esoo_tpu/ops/pallas_kernels.py:
 
   * `matmul(x, y, trans_x=False)`  <- `matmul_pallas` (Pallas tiled GEMM,
     pl.pallas_call at pallas_kernels.py:80).  Kernel: csrc/gemm.cu.
   * `rotate_two_body_cuda(g, u)`   <- `rotate_two_body_pallas`
-    (pallas_kernels.py:108): four `matmul` launches, each contracting the
-    LEADING axis with trans_x=True, in the order of
-    orbital_optimization.kernels.rotate_two_body.
+    (pallas_kernels.py:108).  For n <= 8 (and a ring of two slabs that
+    fits in shared memory) one pass over g in one C call, two launches:
+    csrc/transform.cu.  Otherwise `rotate_two_body_chain`: four `matmul`
+    launches, each contracting the LEADING axis with trans_x=True, in the
+    order of orbital_optimization.kernels.rotate_two_body.
+    `_transform_plan` makes that choice.
 
 Bound on an H100 (both kernels): bytes.  At the H4 cc-pVTZ headline shape
 (m=56, n=4, float32) the transform must read the 39 MB g tensor once
-(~12 us at 3.35 TB/s) and does ~85 MFLOP (~1.3 us at the 67 TFLOP/s
-float32 CUDA-core peak); see csrc/gemm.cu for what the design does about
-it.
+(~12 us at 3.35 TB/s) and does ~86 MFLOP (~1.3 us at the 67 TFLOP/s
+float32 CUDA-core peak); see the notes at the top of csrc/transform.cu
+and csrc/gemm.cu for what each design does about it.
 
 Each wrapper has a plain PyTorch twin (`matmul_plain`,
 `rotate_two_body_plain`).  The wrapper runs the twin only for tensors on
 the CPU; for CUDA tensors it launches the kernel or raises.  `launches`
 on each wrapper counts its kernel launches (reset_launch_counts /
-launch_counts), so a run can show that it went through the kernels.
+launch_counts; route_launch_counts splits the transform's by route), so a
+run can show that it went through the kernels.
 """
 
 from __future__ import annotations
@@ -34,6 +38,11 @@ from . import _build
 _KERNEL_DTYPES = (torch.float32, torch.float64)
 _NARROW_N = 16                   # trans_x and N <= 16: gemm_narrow_tx, 1-D grid
 _MAX_TILE_ROWS = 65535 * 64      # gemm_tiled grid.y limit
+_FUSED_MAX_N = 8                 # transform.cu: n^4 <= 16 accumulators x 256
+_FUSED_MAX_M = 256               # transform.cu: a thread to a slab column
+_MAX_STAGES = 8                  # transform.cu: slabs in the ring
+_SMEM_LIMIT = 232448             # shared memory a block may use (227 KB)
+_SMEM_TWO_BLOCKS = 115712        # (228 KB an SM - 1 KB a block) / 2
 
 
 @functools.cache
@@ -45,6 +54,50 @@ def _lib() -> ctypes.CDLL:
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p]
     return lib
+
+
+@functools.cache
+def _transform_lib() -> ctypes.CDLL:
+    lib = _build.load("transform")
+    for fn in (lib.esoo_transform_f32, lib.esoo_transform_f64):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return lib
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _transform_smem(m: int, n: int, itemsize: int, stages: int) -> int:
+    """Dynamic shared memory of csrc/transform.cu's pass: `stages` slabs
+    (64 x 64 on its fast path: float32, n <= 4, m <= 64 and a multiple of
+    4; else m^2 elements rounded up to 16 bytes), u as (m, nb) with nb = 4
+    or 8 columns, 16 values of Y for each of 256 threads and V
+    (nb, nb, nb)."""
+    per16 = 16 // itemsize
+    if itemsize == 4 and n <= 4 and m <= 64 and m % 4 == 0:
+        stride = 64 * 64
+    else:
+        stride = -(-m * m // per16) * per16
+    nb = 4 if n <= 4 else 8
+    return itemsize * (stages * stride + m * nb + 256 * 16 + nb ** 3)
+
+
+def _transform_plan(m: int, n: int, itemsize: int) -> tuple:
+    """("fused", stages) for csrc/transform.cu, else ("chain", 0) for the
+    four-launch K1 chain (n > 8, m > 256, or not even a ring of two slabs
+    fits a block's shared memory).  The ring is as deep as lets two blocks
+    share an SM (at most 8 slabs), or failing that as deep as fits one."""
+    if 1 <= n <= _FUSED_MAX_N and m <= _FUSED_MAX_M:
+        for limit in (_SMEM_TWO_BLOCKS, _SMEM_LIMIT):
+            for stages in range(_MAX_STAGES, 1, -1):
+                if _transform_smem(m, n, itemsize, stages) <= limit:
+                    return "fused", stages
+    return "chain", 0
 
 
 def matmul_plain(x: torch.Tensor, y: torch.Tensor, *,
@@ -109,22 +162,42 @@ def rotate_two_body_plain(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 def rotate_two_body_cuda(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """g_rot[i,j,k,l] = sum_pqrs g[p,q,r,s] u[p,i] u[q,j] u[r,k] u[s,l].
 
-    Four `matmul` launches with trans_x=True: each stage reads its input
-    as stored, (m, rest) row-major, and writes (rest, n) — which is the
-    next stage's (m, rest') layout, so no stage transposes anything.
-    Not differentiable (the orbital gradient path uses
-    rotate_two_body_auto); CPU tensors run `rotate_two_body_plain`."""
+    CUDA tensors take the route of `_transform_plan`: one pass over g
+    (csrc/transform.cu, two launches from one C call) or the four-launch
+    chain (`rotate_two_body_chain`).  Not differentiable (the orbital
+    gradient path uses rotate_two_body_auto); CPU tensors run
+    `rotate_two_body_plain`."""
     if g.device.type == "cpu" and u.device.type == "cpu":
         return rotate_two_body_plain(g, u)
-    if torch.is_grad_enabled() and (g.requires_grad or u.requires_grad):
-        raise RuntimeError("rotate_two_body_cuda has no backward; call it "
-                           "under torch.no_grad() or on detached tensors")
-    if g.dim() != 4 or len(set(g.shape)) != 1 or u.dim() != 2 \
-            or u.shape[0] != g.shape[0]:
-        raise ValueError(f"expected g (m,m,m,m) and u (m,n), got "
-                         f"{tuple(g.shape)} and {tuple(u.shape)}")
-    if not g.is_contiguous():
-        raise ValueError("rotate_two_body_cuda takes a contiguous g")
+    _check_transform_args(g, u)
+    m, n = u.shape
+    route, stages = _transform_plan(m, n, g.element_size())
+    if route == "chain":
+        return rotate_two_body_chain(g, u)
+    u = u.contiguous()
+    blocks = 2 * _sm_count(g.device.index)
+    partials = torch.empty((blocks, n ** 4), dtype=g.dtype, device=g.device)
+    out = torch.empty((n,) * 4, dtype=g.dtype, device=g.device)
+    lib = _transform_lib()
+    fn = lib.esoo_transform_f32 if g.dtype == torch.float32 else \
+        lib.esoo_transform_f64
+    with torch.cuda.device(g.device):
+        rc = fn(g.data_ptr(), u.data_ptr(), partials.data_ptr(),
+                out.data_ptr(), m, n, blocks, stages,
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"transform kernel launch failed: CUDA error {rc}")
+    rotate_two_body_cuda.launches += 2
+    rotate_two_body_cuda.fused_launches += 2
+    return out
+
+
+def rotate_two_body_chain(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The transform as four `matmul` launches with trans_x=True: each
+    stage reads its input as stored, (m, rest) row-major, and writes
+    (rest, n), which is the next stage's (m, rest') layout, so no stage
+    transposes anything.  CUDA tensors only."""
+    _check_transform_args(g, u)
     m, n = u.shape
     u = u.contiguous()
     t = g
@@ -132,18 +205,47 @@ def rotate_two_body_cuda(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     for _ in range(4):
         t = matmul(t.reshape(m, rest), u, trans_x=True)
         rotate_two_body_cuda.launches += 1
+        rotate_two_body_cuda.chain_launches += 1
         rest = rest // m * n
     return t.reshape(n, n, n, n)
+
+
+def _check_transform_args(g: torch.Tensor, u: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and (g.requires_grad or u.requires_grad):
+        raise RuntimeError("rotate_two_body_cuda has no backward; call it "
+                           "under torch.no_grad() or on detached tensors")
+    if g.device.type != "cuda" or u.device != g.device:
+        raise ValueError(f"rotate_two_body_cuda: tensors on {g.device} and "
+                         f"{u.device}; both must be on one CUDA device (or "
+                         "both on CPU)")
+    if g.dtype != u.dtype or g.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"rotate_two_body_cuda takes float32 or float64 "
+                        f"pairs, got {g.dtype} and {u.dtype}")
+    if g.dim() != 4 or len(set(g.shape)) != 1 or u.dim() != 2 \
+            or u.shape[0] != g.shape[0]:
+        raise ValueError(f"expected g (m,m,m,m) and u (m,n), got "
+                         f"{tuple(g.shape)} and {tuple(u.shape)}")
+    if not g.is_contiguous():
+        raise ValueError("rotate_two_body_cuda takes a contiguous g")
 
 
 def reset_launch_counts() -> None:
     matmul.launches = 0
     rotate_two_body_cuda.launches = 0
+    rotate_two_body_cuda.fused_launches = 0
+    rotate_two_body_cuda.chain_launches = 0
 
 
 def launch_counts() -> dict:
     return {"gemm.matmul": matmul.launches,
             "gemm.rotate_two_body_cuda": rotate_two_body_cuda.launches}
+
+
+def route_launch_counts() -> dict:
+    """The transform's launches split by route: "fused" (transform.cu)
+    and "chain" (four K1 launches)."""
+    return {"fused": rotate_two_body_cuda.fused_launches,
+            "chain": rotate_two_body_cuda.chain_launches}
 
 
 reset_launch_counts()

@@ -153,8 +153,8 @@ class SectorUCC:
             pair_sg.append(sg)
         return pair_lo, pair_hi, pair_sg
 
-    def device_tables(self, dtype: torch.dtype = torch.float64,
-                      device="cpu") -> dict:
+    def device_tables(self, dtype: torch.dtype = torch.float64, *,
+                      device) -> dict:
         """The string tables as tensors on `device` (float tables at
         `dtype`, index tables int64), plus the precomputed per-gate
         fields of strings.gate_fields under "M"/"S"/"flat".  Cached per
@@ -169,7 +169,7 @@ class SectorUCC:
             self._dev_tabs[key] = tabs
         return tabs
 
-    def rdm_maps(self, device="cpu") -> tuple:
+    def rdm_maps(self, *, device) -> tuple:
         device = torch.device(device)
         maps = self._rdm_maps.get(str(device))
         if maps is None:
@@ -186,7 +186,7 @@ class SectorUCC:
         """(nB, nA) string matrix of the HF state after the UCC rotations
         (differentiable in theta through the reversible backward)."""
         tabs = tables if tables is not None else \
-            self.device_tables(theta.dtype, theta.device)
+            self.device_tables(theta.dtype, device=theta.device)
         V0 = torch.zeros(self.nB * self.nA, dtype=theta.dtype,
                          device=theta.device)
         V0[self.init_index] = 1.0
@@ -206,13 +206,13 @@ class SectorUCC:
         """Sigma-operator dict from spin-orbital (h, g) in the package
         convention E = sum h*gamma + sum g*Gamma (g = 1/2 physicist)."""
         tabs = tables if tables is not None else \
-            self.device_tables(h_so.dtype, h_so.device)
+            self.device_tables(h_so.dtype, device=h_so.device)
         return _strings.build_ops(h_so, g_so, tabs)
 
     def energy_values(self, theta: torch.Tensor, vals: dict,
                       tables: dict = None) -> torch.Tensor:
         tabs = tables if tables is not None else \
-            self.device_tables(theta.dtype, theta.device)
+            self.device_tables(theta.dtype, device=theta.device)
         return _strings.quadform(self.state_matrix(theta, tabs), vals, tabs)
 
     # -- sector-native RDMs --------------------------------------------------
@@ -220,7 +220,7 @@ class SectorUCC:
         """Spin-orbital (gamma, Gamma) from sector amplitudes (nd or
         nd + 1 long, or an (nB, nA) string matrix)."""
         tabs = tables if tables is not None else \
-            self.device_tables(v.dtype, v.device)
+            self.device_tables(v.dtype, device=v.device)
         V = v.reshape(-1)[: self.dim].reshape(self.nB, self.nA)
-        return _strings.rdms(V, tabs, self.rdm_maps(v.device))
+        return _strings.rdms(V, tabs, self.rdm_maps(device=v.device))
 

@@ -61,16 +61,64 @@ def test_matmul_narrow_kernel_takes_rows_beyond_the_tile_grid(card):
         gemm.matmul(x.T.contiguous(), y)          # the tiled kernel's limit
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("m,n", [(56, 4), (24, 8), (9, 3)])
-def test_rotate_two_body_kernel_matches_plain(card, dtype, m, n):
+def _transform_inputs(m, n, dtype, card):
     rng = np.random.default_rng(m * n)
     g = torch.as_tensor(rng.normal(size=(m,) * 4), device=card).to(dtype)
     u = torch.as_tensor(np.linalg.qr(rng.normal(size=(m, n)))[0],
                         device=card).to(dtype)
+    return g, u
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n", [(56, 4), (24, 8), (9, 3), (4, 2), (70, 4),
+                                 (130, 2)])
+def test_rotate_two_body_kernel_matches_plain(card, dtype, m, n):
+    """The one-pass kernel (csrc/transform.cu): the headline shape (the
+    float32 fast path), n = 8, odd m (element-wise copies), more blocks
+    than slabs, and 128 and 256 slab columns (float64 at m = 130 takes the
+    chain: two of its slabs do not fit a block)."""
+    g, u = _transform_inputs(m, n, dtype, card)
     out = gemm.rotate_two_body_cuda(g, u)
     torch.cuda.synchronize()
     _close(out, gemm.rotate_two_body_plain(g, u))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rotate_two_body_chain_route_matches_plain(card, dtype):
+    g, u = _transform_inputs(24, 12, dtype, card)
+    out = gemm.rotate_two_body_cuda(g, u)
+    torch.cuda.synchronize()
+    _close(out, gemm.rotate_two_body_plain(g, u))
+    _close(gemm.rotate_two_body_chain(g, u), gemm.rotate_two_body_plain(g, u))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rotate_two_body_repeats_bit_for_bit(card, dtype):
+    g, u = _transform_inputs(56, 4, dtype, card)
+    first = gemm.rotate_two_body_cuda(g, u)
+    second = gemm.rotate_two_body_cuda(g, u)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("m,n,route,launches", [(24, 4, "fused", 2),
+                                                (24, 12, "chain", 4)])
+def test_rotate_two_body_launch_counts_per_route(card, m, n, route,
+                                                 launches):
+    g, u = _transform_inputs(m, n, torch.float32, card)
+    gemm.reset_launch_counts()
+    gemm.rotate_two_body_cuda(g, u)
+    torch.cuda.synchronize()
+    assert gemm.launch_counts() == {
+        "gemm.matmul": 0 if route == "fused" else 4,
+        "gemm.rotate_two_body_cuda": launches}
+    assert gemm.route_launch_counts()[route] == launches
+
+
+def test_rotate_two_body_refuses_a_strided_g(card):
+    g, u = _transform_inputs(8, 4, torch.float32, card)
+    with pytest.raises(ValueError, match="contiguous"):
+        gemm.rotate_two_body_cuda(g.transpose(0, 1), u)
 
 
 def test_fused_h2_on_the_card_matches_the_cpu(card):

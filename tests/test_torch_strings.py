@@ -108,7 +108,7 @@ def test_apply_gates_forward(case):
     V0 = _state(ts, 4)
     ref = JS.apply_gates(jnp.asarray(V0), jnp.asarray(th),
                          js._str_tabs._asdict())
-    tabs = ts.device_tables(torch.float64)
+    tabs = ts.device_tables(torch.float64, device="cpu")
     assert_close(TS.apply_gates(_t(V0), _t(th), tabs), ref)
     assert_close(_apply_gates_plain(_t(V0), _t(th), tabs), ref)
 
@@ -125,7 +125,7 @@ def test_apply_gates_reversible_backward(case):
     _, vjp = jax.vjp(lambda v, t: JS.apply_gates(v, t, jt),
                      jnp.asarray(V0), jnp.asarray(th))
     dV_ref, dth_ref = vjp(jnp.asarray(ct))
-    tabs = ts.device_tables(torch.float64)
+    tabs = ts.device_tables(torch.float64, device="cpu")
     grads = []
     for fn in (TS.apply_gates, _apply_gates_plain):
         v, t = _t(V0).requires_grad_(), _t(th).requires_grad_()
@@ -141,7 +141,7 @@ def test_build_ops_sigma_quadform(case, h2_631g):
     js, ts = _sectors(case)
     h, g = _integrals(case, h2_631g)
     jt = js._str_tabs._asdict()
-    tabs = ts.device_tables(torch.float64)
+    tabs = ts.device_tables(torch.float64, device="cpu")
     ops_ref = JS.build_ops(jnp.asarray(h), jnp.asarray(g), jt)
     ops = TS.build_ops(_t(h), _t(g), tabs)
     for k in ("G2", "FA", "FB"):
@@ -165,7 +165,7 @@ def test_rdms(case):
     n = CASES[case][0]
     ref = JS.rdms(jnp.asarray(V), js._str_tabs._asdict(),
                   JS.build_rdm_maps(n))
-    out = TS.rdms(_t(V), ts.device_tables(torch.float64),
+    out = TS.rdms(_t(V), ts.device_tables(torch.float64, device="cpu"),
                   TS.build_rdm_maps(n))
     for a, b in zip(out, ref):
         assert_close(a, b)
@@ -199,7 +199,7 @@ def test_kernels_run_on_tables_carried_from_jax(case, h2_631g):
     js, ts = _sectors(case)
     carried = string_tables_from_numpy(js._str_tabs._asdict(),
                                        dtype=torch.float64, device="cpu")
-    own = ts.device_tables(torch.float64)
+    own = ts.device_tables(torch.float64, device="cpu")
     h, g = _integrals(case, h2_631g)
     th = _t(np.random.default_rng(10).normal(size=len(ts._excs)) * 0.3)
     V0 = torch.zeros(ts.nB, ts.nA, dtype=torch.float64)
