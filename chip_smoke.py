@@ -19,8 +19,20 @@ Phases, one JSON line each:
             costs of the eigensolver and the orbital step;
   profile   one more warm solve under torch.profiler: device busy share
             and device time by kernel;
+  casscf    the second main path: FusedOptOrbCASSCF on H8 cc-pVTZ
+            (m=112 -> 28 spin orbitals, 1,002,001 determinants, f32,
+            maxiter 10) with the launch counts zeroed before and read
+            after; gates on the energy (the JAX package's record, and the
+            float64 energy at the final orbitals), on the Davidson
+            residual and on the transform's route; the outer trace,
+            stage_stats, peak memory and per-step costs of sigma, the
+            diagonal, the RDMs and one BB iteration; float64 witnesses at
+            the final orbitals (sigma's float32 error, the final vector's
+            float64 residual, restarted float32 solves, one Rayleigh-Ritz
+            step projected in float32 and in float64, the float64 energy);
   parity    H2 6-31G -> 4 spin orbitals at f64 on the card against the
-            reference energy and the port's own CPU run.
+            reference energies and the port's own CPU run: FusedOptOrbVQE,
+            FusedOptOrbCASSCF and FusedOptOrbSACASSCF (k=2).
 Then the kernel table line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises (non-zero exit, no
 result line); so does a machine without CUDA.  Imports nothing of JAX or
@@ -38,6 +50,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 H4_GEOM = "H 0 0 0; H 0 0 1.23; H 0 0 2.46; H 0 0 3.69"
 H2_GEOM = "H 0 0 0; H 0 0 0.735"
+H8_GEOM = "; ".join(f"H 0 0 {1.23 * i:.2f}" for i in range(8))  # bench.py:219
 # reference energies (electronic, Hartree): the reference-faithful torch
 # baseline and the JAX package's f64-refined H4 energy; the OptOrbVQE
 # H2 6-31G -> 4 reference of the JAX package's tests
@@ -46,6 +59,19 @@ H4_REFERENCE = -4.0408844
 H4_TOL = 1e-4
 H2_REFERENCE = -1.8661038079694765
 H2_TOL = 5e-4
+# the JAX package's H8 cc-pVTZ -> 28 exact CASSCF, f32, dense tables,
+# maxiter 10 (BENCH_r05.json h8_casscf_energy_f32, on a TPU)
+H8_CASSCF_REFERENCE = -10.283001899719238
+H8_CASSCF_TOL = 1e-3
+# the float64 ground energy at the H8 solve's final orbitals against its
+# float32 energy
+H8_F64_WITNESS_TOL = 1e-4
+# CASSCF on H2 6-31G -> 4 (tests/test_casscf.py:76, decimal 4) and the
+# state-averaged k=2 pair, the OptOrbMCVQE reference values
+# (tests/test_casscf.py:203, decimal 5)
+H2_CASSCF_TOL = 1e-4
+H2_SA_REFERENCE = (-1.85703467, -1.46615986)
+H2_SA_TOL = 1.5e-5
 
 # published H100 peaks (NVIDIA data sheets): memory bytes/s and the
 # float32 CUDA-core FLOP/s (the kernels use no tensor cores)
@@ -355,8 +381,24 @@ def phase_kernels(card: str) -> dict:
     # n^3 m (V) and n^4 (the accumulators)
     k2_flops = 2 * (m * m * (m * m * n + m * n * n)
                     + m * (m * n ** 3 + n ** 4))
-    for rec, nbytes, flops in ((k1, k1_bytes, k1_flops),
-                               (k2, k2_bytes, k2_flops)):
+    k1_h8, chain_h8 = _kernels_at_casscf_shape(checks)
+    # K1 at the CASSCF stage-1 shape (m=112, n=14), where it runs on a
+    # main path; the transform's chain route at (112, 14) in the same run.
+    # The chain's own traffic (each stage's input read and output written)
+    # is 809 MB; the function's, counted for bound_ms, is g in, g_rot out.
+    mh, nh = 112, 14
+    Mh = mh ** 3
+    chain_traffic = 4 * sum(mh * r + mh * nh + r * nh
+                            for r in (mh ** 3, mh * mh * nh, mh * nh * nh,
+                                      nh ** 3))
+    chain_h8["chain_traffic_bytes"] = chain_traffic
+    chain_h8["chain_traffic_bound_ms"] = chain_traffic / bw * 1e3
+    for rec, nbytes, flops in (
+            (k1, k1_bytes, k1_flops), (k2, k2_bytes, k2_flops),
+            (k1_h8, 4 * (mh * Mh + mh * nh + Mh * nh), 2 * Mh * mh * nh),
+            (chain_h8, 4 * (mh ** 4 + mh * nh + nh ** 4),
+             2 * (mh ** 4 * nh + mh ** 3 * nh ** 2 + mh ** 2 * nh ** 3
+                  + mh * nh ** 4))):
         t_bytes, t_ops = nbytes / bw * 1e3, flops / fl32 * 1e3
         rec.update(bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -365,11 +407,78 @@ def phase_kernels(card: str) -> dict:
          checks=checks, tolerance="f32 atol 5e-6*max(1,max|ref|); "
          "f64 1e-12*max(1,max|ref|)", peak_bytes_per_s=bw,
          peak_f32_flops=fl32, matmul=k1, rotate_two_body_cuda=k2,
+         matmul_casscf_stage1=k1_h8, rotate_two_body_chain_casscf=chain_h8,
          timing=f"ms: median over 50 calls after 5 warm-up of CUDA events "
          f"around each call, the calls queued behind a device spin (no host "
          f"launch gaps); kernel_ms: profiler kernel time per call; "
          f"host_100_calls_ms: host wall of 100 calls and one sync; {card}")
-    return {"gemm.matmul": k1, "gemm.rotate_two_body_cuda": k2}
+    return {"gemm.matmul": dict(k1_h8, shape="m=112 n=14 stage 1 "
+                                "(1404928x112)^T @ (112x14)",
+                                at_h4_stage1=k1),
+            "gemm.rotate_two_body_cuda": dict(
+                k2, shape="m=56 n=4 one-pass kernel",
+                chain_at_m112_n14=chain_h8)}
+
+
+def _kernels_at_casscf_shape(checks: list):
+    """K1 stage 1 and the transform's chain route at the CASSCF path's
+    shape (m=112, n=14, float32), held against their plain versions and
+    timed.  The 629 MB g does not fit the 50 MB L2, so every call reads
+    it from HBM and no flush is needed."""
+    import torch
+    from esoo_torch.ops import gemm
+    dev, f32 = torch.device("cuda"), torch.float32
+    m, n = 112, 14
+    if gemm._transform_plan(m, n, 4)[0] != "chain":
+        raise AssertionError("m=112 n=14 should take the chain route")
+    dgen = torch.Generator(device=dev).manual_seed(1)
+    g = torch.randn((m,) * 4, dtype=f32, device=dev, generator=dgen)
+    u = _partial_unitary(m, n, f32, torch.Generator().manual_seed(2)).to(dev)
+    x = g.reshape(m, m ** 3)
+    out = gemm.rotate_two_body_cuda(g, u)
+    stage = gemm.matmul(x, u, trans_x=True)
+    torch.cuda.synchronize()
+    for kernel, got, ref in (
+            ("gemm.rotate_two_body_cuda", out,
+             gemm.rotate_two_body_plain(g, u)),
+            ("gemm.matmul", stage, gemm.matmul_plain(x, u, trans_x=True))):
+        err = check_close(got, ref, f32, f"{kernel} m={m} n={n} (casscf)")
+        checks.append(dict(kernel=kernel, route="chain", m=m, n=n,
+                           dtype=str(f32), err=err, shape="casscf"))
+
+    def k1_call():
+        return gemm.matmul(x, u, trans_x=True)
+
+    def k1_plain():
+        return gemm.matmul_plain(x, u, trans_x=True)
+
+    def chain_call():
+        return gemm.rotate_two_body_cuda(g, u)
+
+    def chain_plain():
+        return gemm.rotate_two_body_plain(g, u)
+
+    def chain_library():
+        t = torch.tensordot(g, u, dims=([0], [0]))
+        t = torch.tensordot(t, u, dims=([0], [0]))
+        t = torch.tensordot(t, u, dims=([0], [0]))
+        return torch.tensordot(t, u, dims=([0], [0]))
+
+    chain_kernel_ms, chain_events = device_profile(chain_call, match="gemm_")
+    k1 = dict(ms=time_ms(k1_call), plain_ms=time_ms(k1_plain),
+              library_ms=time_ms(lambda: torch.matmul(x.T, u)),
+              kernel_ms=kernel_ms(k1_call, match="gemm_"),
+              plain_kernel_ms=kernel_ms(k1_plain),
+              max_abs_err=float((k1_call() - torch.matmul(x.T, u))
+                                .abs().max()))
+    chain = dict(ms=time_ms(chain_call), plain_ms=time_ms(chain_plain),
+                 library_ms=time_ms(chain_library),
+                 kernel_ms=chain_kernel_ms,
+                 kernel_launches_per_call=chain_events,
+                 plain_kernel_ms=kernel_ms(chain_plain),
+                 max_abs_err=float((chain_call() - chain_library())
+                                   .abs().max()))
+    return k1, chain
 
 
 def _solver(problem, n_act: int, dtype, device):
@@ -504,6 +613,272 @@ def phase_profile(problem) -> None:
                       for d, k, c in rows[:15]])
 
 
+def _casscf_solver(problem, n_act: int, dtype, device, **kw):
+    import esoo_torch
+    return esoo_torch.FusedOptOrbCASSCF(
+        num_spin_orbitals=2 * n_act, problem=problem, dtype=dtype,
+        device=device, **kw)
+
+
+def phase_casscf() -> dict:
+    """FusedOptOrbCASSCF on H8 cc-pVTZ (m=112 -> 28 spin orbitals), f32,
+    dense tables, maxiter 10, tol 1e-5: the configuration of the JAX
+    package's bench (bench.py:491-494).  One solve; the per-step costs are
+    taken at its final state."""
+    import torch
+    from esoo_torch.chem import MoleculeDriver
+    from esoo_torch.ops import gemm
+    from esoo_torch.orbital_optimization import kernels as K
+    from esoo_torch.orbital_optimization.casscf import _sector_ci_cached
+    from esoo_torch.orbital_optimization.fused import _ORBITAL_VAG
+    from esoo_torch.orbital_optimization.stiefel import _bb_loop
+
+    f32, dev = torch.float32, "cuda"
+    t0 = time.perf_counter()
+    problem = MoleculeDriver(atom=H8_GEOM, basis="cc-pvtz").run()
+    chem_s = time.perf_counter() - t0
+    if problem.num_spatial_orbitals != 112:
+        raise AssertionError(f"H8 cc-pVTZ gave m="
+                             f"{problem.num_spatial_orbitals}, expected 112")
+    t0 = time.perf_counter()
+    sector = _sector_ci_cached(28, problem.num_particles)
+    sector_s = time.perf_counter() - t0
+    if sector.dim != 1_002_001:
+        raise AssertionError(f"sector dimension {sector.dim}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver = _casscf_solver(problem, 14, f32, dev, maxiter=10,
+                            stopping_tolerance=1e-5, dispatch="two")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0          # integrals and tables sent
+
+    torch.cuda.reset_peak_memory_stats()
+    gemm.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = solver.compute_minimum_energy()
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = gemm.launch_counts()
+    routes = gemm.route_launch_counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    E, trace, stats = r.eigenvalue, r.energy_convergence_list, r.stage_stats
+    rotations = stats["davidson_solves"]     # one rotation before each solve
+
+    # per-step costs at the final state: one sigma (the Davidson matvec),
+    # the sigma operators and the diagonal (once per solve), one RDM
+    # extraction, one orbital value and grad, and one BB iteration (value
+    # and grad, the projection and the stop test)
+    sec, tabs = solver._sector, solver._sector_tables
+    U = torch.as_tensor(r.optimal_partial_unitary, device=dev)
+    V = torch.as_tensor(r.optimal_point, device=dev).reshape(sec.nB, sec.nA)
+    h_so, g_so = K.expand_spin_tensors(
+        K.rotate_one_body(solver._h_sp, U), K.rotate_two_body(solver._g_sp, U))
+    vals = sec.build_values(h_so, g_so, tabs)
+    gamma_s, Gamma_s = K.spin_reduce_rdms(*sec.rdms(V, tabs))
+    data = (gamma_s, Gamma_s, solver._h_sp, solver._g_sp)
+    scalar = functools.partial(torch.tensor, dtype=f32, device=dev)
+
+    def bb(steps):
+        return _bb_loop(_ORBITAL_VAG, U, data, scalar(1e-3), scalar(1e-30),
+                        scalar(0.8), steps)
+
+    # one BB iteration: the difference of an 11- and a 1-step loop, over 10
+    steps = {"sigma": (lambda: sec.sigma_values(V, vals, tabs), 1),
+             "build_values": (lambda: sec.build_values(h_so, g_so, tabs), 1),
+             "diagonal": (lambda: sec.diagonal_values(vals, tabs), 1),
+             "rdms": (lambda: sec.rdms(V, tabs), 1),
+             "orbital_value_and_grad": (lambda: _ORBITAL_VAG(U, *data), 1),
+             "bb_iteration": (lambda: bb(11), 10)}
+    per_step = {}
+    for name, (fn, per) in steps.items():
+        base = (lambda: bb(1)) if name == "bb_iteration" else (lambda: None)
+        times = []
+        for f in (fn, base):
+            f()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                f()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) / 3 * 1e3)
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - before
+        dev_ms, events = device_profile(fn, reps=3)
+        if name == "bb_iteration":
+            dev_base, ev_base = device_profile(base, reps=3)
+            dev_ms, events = dev_ms - dev_base, events - ev_base
+        per_step[name] = dict(wall_ms=(times[0] - times[1]) / per,
+                              device_ms=dev_ms / per,
+                              device_events=events / per,
+                              peak_extra_bytes=extra)
+    diag_abs_max = float(sec.diagonal_values(vals, tabs).abs().max())
+    witness = _casscf_f64_witness(problem, solver, r, vals)
+
+    failed = []
+    if not abs(E - H8_CASSCF_REFERENCE) <= H8_CASSCF_TOL:
+        failed.append(f"energy {E!r} not within {H8_CASSCF_TOL} of "
+                      f"{H8_CASSCF_REFERENCE}")
+    if not E <= trace[0]:
+        failed.append(f"energy {E!r} above the first outer energy "
+                      f"{trace[0]!r}")
+    # The float32 Davidson stalls above its 1e-6 * max(1, |E|) rule at
+    # nd = 1M: warm solves end by the stagnation exit at residuals of
+    # 2-4e-5, and warm solves restarted from the final vector leave it as
+    # it is, though sigma's own float32 error there is ~40x smaller (the
+    # float64 witness; PERF.md section 6).  So the final solve must end by
+    # one of the solver's own rules, not by maxiter, with its residual
+    # within 10x the rule, and the float64 ground energy at the final
+    # orbitals must agree with E.
+    rn_final = stats["davidson_residuals"][-1]
+    if (stats["davidson_exits"][-1] == "maxiter"
+            or not rn_final <= 10 * 1e-6 * max(1.0, abs(E))):
+        failed.append(f"the final Davidson solve ended by "
+                      f"{stats['davidson_exits'][-1]} with residual "
+                      f"{rn_final!r} (limit 1e-5 * max(1, |E|))")
+    if not abs(witness["energy_f64"] - E) <= H8_F64_WITNESS_TOL:
+        failed.append(f"the float64 energy at the final orbitals "
+                      f"{witness['energy_f64']!r} differs from {E!r} by "
+                      f"more than {H8_F64_WITNESS_TOL}")
+    if not (rotations == r.outer_iterations + 1
+            and launches["gemm.matmul"] == 4 * rotations
+            and launches["gemm.rotate_two_body_cuda"] == 4 * rotations
+            and routes == {"fused": 0, "chain": 4 * rotations}):
+        failed.append(f"{rotations} rotations but launches {launches}, "
+                      f"routes {routes}")
+    emit("casscf", problem="H8 cc-pVTZ m=112 -> 28 spin orbitals, (4, 4) "
+         "electrons, 1,002,001 determinants, f32, dense tables, maxiter 10",
+         energy=E, energy_gates=[H8_CASSCF_REFERENCE, H8_CASSCF_TOL,
+                                 H8_F64_WITNESS_TOL],
+         outer_trace=trace, outer_iterations=r.outer_iterations,
+         stage_stats=stats, chem_s=chem_s, sector_ci_s=sector_s,
+         setup_s=setup_s, solve_s=solve_s, eri_engine=problem.eri_engine,
+         peak_memory_bytes=peak_bytes, launches=launches,
+         transform_route_launches=routes, per_step=per_step,
+         diag_abs_max=diag_abs_max, f64_witness=witness,
+         gates_failed=failed)
+    if failed:
+        raise AssertionError("H8 CASSCF gates failed: " + "; ".join(failed))
+    return launches
+
+
+def _casscf_f64_witness(problem, solver, r, vals32) -> dict:
+    """What the float32 solve's final state is worth, held against float64
+    on the card at the final orbitals U:
+
+      sigma_f32_err     ||sigma_f32(x) - sigma_f64(x)|| at the final unit
+                        vector x, the same float32 operators cast up: the
+                        float32 arithmetic of sigma alone;
+      residual_f64      ||H x - (x.H x) x|| with H built in float64 from the
+                        float64 integrals at U: x's true residual (and
+                        energy_f64_of_x, x.H x);
+      restarts          the float32 residual after each of up to 3 warm
+                        float32 Davidson solves chained from x (each appends
+                        at least one correction), and the float64 residual
+                        of the last vector;
+      ritz_step         one Rayleigh-Ritz step over [x, t], t the solver's
+                        correction, its 2x2 projection formed in float32
+                        and in float64 arithmetic from the same float32
+                        vectors and images; each step's residual evaluated
+                        in float64;
+      energy_f64        the float64 Davidson ground energy at U (tol 1e-9).
+
+    The float64 operators take the plain transform (no kernel launch)."""
+    import torch
+    from esoo_torch.ops import gemm
+    from esoo_torch.orbital_optimization import kernels as K
+    from esoo_torch.solvers import davidson_ground
+    from esoo_torch.solvers.davidson import _guard
+    f64, dev = torch.float64, solver.device
+    sec, tabs32 = solver._sector, solver._sector_tables
+    nB, nA = sec.nB, sec.nA
+    tabs64 = sec.device_tables(f64, device=dev)
+    x32 = torch.as_tensor(r.optimal_point, device=dev).reshape(nB, nA)
+    x32 = x32 / torch.linalg.norm(x32)
+    up = {k: v.double() for k, v in vals32.items()}
+    sigma_err = float(torch.linalg.norm(
+        sec.sigma_values(x32, vals32, tabs32).double()
+        - sec.sigma_values(x32.double(), up, tabs64)))
+
+    h_np, g_np = problem.spatial_integral_tensors()
+    U = torch.as_tensor(r.optimal_partial_unitary, device=dev).double()
+    h_so, g_so = K.expand_spin_tensors(
+        K.rotate_one_body(torch.as_tensor(h_np, device=dev), U),
+        gemm.rotate_two_body_plain(
+            torch.as_tensor(g_np, device=dev).contiguous(), U))
+    del g_np
+    vals64 = sec.build_values(h_so, g_so, tabs64)
+    diag64 = sec.diagonal_values(vals64, tabs64).reshape(-1)
+
+    def mv64(v):
+        return sec.sigma_values(v.reshape(nB, nA), vals64,
+                                tabs64).reshape(-1)
+
+    def residual64(v):
+        """(x.H x, ||H x - (x.H x) x||) of v normalized, H in float64."""
+        v = v.double().reshape(-1)
+        v = v / torch.linalg.norm(v)
+        hv = mv64(v)
+        e = torch.dot(v, hv)
+        return float(e), float(torch.linalg.norm(hv - e * v))
+
+    diag32 = sec.diagonal_values(vals32, tabs32).reshape(-1)
+
+    def mv32(v):
+        return sec.sigma_values(v.reshape(nB, nA), vals32,
+                                tabs32).reshape(-1)
+
+    rule = 1e-6 * max(1.0, abs(r.eigenvalue))
+    v, restarts = x32.reshape(-1), []
+    t0 = time.perf_counter()     # every Davidson iteration syncs the host
+    for _ in range(3):
+        res = davidson_ground(mv32, diag32, v, tol=1e-6)
+        v = res.eigenvector
+        restarts.append(dict(residual=float(res.residual_norm),
+                             matvecs=res.iterations,
+                             energy=float(res.eigenvalue)))
+        if restarts[-1]["residual"] < rule:
+            break
+    restart_s = time.perf_counter() - t0
+
+    # the solver's first correction at x, all in float32
+    xv = x32.reshape(-1)
+    hx = mv32(xv)
+    t = (hx - torch.dot(xv, hx) * xv) / _guard(diag32 - torch.dot(xv, hx))
+    for _ in range(2):
+        t = t - torch.dot(xv, t) * xv
+    t = t / torch.linalg.norm(t)
+    X, HX = torch.stack([xv, t]), torch.stack([hx, mv32(t)])
+
+    def ritz_step(dt):
+        G = X.to(dt) @ HX.to(dt).T
+        y = torch.linalg.eigh((G + G.T) / 2.0)[1][:, 0].double()
+        v, hv = y @ X.double(), y @ HX.double()
+        n = torch.linalg.norm(v)
+        v, hv = v / n, hv / n
+        return dict(coefficient_of_t=float(y[1] / y[0]), residual=float(
+            torch.linalg.norm(hv - torch.dot(v, hv) * v)))
+
+    e64_x, rn64_x = residual64(x32)
+    t0 = time.perf_counter()
+    res64 = davidson_ground(mv64, diag64, x32.reshape(-1).double(), tol=1e-9)
+    f64_s = time.perf_counter() - t0
+    return dict(sigma_f32_err=sigma_err,
+                residual_f32_reported=r.stage_stats["davidson_residuals"][-1],
+                residual_f64=rn64_x, energy_f64_of_x=e64_x, rule=rule,
+                restarts=restarts, restart_s=restart_s,
+                restarts_residual_f64=residual64(v)[1],
+                ritz_step={"float32": ritz_step(torch.float32),
+                           "float64": ritz_step(f64)},
+                energy_f32=r.eigenvalue, energy_f64=float(res64.eigenvalue),
+                energy_f64_residual=float(res64.residual_norm),
+                energy_f64_matvecs=res64.iterations, energy_f64_s=f64_s)
+
+
 def phase_parity() -> None:
     import torch
     from esoo_torch.chem import MoleculeDriver
@@ -530,6 +905,32 @@ def phase_parity() -> None:
          reference=H2_REFERENCE, tolerance=H2_TOL, gpu_s=gpu_s,
          launches=launches, transform_route_launches=routes)
 
+    import esoo_torch
+    f64 = torch.float64
+    gemm.reset_launch_counts()
+    cas = [_casscf_solver(problem, 2, f64, d,
+                          maxiter=20).compute_minimum_energy().eigenvalue
+           for d in ("cuda", "cpu")]
+    cas_launches = gemm.launch_counts()
+    sa = esoo_torch.FusedOptOrbSACASSCF(
+        4, k=2, problem=problem, maxiter=20, dtype=f64,
+        device="cuda").compute_energies().eigenvalues
+    if not (abs(cas[0] - H2_REFERENCE) <= H2_CASSCF_TOL
+            and abs(cas[0] - cas[1]) <= 1e-8):
+        raise AssertionError(f"H2 CASSCF f64 card {cas[0]!r}, CPU "
+                             f"{cas[1]!r}, reference {H2_REFERENCE}")
+    if not all(abs(e - ref) <= H2_SA_TOL
+               for e, ref in zip(sa, H2_SA_REFERENCE)):
+        raise AssertionError(f"H2 SA-CASSCF k=2 {list(sa)} not within "
+                             f"{H2_SA_TOL} of {H2_SA_REFERENCE}")
+    if cas_launches["gemm.rotate_two_body_cuda"] <= 0:
+        raise AssertionError("the CASSCF run did not launch the transform")
+    emit("parity_casscf", problem="H2 6-31G -> 4 spin orbitals, f64",
+         casscf_gpu=cas[0], casscf_cpu=cas[1], casscf_tolerance=[
+             H2_CASSCF_TOL, 1e-8], sa_casscf_gpu=[float(e) for e in sa],
+         sa_reference=H2_SA_REFERENCE, sa_tolerance=H2_SA_TOL,
+         launches=cas_launches)
+
 
 def main() -> int:
     import torch
@@ -544,6 +945,8 @@ def main() -> int:
     timed = phase_kernels(card)
     launches, problem = phase_main_path()
     phase_profile(problem)
+    del problem
+    casscf_launches = phase_casscf()
     phase_parity()
 
     table = []
@@ -555,15 +958,19 @@ def main() -> int:
                    "esoo_tpu/ops/pallas_kernels.py:108",
                    "esoo_torch/csrc/transform.cu",
                    {"chain_source": "esoo_torch/csrc/gemm.cu (n > 8)"})}
+    # launches: both main paths' runs, each with the counts zeroed just
+    # before it; the numbers are at the row's `shape`, other shapes nested
     for name, (replaces, source, extra) in sources.items():
-        rec = timed[name]
+        rec = dict(timed[name])
         table.append(dict(
-            name=name, route="cuda", source=source,
-            replaces=replaces, launches=launches[name],
-            max_abs_err=rec["max_abs_err"], ms=rec["ms"],
-            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
-            **extra))
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches[name] + casscf_launches[name],
+            launches_by_path={"vqe_h4": launches[name],
+                              "casscf_h8": casscf_launches[name]},
+            max_abs_err=rec.pop("max_abs_err"), ms=rec.pop("ms"),
+            plain_ms=rec.pop("plain_ms"), bound_ms=rec.pop("bound_ms"),
+            bound_by=rec.pop("bound_by"), library_ms=rec.pop("library_ms"),
+            **extra, **rec))
     emit("done", total_s=time.perf_counter() - t_start)
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)

@@ -20,10 +20,14 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-from .orbital_optimization.fused import (FusedOptOrbResult,  # noqa: E402
-                                         FusedOptOrbVQE)
-from .sim.ansatz import UCCSD, HartreeFock  # noqa: E402
+from .orbital_optimization import (FusedOptOrbCASSCF,  # noqa: E402
+                                   FusedOptOrbEigensolverResult,
+                                   FusedOptOrbResult, FusedOptOrbSACASSCF,
+                                   FusedOptOrbVQE)
+from .sim import UCCSD, HartreeFock, SectorCI  # noqa: E402
 
 __version__ = "0.1.0"
 
-__all__ = ["FusedOptOrbResult", "FusedOptOrbVQE", "HartreeFock", "UCCSD"]
+__all__ = ["FusedOptOrbCASSCF", "FusedOptOrbEigensolverResult",
+           "FusedOptOrbResult", "FusedOptOrbSACASSCF", "FusedOptOrbVQE",
+           "HartreeFock", "SectorCI", "UCCSD"]

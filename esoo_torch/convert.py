@@ -2,7 +2,8 @@
 
 The port imports nothing of `esoo_tpu`; what crosses is plain NumPy, e.g.
 `np.asarray` of an `esoo_tpu` FusedOptOrbVQE's `_h_sp`, `_g_sp`, `_U0`,
-`_theta0`, or of a SectorUCC's `_str_tabs._asdict()`.  The parity tests
+`_theta0`, of a FusedOptOrbCASSCF's `_v0` (FusedOptOrbSACASSCF: `_V0`,
+`_weights`), or of a SectorUCC's `_str_tabs._asdict()`.  The parity tests
 feed both packages the same state this way.
 """
 
@@ -14,13 +15,16 @@ import torch
 from .sim import strings as _strings
 
 
-def tensors_from_numpy(h_sp, g_sp, U, theta, *, dtype: torch.dtype,
-                       device) -> tuple:
-    """(h_sp, g_sp, U, theta) as contiguous tensors of `dtype` on
-    `device` (copied: the arrays of the other package may be read-only)."""
+def tensors_from_numpy(*arrays, dtype: torch.dtype, device) -> tuple:
+    """The arrays as contiguous tensors of `dtype` on `device` (copied:
+    the arrays of the other package may be read-only).  A VQE solver's
+    state is (h_sp, g_sp, U0, theta0); a CASSCF solver's (h_sp, g_sp,
+    U0, v0), with the sector start vector v0 (nd,), or for the
+    state-averaged solver (h_sp, g_sp, U0, V0, weights) with the (k, nd)
+    start block."""
     return tuple(torch.as_tensor(np.array(a, dtype=np.float64, order="C"),
                                  device=device).to(dtype)
-                 for a in (h_sp, g_sp, U, theta))
+                 for a in arrays)
 
 
 def string_tables_from_numpy(host: dict, *, dtype: torch.dtype,
@@ -35,7 +39,11 @@ def string_tables_from_numpy(host: dict, *, dtype: torch.dtype,
         if k in ("A", "B"):
             continue
         a = np.asarray(a)
-        if np.issubdtype(a.dtype, np.integer) and k not in ("MA", "MB"):
+        if k in ("MA", "MB"):
+            # the sign stacks cross as they are stored (int8) and are
+            # cast on the device: every entry is 0 or +-1, so exact
+            out[k] = torch.as_tensor(a, device=device).to(dtype)
+        elif np.issubdtype(a.dtype, np.integer):
             out[k] = torch.as_tensor(a.astype(np.int64), device=device)
         else:
             out[k] = torch.as_tensor(a.astype(np.float64),

@@ -1,5 +1,9 @@
-"""OptOrb solvers: integral rotation, Stiefel descent, the fused loop."""
+"""OptOrb solvers: integral rotation, Stiefel descent, the fused loops
+(VQE and exact CASSCF)."""
 
-from .fused import FusedOptOrbResult, FusedOptOrbVQE
+from .casscf import FusedOptOrbCASSCF, FusedOptOrbSACASSCF
+from .fused import (FusedOptOrbEigensolverResult, FusedOptOrbResult,
+                    FusedOptOrbVQE)
 
-__all__ = ["FusedOptOrbResult", "FusedOptOrbVQE"]
+__all__ = ["FusedOptOrbCASSCF", "FusedOptOrbEigensolverResult",
+           "FusedOptOrbResult", "FusedOptOrbSACASSCF", "FusedOptOrbVQE"]

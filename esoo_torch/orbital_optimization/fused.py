@@ -68,14 +68,41 @@ class FusedOptOrbResult:
         return self.optimal_point
 
 
+@dataclasses.dataclass
+class FusedOptOrbEigensolverResult:
+    """Result of a k-state solver (esoo_tpu fused.py:578)."""
+    eigenvalues: np.ndarray
+    optimal_point: np.ndarray
+    optimal_partial_unitary: np.ndarray
+    energy_convergence_list: list     # weighted sums per outer iteration
+    outer_iterations: int
+    # per-state descending natural occupations (k, n) and <S^2> (k,)
+    natural_occupations: Optional[np.ndarray] = None
+    spin_squared: Optional[np.ndarray] = None
+    # per-state spin-summed spatial 1-RDMs over the active orbitals,
+    # (k, n, n)
+    one_rdm_spatial: Optional[np.ndarray] = None
+    # spin-summed spatial transition 1-RDMs t[i, j] = <psi_i|E_ps|psi_j>,
+    # (k, k, n, n)
+    transition_rdm1_spatial: Optional[np.ndarray] = None
+    # per-state spatial spin densities gamma_aa - gamma_bb, (k, n, n)
+    spin_density_spatial: Optional[np.ndarray] = None
+
+    @property
+    def optimal_parameters(self):
+        return self.optimal_point
+
+
 def _inner_bb(vag_fn, U0, data, stepsize, tol, decay, maxiter,
               stats: Optional[dict] = None):
     """BB projected-gradient descent (the loop of stiefel.py)."""
     t0 = time.perf_counter()
     U, k, _, _ = _bb_loop(vag_fn, U0, data, stepsize, tol, decay, maxiter)
     if stats is not None:
+        seconds = time.perf_counter() - t0
         stats["bb_iterations"] += k - 1
-        stats["bb_s"] += time.perf_counter() - t0
+        stats["bb_s"] += seconds
+        stats.setdefault("bb_s_per_call", []).append(seconds)
     return U
 
 
@@ -128,46 +155,67 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def _fused_optorb_vqe(sector, theta0, U0, h_sp, g_sp, outer_tol, inner_tol,
-                      bb_stepsize, decay, outer_maxiter: int = 20,
-                      inner_maxiter: int = 10000, vqe_maxiter: int = 200,
-                      vqe_ftol=None, callback: Optional[Callable] = None,
-                      stats: Optional[dict] = None):
-    """The outer loop (esoo_tpu fused.py:499-574).  Returns
-    (E, theta, U, n_outer, energy_trace)."""
-    run_vqe, extract_rdms = _vqe_stage_fns(sector, vqe_maxiter, h_sp.dtype,
-                                           ftol=vqe_ftol, stats=stats)
+def _optorb_loop(solve: Callable, extract_rdms: Callable, state, U0, h_sp,
+                 g_sp, outer_tol, inner_tol, bb_stepsize, decay,
+                 outer_maxiter: int = 20, inner_maxiter: int = 10000,
+                 weights: Optional[torch.Tensor] = None,
+                 final_solve: Optional[Callable] = None,
+                 callback: Optional[Callable] = None,
+                 stats: Optional[dict] = None):
+    """The OptOrb outer loop of every fused solver (esoo_tpu
+    fused.py:499-574, casscf.py:119-174 and 639-696).
+
+    solve(state, h_act, g_act) -> (state, es) runs the eigensolver stage
+    at the rotated integrals (es a scalar, or the (k,) energies whose
+    `weights` sum the convergence rule reads); extract_rdms(state) ->
+    spin-orbital (gamma, Gamma).  The final re-solve runs `final_solve`
+    (default `solve`).  Returns (es, state, U, n_outer, energy_trace)."""
     trace = np.full((outer_maxiter,), np.nan)
-    theta, U = theta0, orth(U0)
+    U = orth(U0)
     E_prev = torch.full((), float("inf"), dtype=h_sp.dtype,
                         device=h_sp.device)
     it = 0
     while True:
         h_act = rotate_one_body(h_sp, U)
         g_act = rotate_two_body(g_sp, U)
-        theta, E = run_vqe(theta, h_act, g_act)
+        state, es = solve(state, h_act, g_act)
+        E = es if weights is None else weights @ es
         trace[it] = float(E)
         if callback is not None:
-            callback(it + 1, float(E), _numpy(theta), _numpy(U), trace)
+            callback(it + 1, _numpy(es), _numpy(state), _numpy(U), trace)
         converged = bool(torch.abs(E - E_prev) < outer_tol)
         it += 1
         if converged:
             # keep the pre-rotation U (the one that produced E); the JAX
             # program computes and discards the rotated U here
             break
-        gamma, Gamma = extract_rdms(theta)
+        gamma, Gamma = extract_rdms(state)
         gamma_s, Gamma_s = spin_reduce_rdms(gamma, Gamma)
         U = _inner_bb(_ORBITAL_VAG, U, (gamma_s, Gamma_s, h_sp, g_sp),
                       bb_stepsize, inner_tol, decay, inner_maxiter, stats)
         if it >= outer_maxiter:
             break
         E_prev = E
-    # re-solve at the final U so (E, theta, U) are mutually consistent even
+    # re-solve at the final U so (E, state, U) are mutually consistent even
     # when the loop ended on hit_max (where U is the freshly rotated one)
     h_act = rotate_one_body(h_sp, U)
     g_act = rotate_two_body(g_sp, U)
-    theta, E = run_vqe(theta, h_act, g_act)
-    return E, theta, U, it, trace[:it]
+    state, es = (final_solve or solve)(state, h_act, g_act)
+    return es, state, U, it, trace[:it]
+
+
+def _fused_optorb_vqe(sector, theta0, U0, h_sp, g_sp, outer_tol, inner_tol,
+                      bb_stepsize, decay, outer_maxiter: int = 20,
+                      inner_maxiter: int = 10000, vqe_maxiter: int = 200,
+                      vqe_ftol=None, callback: Optional[Callable] = None,
+                      stats: Optional[dict] = None):
+    """The VQE outer loop.  Returns (E, theta, U, n_outer, energy_trace)."""
+    run_vqe, extract_rdms = _vqe_stage_fns(sector, vqe_maxiter, h_sp.dtype,
+                                           ftol=vqe_ftol, stats=stats)
+    return _optorb_loop(run_vqe, extract_rdms, theta0, U0, h_sp, g_sp,
+                        outer_tol, inner_tol, bb_stepsize, decay,
+                        outer_maxiter, inner_maxiter, callback=callback,
+                        stats=stats)
 
 
 def _attach_vqe_diagnostics(result, solver, theta):
@@ -345,7 +393,8 @@ class FusedOptOrbVQE:
             return torch.tensor(v, dtype=dtype, device=dev)
 
         stats = {"bb_iterations": 0, "lbfgs_iterations": 0,
-                 "lbfgs_evaluations": 0, "lbfgs_s": 0.0, "bb_s": 0.0}
+                 "lbfgs_evaluations": 0, "lbfgs_s": 0.0, "bb_s": 0.0,
+                 "bb_s_per_call": []}
         E, theta, U, it, trace = _fused_optorb_vqe(
             self._sector, self._theta0, self._U0, self._h_sp, self._g_sp,
             scalar(self.stopping_tolerance),

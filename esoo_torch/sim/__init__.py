@@ -1,7 +1,8 @@
-"""Particle-number-sector simulation of UCC ansaetze."""
+"""Particle-number-sector simulation of UCC ansaetze, and the gate-free
+sector of exact CASSCF."""
 
 from .ansatz import UCC, UCCSD, HartreeFock, generate_excitations
-from .sector import SectorUCC
+from .sector import SectorCI, SectorUCC
 
-__all__ = ["HartreeFock", "SectorUCC", "UCC", "UCCSD",
+__all__ = ["HartreeFock", "SectorCI", "SectorUCC", "UCC", "UCCSD",
            "generate_excitations"]

@@ -9,7 +9,7 @@ turns into per-gate operations on an (nB, nA) string matrix.
 
 Only the string kernel is ported: a circuit whose sector does not
 factorize raises (the pairwise gather kernels are ROADMAP queue 1,
-item 10).
+item 10).  `SectorCI` is the gate-free full sector of exact CASSCF.
 """
 
 from __future__ import annotations
@@ -55,6 +55,20 @@ def _initial_mask_from_circuit(circ) -> int:
             "sector simulation requires an occupation-basis initial state "
             f"(an OccupationState); found {type(circ).__name__}")
     return int(mask)
+
+
+def _device_rdm_maps(cache: dict, n: int, device) -> tuple:
+    """strings.build_rdm_maps(n) as tensors on `device`, cached in
+    `cache` per device."""
+    device = torch.device(device)
+    maps = cache.get(str(device))
+    if maps is None:
+        IDX, SGN, CASE_A = _strings.build_rdm_maps(n)
+        maps = (torch.as_tensor(IDX, dtype=torch.int64, device=device),
+                torch.as_tensor(SGN, device=device),
+                torch.as_tensor(CASE_A, device=device))
+        cache[str(device)] = maps
+    return maps
 
 
 class SectorUCC:
@@ -170,15 +184,7 @@ class SectorUCC:
         return tabs
 
     def rdm_maps(self, *, device) -> tuple:
-        device = torch.device(device)
-        maps = self._rdm_maps.get(str(device))
-        if maps is None:
-            IDX, SGN, CASE_A = _strings.build_rdm_maps(self.num_qubits // 2)
-            maps = (torch.as_tensor(IDX, dtype=torch.int64, device=device),
-                    torch.as_tensor(SGN, device=device),
-                    torch.as_tensor(CASE_A, device=device))
-            self._rdm_maps[str(device)] = maps
-        return maps
+        return _device_rdm_maps(self._rdm_maps, self.num_qubits // 2, device)
 
     # -- simulation ----------------------------------------------------------
     def state_matrix(self, theta: torch.Tensor, tables: dict = None
@@ -223,4 +229,123 @@ class SectorUCC:
             self.device_tables(v.dtype, device=v.device)
         V = v.reshape(-1)[: self.dim].reshape(self.nB, self.nA)
         return _strings.rdms(V, tabs, self.rdm_maps(device=v.device))
+
+
+class SectorCI:
+    """Gate-free determinant sector (port of esoo_tpu sim/sector.py
+    SectorCI): the string sigma/RDM/diagonal kernels over the full
+    (na, nb) sector, the operator backbone of exact active-space
+    diagonalization (orbital_optimization/casscf.py).
+
+      device_tables(dtype, device=...)   -> operator stacks and pair maps
+      build_values(h_so, g_so)           -> sigma-operator dict
+      sigma_values(V, vals)              -> H @ V on the string grid
+      diagonal_values(vals)              -> exact diag(H) over the grid
+      rdms(V) / transition_rdm1(U, V)    -> spin-orbital RDMs
+      hf_matrix(dtype, device=...)       -> HF unit vector as (nB, nA)
+
+    Without `tables`, a method uses the tables at its input's dtype and
+    device (built once and cached on the instance)."""
+
+    def __init__(self, num_spin_orbitals: int,
+                 num_particles: Tuple[int, int]):
+        N = num_spin_orbitals
+        n = N // 2
+        na, nb = num_particles
+        self.num_qubits = N
+        self.num_particles = (int(na), int(nb))
+        dets = np.asarray(
+            enumerate_determinants(N, (na, nb), max_excitation=na + nb),
+            dtype=np.int64)
+        self.dets = dets
+        self.dim = len(dets)
+        # the full sector over both spins is always a product grid
+        self._str_tabs = _strings.build_string_tables(dets, n, [], [], [])
+        self.nA = len(self._str_tabs.A)
+        self.nB = len(self._str_tabs.B)
+        hf_mask = ((1 << na) - 1) | (((1 << nb) - 1) << n)
+        self.init_index = int(np.searchsorted(dets, hf_mask))
+        self._dev_tabs = {}
+        self._rdm_maps = {}
+
+    def device_tables(self, dtype: torch.dtype = torch.float64, *, device,
+                      storage: str = "dense") -> dict:
+        """The operator stacks MA/MB (sent as int8, cast on the device)
+        and CROSS at `dtype`, the LIN pair maps int64, on `device`.
+        Cached per (dtype, device): at N=28 each stack is 785 MB in
+        float32."""
+        if storage in ("compact", "int8"):
+            raise NotImplementedError(
+                f"storage={storage!r} (int8 operator stacks and the "
+                "operator-chunked kernels) is not ported yet: ROADMAP "
+                "queue 1, item 6 (what was left out)")
+        if storage != "dense":
+            raise ValueError(
+                "storage must be 'dense', 'compact', or 'int8'")
+        device = torch.device(device)
+        key = (dtype, str(device))
+        tabs = self._dev_tabs.get(key)
+        if tabs is None:
+            s = self._str_tabs
+            tabs = dict(
+                MA=torch.as_tensor(s.MA, device=device).to(dtype),
+                MB=torch.as_tensor(s.MB, device=device).to(dtype),
+                LIN_A=torch.as_tensor(s.LIN_A.astype(np.int64),
+                                      device=device),
+                LIN_B=torch.as_tensor(s.LIN_B.astype(np.int64),
+                                      device=device),
+                CROSS=torch.as_tensor(s.CROSS, device=device).to(dtype))
+            self._dev_tabs[key] = tabs
+        return tabs
+
+    def rdm_maps(self, *, device) -> tuple:
+        return _device_rdm_maps(self._rdm_maps, self.num_qubits // 2, device)
+
+    def _tabs(self, tables, like: torch.Tensor) -> dict:
+        return tables if tables is not None else \
+            self.device_tables(like.dtype, device=like.device)
+
+    def hf_matrix(self, dtype: torch.dtype, *, device) -> torch.Tensor:
+        """The Hartree-Fock determinant as a unit (nB, nA) string matrix
+        (the Davidson starting vector)."""
+        v = torch.zeros(self.nB * self.nA, dtype=dtype, device=device)
+        v[self.init_index] = 1.0
+        return v.reshape(self.nB, self.nA)
+
+    def build_values(self, h_so: torch.Tensor, g_so: torch.Tensor,
+                     tables: dict = None) -> dict:
+        """Sigma-operator dict from spin-orbital integrals (package
+        convention E = sum h gamma + sum g Gamma)."""
+        return _strings.build_ops(h_so, g_so, self._tabs(tables, h_so))
+
+    def sigma_values(self, V: torch.Tensor, vals: dict,
+                     tables: dict = None) -> torch.Tensor:
+        return _strings.sigma(V, vals, self._tabs(tables, V))
+
+    def quadform_values(self, V: torch.Tensor, vals: dict,
+                        tables: dict = None) -> torch.Tensor:
+        return _strings.quadform(V, vals, self._tabs(tables, V))
+
+    def diagonal_values(self, vals: dict, tables: dict = None
+                        ) -> torch.Tensor:
+        return _strings.diagonal(vals, self._tabs(tables, vals["FA"]))
+
+    def rdms(self, V: torch.Tensor, tables: dict = None):
+        """Spin-orbital (gamma, Gamma) from a normalized (nB, nA) string
+        matrix."""
+        return _strings.rdms(V, self._tabs(tables, V),
+                             self.rdm_maps(device=V.device))
+
+    def transition_rdm1(self, U: torch.Tensor, V: torch.Tensor,
+                        tables: dict = None) -> torch.Tensor:
+        """Spin-orbital transition 1-RDM gamma[p, s] = <u|a+_p a_s|v>;
+        U may be batched (k, nB, nA) -> (k, N, N)."""
+        return _strings.transition_rdm1(U, V, self._tabs(tables, V))
+
+    def to_full(self, V: torch.Tensor) -> torch.Tensor:
+        """Scatter a (nB, nA) string matrix into the 2^N statevector."""
+        full = torch.zeros(2 ** self.num_qubits, dtype=V.dtype,
+                           device=V.device)
+        full[torch.as_tensor(self.dets, device=V.device)] = V.reshape(-1)
+        return full
 

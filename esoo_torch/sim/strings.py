@@ -411,3 +411,60 @@ def rdms(V: torch.Tensor, tabs: dict, maps):
     eye = torch.eye(N, dtype=dt, device=dev)
     Gamma = Gamma - CASE_A.to(dt) * torch.einsum("qr,ps->pqrs", eye, gamma)
     return gamma, Gamma
+
+
+def transition_rdm1(U: torch.Tensor, V: torch.Tensor,
+                    tabs: dict) -> torch.Tensor:
+    """Spin-orbital transition 1-RDM gamma[p, s] = <u| a+_p a_s |v>
+    between two states on the same string grid (only the same-spin
+    blocks are nonzero).  U may carry a leading batch axis
+    (k, nB, nA) -> (k, N, N): one T build against the whole bra stack.
+    transition_rdm1(v, v, tabs) equals rdms(v)[0]."""
+    dt = V.dtype
+    batched = U.dim() == 3
+    Ub = U if batched else U[None]
+    P_half = tabs["CROSS"].shape[0] // 2
+    nsp = int(round(np.sqrt(P_half)))
+    N = 2 * nsp
+    k = Ub.shape[0]
+    MA = tabs["MA"].to(dt)
+    MB = tabs["MB"].to(dt)
+    ga = torch.einsum("qbj,kbj->kq", torch.einsum("qji,bi->qbj", MA, V), Ub)
+    gb = torch.einsum("qja,kja->kq", torch.einsum("qji,ia->qja", MB, V), Ub)
+    gamma = torch.zeros((k, N, N), dtype=dt, device=V.device)
+    gamma[:, :nsp, :nsp] = ga[:, : nsp * nsp].reshape(k, nsp, nsp)
+    gamma[:, nsp:, nsp:] = gb[:, : nsp * nsp].reshape(k, nsp, nsp)
+    return gamma if batched else gamma[0]
+
+
+def diagonal(ops: dict, tabs: dict) -> torch.Tensor:
+    """Exact diagonal of the sector Hamiltonian over the (nB, nA) string
+    grid, the Davidson preconditioner (solvers/davidson.py):
+
+    diag(ib, ia) = FA[ia,ia] + FB[ib,ib]
+                 + sum_{a,b alpha} G2[a,b] (MA[a] MA[b])[ia,ia]
+                 + sum_{a,b beta}  G2[a,b] (MB[a] MB[b])[ib,ib]
+                 + sum_{a alpha, b beta} (G2[a,b] + G2[b,a])
+                       diag(MA[a])[ia] diag(MB[b])[ib]
+
+    (same-spin products need the full intermediate sum over j of
+    M[a,i,j] M[b,j,i]; cross-spin products factor over the grid)."""
+    dt = ops["FA"].dtype
+    MA = tabs["MA"].to(dt)
+    MB = tabs["MB"].to(dt)
+    qp = MA.shape[0]
+    G2 = ops["G2"]
+    AA = G2[:qp, :qp]
+    BB = G2[qp:, qp:]
+    W_cross = G2[:qp, qp:] + G2[qp:, :qp].T          # (qp, qp)
+    dA1 = torch.diagonal(ops["FA"])                  # (nA,)
+    dB1 = torch.diagonal(ops["FB"])                  # (nB,)
+    DA = torch.diagonal(MA, dim1=1, dim2=2)          # (qp, nA)
+    DB = torch.diagonal(MB, dim1=1, dim2=2)          # (qp, nB)
+    # same-spin: d2[i] = sum_ab G2[a,b] sum_j M[a,i,j] M[b,j,i]
+    WA = torch.einsum("ab,bji->aij", AA, MA)
+    dA2 = torch.einsum("aij,aij->i", MA, WA)
+    WB = torch.einsum("ab,bji->aij", BB, MB)
+    dB2 = torch.einsum("aij,aij->i", MB, WB)
+    cross = torch.einsum("ab,ai,bj->ji", W_cross, DA, DB)   # (nB, nA)
+    return (dA1 + dA2)[None, :] + (dB1 + dB2)[:, None] + cross

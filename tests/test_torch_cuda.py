@@ -135,3 +135,65 @@ def test_fused_h2_on_the_card_matches_the_cpu(card):
             assert gemm.launch_counts()["gemm.rotate_two_body_cuda"] > 0
     assert abs(runs[0] - runs[1]) <= 1e-8
     assert abs(runs[0] + 1.8661038079694765) <= 5e-4
+
+
+def test_chain_route_and_k1_at_the_casscf_shape(card):
+    """The CASSCF path's transform (m=112, n=14, float32: the chain route,
+    n > 8) and its K1 stage 1, (1404928 x 112)^T @ (112 x 14)."""
+    m, n = 112, 14
+    assert gemm._transform_plan(m, n, 4)[0] == "chain"
+    gen = torch.Generator(device=card).manual_seed(0)
+    g = torch.randn((m,) * 4, dtype=torch.float32, device=card,
+                    generator=gen)
+    u = torch.as_tensor(np.linalg.qr(np.random.default_rng(0).normal(
+        size=(m, n)))[0], device=card).float()
+    gemm.reset_launch_counts()
+    out = gemm.rotate_two_body_cuda(g, u)
+    torch.cuda.synchronize()
+    assert gemm.route_launch_counts() == {"fused": 0, "chain": 4}
+    _close(out, gemm.rotate_two_body_plain(g, u))
+    x = g.reshape(m, m ** 3)
+    _close(gemm.matmul(x, u, trans_x=True),
+           gemm.matmul_plain(x, u, trans_x=True))
+
+
+def test_casscf_h2_on_the_card_matches_the_cpu(card):
+    from esoo_torch import FusedOptOrbCASSCF
+    from esoo_torch.chem import MoleculeDriver
+    p = MoleculeDriver(atom="H 0 0 0; H 0 0 0.735", basis="6-31g").run()
+    runs = []
+    for device in ("cuda", "cpu"):
+        gemm.reset_launch_counts()
+        runs.append(FusedOptOrbCASSCF(4, problem=p, maxiter=20, device=device,
+                                      dtype=torch.float64
+                                      ).compute_minimum_energy().eigenvalue)
+        if device == "cuda":
+            assert gemm.launch_counts()["gemm.rotate_two_body_cuda"] > 0
+    assert abs(runs[0] - runs[1]) <= 1e-8
+    assert abs(runs[0] + 1.8661038) <= 1e-4
+
+
+def test_sector_ci_sigma_and_diagonal_at_n20_float32(card):
+    """SectorCI at N=20, (4, 4) (44,100 determinants): float32 on the card
+    against float64 on the CPU, within 5e-6 * max(1, max|ref|) (float32
+    products over up to ~2e4 terms; the CPU's float32 error is ~2e-7 of
+    the scale)."""
+    from esoo_torch.sim import SectorCI
+    sec = SectorCI(20, (4, 4))
+    rng = np.random.default_rng(20)
+    N = 20
+    h = rng.normal(size=(N, N))
+    g0 = rng.normal(size=(N,) * 4)
+    g = (g0 + g0.transpose(1, 0, 3, 2) + g0.transpose(2, 3, 0, 1)
+         + g0.transpose(3, 2, 1, 0))
+    V = rng.normal(size=(sec.nB, sec.nA))
+    V /= np.linalg.norm(V)
+    out = {}
+    for dev, dt in ((card, torch.float32), ("cpu", torch.float64)):
+        vals = sec.build_values(torch.as_tensor((h + h.T) / 2).to(dev, dt),
+                                torch.as_tensor(g).to(dev, dt))
+        out[dt] = (sec.sigma_values(torch.as_tensor(V).to(dev, dt), vals),
+                   sec.diagonal_values(vals))
+    for got, ref in zip(out[torch.float32], out[torch.float64]):
+        err = float((got.double().cpu() - ref).abs().max())
+        assert err <= 5e-6 * max(1.0, float(ref.abs().max()))
