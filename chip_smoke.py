@@ -8,11 +8,12 @@ Phases, one JSON line each:
             (nvcc for every csrc/*.cu and g++ for the ERI engine, all
             started together);
   kernels   each hand-written kernel against its plain PyTorch version at
-            the main path's shapes (stated tolerances), both routes of the
+            the main paths' shapes (stated tolerances), both routes of the
             transform (the one-pass kernel for n <= 8, the four-launch
-            GEMM chain beyond), and its time beside its bound, the plain
-            version's and the library call's (the transform also beside
-            the chain's, in the same run);
+            GEMM chain beyond, at the CASSCF shapes m=112, n=14 and 16),
+            and its time beside its bound, the plain version's and the
+            library call's (the transform also beside the chain's, in the
+            same run);
   main path FusedOptOrbVQE on H4 cc-pVTZ (m=56 -> 8 spin orbitals,
             UCCSD, f32) with the launch counts zeroed before and read
             after; energy gates against the reference values; per-step
@@ -30,6 +31,23 @@ Phases, one JSON line each:
             the final orbitals (sigma's float32 error, the final vector's
             float64 residual, restarted float32 solves, one Rayleigh-Ritz
             step projected in float32 and in float64, the float64 energy);
+  excited   the excited-state path: FusedOptOrbSSVQE on H4 cc-pVTZ
+            (m=56 -> 8, UCCSD, HF and the HOMO->LUMO alpha single, weights
+            [2, 1], f32) cold and warm, with the launch counts zeroed
+            before the cold run and read after; gates against the JAX
+            package's float64 energies of the same configuration and the
+            exact sector spectrum at the final orbitals; one L-BFGS
+            evaluation's wall and device time.  Then H2 6-31G -> 4 at f64:
+            SSVQE, MCVQE, VQD and AdaptVQE on the card against the port's
+            CPU runs;
+  compact   the third main path: FusedOptOrbCASSCF on H8 cc-pVTZ
+            (m=112 -> 32 spin orbitals, 3,312,400 determinants, f32,
+            maxiter 10) with the default table_storage='auto', which takes
+            the compact int8 tables; before it, the compact and dense
+            sigma, sigma operators, RDMs and diagonal held against each
+            other on one vector at N=32 (and sigma at N=28), each timed
+            with its extra peak memory; after it, the gates of the casscf
+            phase and a float64 witness on compact float64 tables;
   parity    H2 6-31G -> 4 spin orbitals at f64 on the card against the
             reference energies and the port's own CPU run: FusedOptOrbVQE,
             FusedOptOrbCASSCF and FusedOptOrbSACASSCF (k=2).
@@ -66,6 +84,29 @@ H8_CASSCF_TOL = 1e-3
 # the float64 ground energy at the H8 solve's final orbitals against its
 # float32 energy
 H8_F64_WITNESS_TOL = 1e-4
+# the JAX package's H8 cc-pVTZ -> 32 exact CASSCF, f32, compact int8
+# tables, 10 outer iterations (docs/PERF.md:289 and :549, on a TPU):
+# -10.285221 and -10.289289; the gate is the pair widened by 1e-3
+H8_N32_WINDOW = (-10.2903, -10.2842)
+# compact against dense storage on the card, float32: max|err| <=
+# COMPACT_TOL * max(1, max|ref|); the two sum up to 2 n^2 ns = 4.7e5
+# float32 products per entry in different orders (sqrt(4.7e5) float32
+# ulps of the terms' scale is 4e-5)
+COMPACT_TOL = 1e-5
+# FusedOptOrbSSVQE on H4 cc-pVTZ -> 8 (UCCSD(4, (2, 2)); HartreeFock and
+# the HOMO->LUMO alpha single, alpha qubits 0 and 2, beta 4 and 5;
+# weights [2, 1]; maxiter 20, tol 1e-5): the JAX package at float64 on
+# the CPU (esoo_tpu FusedOptOrbSSVQE, the second state a QuantumCircuit(8)
+# with x on qubits 0, 2, 4 and 5), 5 outer iterations
+H4_SSVQE_F64 = (-4.034691906888726, -3.7694916759726076)
+H4_SSVQE_TOL = 1e-4
+H4_EXCITED_MASK = 0b110101
+# the fused excited-state anchors on H2 6-31G -> 4 (BASELINE.md; decimal 3)
+H2_EXCITED_ANCHORS = {"ssvqe": (-1.85403538, -1.37044354),
+                      "mcvqe": (-1.85703467, -1.46615986),
+                      "vqd": (-1.8540352, -1.37044389),
+                      "adapt": (-1.866104213792463,)}
+H2_ANCHOR_TOL = 1.5e-3
 # CASSCF on H2 6-31G -> 4 (tests/test_casscf.py:76, decimal 4) and the
 # state-averaged k=2 pair, the OptOrbMCVQE reference values
 # (tests/test_casscf.py:203, decimal 5)
@@ -197,12 +238,15 @@ def host_calls_ms(fn, reps: int = 100) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def check_close(out, ref, dtype, what: str) -> float:
-    """f32: atol 5e-6 * max(1, max|ref|); f64: 1e-12 relative."""
+def check_close(out, ref, dtype, what: str, tol: float = None) -> float:
+    """max|out - ref| <= tol * max(1, max|ref|), tol by default 5e-6 at
+    f32 and 1e-12 at f64."""
     import torch
     err = float((out - ref).abs().max())
     scale = max(1.0, float(ref.abs().max()))
-    tol = (5e-6 if dtype == torch.float32 else 1e-12) * scale
+    if tol is None:
+        tol = 5e-6 if dtype == torch.float32 else 1e-12
+    tol = tol * scale
     if not err <= tol:
         raise AssertionError(f"{what}: max|err| {err:.3e} > tol {tol:.3e}")
     return err
@@ -381,56 +425,61 @@ def phase_kernels(card: str) -> dict:
     # n^3 m (V) and n^4 (the accumulators)
     k2_flops = 2 * (m * m * (m * m * n + m * n * n)
                     + m * (m * n ** 3 + n ** 4))
-    k1_h8, chain_h8 = _kernels_at_casscf_shape(checks)
-    # K1 at the CASSCF stage-1 shape (m=112, n=14), where it runs on a
-    # main path; the transform's chain route at (112, 14) in the same run.
+    # K1 stage 1 and the transform's chain route at the CASSCF shapes,
+    # (m, n) = (112, 14) and (112, 16), where they run on main paths.
     # The chain's own traffic (each stage's input read and output written)
-    # is 809 MB; the function's, counted for bound_ms, is g in, g_rot out.
-    mh, nh = 112, 14
+    # is kept beside the function's, counted for bound_ms (g in, g_rot out).
+    at_casscf = {nh: _kernels_at_casscf_shape(checks, nh) for nh in (14, 16)}
+    mh = 112
     Mh = mh ** 3
-    chain_traffic = 4 * sum(mh * r + mh * nh + r * nh
-                            for r in (mh ** 3, mh * mh * nh, mh * nh * nh,
-                                      nh ** 3))
-    chain_h8["chain_traffic_bytes"] = chain_traffic
-    chain_h8["chain_traffic_bound_ms"] = chain_traffic / bw * 1e3
-    for rec, nbytes, flops in (
-            (k1, k1_bytes, k1_flops), (k2, k2_bytes, k2_flops),
-            (k1_h8, 4 * (mh * Mh + mh * nh + Mh * nh), 2 * Mh * mh * nh),
-            (chain_h8, 4 * (mh ** 4 + mh * nh + nh ** 4),
-             2 * (mh ** 4 * nh + mh ** 3 * nh ** 2 + mh ** 2 * nh ** 3
-                  + mh * nh ** 4))):
+    bounded = [(k1, k1_bytes, k1_flops), (k2, k2_bytes, k2_flops)]
+    for nh, (k1_h8, chain_h8) in at_casscf.items():
+        chain_traffic = 4 * sum(mh * r + mh * nh + r * nh
+                                for r in (mh ** 3, mh * mh * nh, mh * nh * nh,
+                                          nh ** 3))
+        chain_h8["chain_traffic_bytes"] = chain_traffic
+        chain_h8["chain_traffic_bound_ms"] = chain_traffic / bw * 1e3
+        bounded += [(k1_h8, 4 * (mh * Mh + mh * nh + Mh * nh),
+                     2 * Mh * mh * nh),
+                    (chain_h8, 4 * (mh ** 4 + mh * nh + nh ** 4),
+                     2 * (mh ** 4 * nh + mh ** 3 * nh ** 2 + mh ** 2 * nh ** 3
+                          + mh * nh ** 4))]
+    for rec, nbytes, flops in bounded:
         t_bytes, t_ops = nbytes / bw * 1e3, flops / fl32 * 1e3
         rec.update(bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    bytes=nbytes, flops=flops)
+    (k1_h8, chain_h8), (k1_h8_16, chain_h8_16) = at_casscf[14], at_casscf[16]
     emit("kernels", kernels=["gemm.matmul", "gemm.rotate_two_body_cuda"],
          checks=checks, tolerance="f32 atol 5e-6*max(1,max|ref|); "
          "f64 1e-12*max(1,max|ref|)", peak_bytes_per_s=bw,
          peak_f32_flops=fl32, matmul=k1, rotate_two_body_cuda=k2,
          matmul_casscf_stage1=k1_h8, rotate_two_body_chain_casscf=chain_h8,
+         matmul_casscf_stage1_n16=k1_h8_16,
+         rotate_two_body_chain_casscf_n16=chain_h8_16,
          timing=f"ms: median over 50 calls after 5 warm-up of CUDA events "
          f"around each call, the calls queued behind a device spin (no host "
          f"launch gaps); kernel_ms: profiler kernel time per call; "
          f"host_100_calls_ms: host wall of 100 calls and one sync; {card}")
     return {"gemm.matmul": dict(k1_h8, shape="m=112 n=14 stage 1 "
                                 "(1404928x112)^T @ (112x14)",
-                                at_h4_stage1=k1),
+                                at_h4_stage1=k1, at_m112_n16=k1_h8_16),
             "gemm.rotate_two_body_cuda": dict(
                 k2, shape="m=56 n=4 one-pass kernel",
-                chain_at_m112_n14=chain_h8)}
+                chain_at_m112_n14=chain_h8, chain_at_m112_n16=chain_h8_16)}
 
 
-def _kernels_at_casscf_shape(checks: list):
-    """K1 stage 1 and the transform's chain route at the CASSCF path's
-    shape (m=112, n=14, float32), held against their plain versions and
-    timed.  The 629 MB g does not fit the 50 MB L2, so every call reads
-    it from HBM and no flush is needed."""
+def _kernels_at_casscf_shape(checks: list, n: int):
+    """K1 stage 1 and the transform's chain route at a CASSCF path's
+    shape (m=112, n=14 at N=28 or 16 at N=32, float32), held against
+    their plain versions and timed.  The 629 MB g does not fit the 50 MB
+    L2, so every call reads it from HBM and no flush is needed."""
     import torch
     from esoo_torch.ops import gemm
     dev, f32 = torch.device("cuda"), torch.float32
-    m, n = 112, 14
+    m = 112
     if gemm._transform_plan(m, n, 4)[0] != "chain":
-        raise AssertionError("m=112 n=14 should take the chain route")
+        raise AssertionError(f"m=112 n={n} should take the chain route")
     dgen = torch.Generator(device=dev).manual_seed(1)
     g = torch.randn((m,) * 4, dtype=f32, device=dev, generator=dgen)
     u = _partial_unitary(m, n, f32, torch.Generator().manual_seed(2)).to(dev)
@@ -664,7 +713,6 @@ def phase_casscf() -> dict:
     peak_bytes = torch.cuda.max_memory_allocated()
 
     E, trace, stats = r.eigenvalue, r.energy_convergence_list, r.stage_stats
-    rotations = stats["davidson_solves"]     # one rotation before each solve
 
     # per-step costs at the final state: one sigma (the Davidson matvec),
     # the sigma operators and the diagonal (once per solve), one RDM
@@ -723,6 +771,28 @@ def phase_casscf() -> dict:
     if not abs(E - H8_CASSCF_REFERENCE) <= H8_CASSCF_TOL:
         failed.append(f"energy {E!r} not within {H8_CASSCF_TOL} of "
                       f"{H8_CASSCF_REFERENCE}")
+    failed += _casscf_gates(r, witness, launches, routes)
+    emit("casscf", problem="H8 cc-pVTZ m=112 -> 28 spin orbitals, (4, 4) "
+         "electrons, 1,002,001 determinants, f32, dense tables, maxiter 10",
+         energy=E, energy_gates=[H8_CASSCF_REFERENCE, H8_CASSCF_TOL,
+                                 H8_F64_WITNESS_TOL],
+         outer_trace=trace, outer_iterations=r.outer_iterations,
+         stage_stats=stats, chem_s=chem_s, sector_ci_s=sector_s,
+         setup_s=setup_s, solve_s=solve_s, eri_engine=problem.eri_engine,
+         peak_memory_bytes=peak_bytes, launches=launches,
+         transform_route_launches=routes, per_step=per_step,
+         diag_abs_max=diag_abs_max, f64_witness=witness,
+         gates_failed=failed)
+    if failed:
+        raise AssertionError("H8 CASSCF gates failed: " + "; ".join(failed))
+    return launches, problem
+
+
+def _casscf_gates(r, witness: dict, launches: dict, routes: dict) -> list:
+    """The gates every H8 CASSCF solve meets beside its energy window."""
+    E, trace, stats = r.eigenvalue, r.energy_convergence_list, r.stage_stats
+    rotations = stats["davidson_solves"]     # one rotation before each solve
+    failed = []
     if not E <= trace[0]:
         failed.append(f"energy {E!r} above the first outer energy "
                       f"{trace[0]!r}")
@@ -744,25 +814,335 @@ def phase_casscf() -> dict:
         failed.append(f"the float64 energy at the final orbitals "
                       f"{witness['energy_f64']!r} differs from {E!r} by "
                       f"more than {H8_F64_WITNESS_TOL}")
+    # n > 8: every rotation is the transform's four-launch K1 chain
     if not (rotations == r.outer_iterations + 1
             and launches["gemm.matmul"] == 4 * rotations
             and launches["gemm.rotate_two_body_cuda"] == 4 * rotations
             and routes == {"fused": 0, "chain": 4 * rotations}):
         failed.append(f"{rotations} rotations but launches {launches}, "
                       f"routes {routes}")
-    emit("casscf", problem="H8 cc-pVTZ m=112 -> 28 spin orbitals, (4, 4) "
-         "electrons, 1,002,001 determinants, f32, dense tables, maxiter 10",
-         energy=E, energy_gates=[H8_CASSCF_REFERENCE, H8_CASSCF_TOL,
-                                 H8_F64_WITNESS_TOL],
-         outer_trace=trace, outer_iterations=r.outer_iterations,
-         stage_stats=stats, chem_s=chem_s, sector_ci_s=sector_s,
-         setup_s=setup_s, solve_s=solve_s, eri_engine=problem.eri_engine,
+    return failed
+
+
+def event_ms(fn, reps: int = 3) -> float:
+    """Median over `reps` calls, after one warm-up, of CUDA events recorded
+    just before and just after each call, host launch gaps included.  For
+    calls of thousands of launches, which fill the launch queue: time_ms
+    cannot queue them behind a device spin."""
+    import torch
+    fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, stop in events:
+        start.record()
+        fn()
+        stop.record()
+    torch.cuda.synchronize()
+    return sorted(s.elapsed_time(e) for s, e in events)[reps // 2]
+
+
+def _op_costs(fn, reps: int = 3) -> dict:
+    """One call's cost: `ms` (event_ms), device time and events per call
+    (profiler), and the peak memory the call adds to what is allocated
+    before it."""
+    import torch
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - before
+    dev_ms, events = device_profile(fn, reps=max(1, reps - 1))
+    return dict(ms=event_ms(fn, reps), device_ms=dev_ms,
+                device_events=events, peak_extra_bytes=extra)
+
+
+def _storage_pair(sector, h_sp, g_sp, U, gen, dev) -> dict:
+    """The compact and dense sigma operators, sigma, RDMs and diagonal at
+    the integrals rotated by U, on one seeded unit vector, held against
+    each other (COMPACT_TOL) and costed per storage."""
+    import torch
+    from esoo_torch.orbital_optimization import kernels as K
+    f32 = torch.float32
+    h_so, g_so = K.expand_spin_tensors(K.rotate_one_body(h_sp, U),
+                                       K.rotate_two_body(g_sp, U))
+    V = torch.randn((sector.nB, sector.nA), dtype=f32, device=dev,
+                    generator=gen)
+    V = V / torch.linalg.norm(V)
+    out, costs = {}, {}
+    for storage in ("dense", "compact"):
+        tabs = sector.device_tables(f32, device=dev, storage=storage)
+        vals = sector.build_values(h_so, g_so, tabs)
+        ops = {"build_values": lambda: sector.build_values(h_so, g_so, tabs),
+               "sigma": lambda: sector.sigma_values(V, vals, tabs),
+               "rdms": lambda: sector.rdms(V, tabs),
+               "diagonal": lambda: sector.diagonal_values(vals, tabs)}
+        out[storage] = dict(
+            FA=vals["FA"], FB=vals["FB"], sigma=ops["sigma"](),
+            diagonal=ops["diagonal"](), **dict(zip(("gamma", "Gamma"),
+                                                  ops["rdms"]())))
+        costs[storage] = {name: _op_costs(fn) for name, fn in ops.items()}
+        del tabs, vals, ops
+    errs = {k: check_close(out["compact"][k], out["dense"][k], f32,
+                           f"compact vs dense {k}", tol=COMPACT_TOL)
+            for k in out["dense"]}
+    return dict(max_abs_err=errs, costs=costs)
+
+
+def _drop_tables(sector, storage: str) -> None:
+    """Free a sector's cached device tables of one storage."""
+    import torch
+    for key in [k for k in sector._dev_tabs if k[-1] == storage]:
+        del sector._dev_tabs[key]
+    torch.cuda.empty_cache()
+
+
+def phase_compact(problem) -> dict:
+    """FusedOptOrbCASSCF on H8 cc-pVTZ (m=112 -> 32 spin orbitals,
+    3,312,400 determinants), f32, maxiter 10, tol 1e-5, dispatch='two',
+    the default table_storage='auto': the JAX package's compact flagship
+    (bench.py:491-494 at n_red_so=32).  Before the solve, the two storages
+    on one vector at N=32 and sigma at N=28."""
+    import esoo_torch
+    import torch
+    from esoo_torch.ops import gemm
+    from esoo_torch.orbital_optimization import kernels as K
+    from esoo_torch.orbital_optimization.casscf import _sector_ci_cached
+    f32, dev = torch.float32, torch.device("cuda")
+    parts = problem.num_particles
+    t0 = time.perf_counter()
+    sector = _sector_ci_cached(32, parts)
+    sector_s = time.perf_counter() - t0
+    if (sector.nA, sector.nB, sector.dim) != (1820, 1820, 3_312_400):
+        raise AssertionError(f"N=32 sector {sector.nB} x {sector.nA}")
+    transfer_s = {}
+    for storage in ("compact", "dense"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sector.device_tables(f32, device=dev, storage=storage)
+        torch.cuda.synchronize()
+        transfer_s[storage] = time.perf_counter() - t0
+
+    h_np, g_np = problem.spatial_integral_tensors()
+    h_sp = torch.as_tensor(h_np, device=dev).to(f32)
+    g_sp = torch.as_tensor(g_np, device=dev).to(f32).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(32)
+    U = _partial_unitary(112, 16, f32, torch.Generator().manual_seed(32))
+    at_n32 = _storage_pair(sector, h_sp, g_sp, U.to(dev), gen, dev)
+    _drop_tables(sector, "dense")
+
+    # one sigma at N=28 in both storages
+    s28 = _sector_ci_cached(28, parts)
+    U28 = _partial_unitary(112, 14, f32, torch.Generator().manual_seed(28))
+    h_so, g_so = K.expand_spin_tensors(K.rotate_one_body(h_sp, U28.to(dev)),
+                                       K.rotate_two_body(g_sp, U28.to(dev)))
+    V28 = torch.randn((s28.nB, s28.nA), dtype=f32, device=dev, generator=gen)
+    V28 = V28 / torch.linalg.norm(V28)
+    sig28, cost28 = {}, {}
+    for storage in ("dense", "compact"):
+        tabs = s28.device_tables(f32, device=dev, storage=storage)
+        vals = s28.build_values(h_so, g_so, tabs)
+        sig28[storage] = s28.sigma_values(V28, vals, tabs)
+        cost28[storage] = _op_costs(
+            lambda: s28.sigma_values(V28, vals, tabs))
+        del tabs, vals
+    err28 = check_close(sig28["compact"], sig28["dense"], f32,
+                        "compact vs dense sigma at N=28", tol=COMPACT_TOL)
+    del sig28, h_so, g_so, h_sp, g_sp
+    for storage in ("dense", "compact"):
+        _drop_tables(s28, storage)
+
+    solver = esoo_torch.FusedOptOrbCASSCF(
+        num_spin_orbitals=32, problem=problem, maxiter=10,
+        stopping_tolerance=1e-5, dtype=f32, dispatch="two")
+    if solver.table_storage != "compact":
+        raise AssertionError(f"table_storage='auto' resolved to "
+                             f"{solver.table_storage!r} at N=32")
+    torch.cuda.reset_peak_memory_stats()
+    gemm.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = solver.compute_minimum_energy()
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = gemm.launch_counts()
+    routes = gemm.route_launch_counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    E = r.eigenvalue
+    sec, tabs = solver._sector, solver._sector_tables
+    U = torch.as_tensor(r.optimal_partial_unitary, device=dev)
+    vals = sec.build_values(*K.expand_spin_tensors(
+        K.rotate_one_body(solver._h_sp, U), K.rotate_two_body(solver._g_sp, U)),
+        tabs)
+    witness = _casscf_f64_witness(problem, solver, r, vals)
+    failed = []
+    lo, hi = H8_N32_WINDOW
+    if not lo <= E <= hi:
+        failed.append(f"energy {E!r} outside [{lo}, {hi}]")
+    failed += _casscf_gates(r, witness, launches, routes)
+    emit("compact", problem="H8 cc-pVTZ m=112 -> 32 spin orbitals, (4, 4) "
+         "electrons, 3,312,400 determinants, f32, compact int8 tables "
+         "(table_storage='auto'), maxiter 10", energy=E,
+         energy_window=H8_N32_WINDOW, table_storage=solver.table_storage,
+         outer_trace=r.energy_convergence_list,
+         outer_iterations=r.outer_iterations, stage_stats=r.stage_stats,
+         sector_ci_s=sector_s, tables_to_card_s=transfer_s, solve_s=solve_s,
          peak_memory_bytes=peak_bytes, launches=launches,
-         transform_route_launches=routes, per_step=per_step,
-         diag_abs_max=diag_abs_max, f64_witness=witness,
+         transform_route_launches=routes, storages_n32=at_n32,
+         storages_n28_sigma=dict(max_abs_err=err28, costs=cost28),
+         tolerance=f"compact vs dense: max|err| <= {COMPACT_TOL} * max(1, "
+         f"max|dense|)", timing="costs: ms, median of 3 CUDA-event pairs "
+         "around each call (launch gaps included); device_ms and "
+         "device_events per call, torch.profiler; peak_extra_bytes above "
+         "what was allocated before the call", f64_witness=witness,
          gates_failed=failed)
     if failed:
-        raise AssertionError("H8 CASSCF gates failed: " + "; ".join(failed))
+        raise AssertionError("H8 N=32 CASSCF gates failed: "
+                             + "; ".join(failed))
+    return launches
+
+
+def _ssvqe_h4(problem, dtype, device):
+    import esoo_torch as T
+    return T.FusedOptOrbSSVQE(
+        num_spin_orbitals=8, ansatz=T.UCCSD(4, (2, 2)),
+        initial_states=[T.HartreeFock(4, (2, 2)),
+                        T.OccupationState(8, H4_EXCITED_MASK)],
+        weight_vector=[2.0, 1.0], problem=problem, maxiter=20,
+        stopping_tolerance=1e-5, dtype=dtype, device=device)
+
+
+def _exact_sector_spectrum(problem, U, n: int, parts):
+    """Eigenvalues of the sector Hamiltonian at the orbitals U, float64 on
+    the host: SectorCI sigma on every unit vector, then eigvalsh."""
+    import torch
+    from esoo_torch.orbital_optimization import kernels as K
+    from esoo_torch.sim import SectorCI
+    f64 = torch.float64
+    h, g = (torch.as_tensor(a).to(f64)
+            for a in problem.spatial_integral_tensors())
+    U = U.to(device="cpu", dtype=f64)
+    ci = SectorCI(2 * n, parts)
+    vals = ci.build_values(*K.expand_spin_tensors(K.rotate_one_body(h, U),
+                                                  K.rotate_two_body(g, U)))
+    H = torch.stack([ci.sigma_values(e.reshape(ci.nB, ci.nA), vals).reshape(-1)
+                     for e in torch.eye(ci.dim, dtype=f64)], dim=1)
+    return torch.linalg.eigvalsh((H + H.T) / 2).numpy()
+
+
+def phase_excited(problem) -> dict:
+    """FusedOptOrbSSVQE on H4 cc-pVTZ (m=56 -> 8), f32, cold and warm; the
+    launch counts zeroed before the cold run and read after it.  Then the
+    fused excited-state family on H2 6-31G at f64, card against CPU."""
+    import esoo_torch as T
+    import torch
+    from esoo_torch.ops import gemm
+    from esoo_torch.orbital_optimization import kernels as K
+    from esoo_torch.orbital_optimization.stiefel import value_and_grad
+    f32 = torch.float32
+    gemm.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = _ssvqe_h4(problem, f32, "cuda").compute_energies()
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = gemm.launch_counts()
+    routes = gemm.route_launch_counts()
+    t0 = time.perf_counter()
+    solver = _ssvqe_h4(problem, f32, "cuda")
+    r_warm = solver.compute_energies()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    # one L-BFGS evaluation at the final state: the k = 2 states through
+    # one batched gate scan, their energies, weighted, forward and backward
+    sec, init, w = solver._sector, solver._init, solver._weights
+    U = torch.as_tensor(r.optimal_partial_unitary, device="cuda")
+    theta = torch.as_tensor(r.optimal_point, device="cuda")
+    vals = sec.build_values(*K.expand_spin_tensors(
+        K.rotate_one_body(solver._h_sp, U), K.rotate_two_body(solver._g_sp, U)))
+    vag = value_and_grad(
+        lambda th: w @ sec.quadform_values(sec.apply_matrix(init, th), vals))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        vag(theta)
+    torch.cuda.synchronize()
+    eval_wall_ms = (time.perf_counter() - t0) / 20 * 1e3
+    eval_ms, eval_events = device_profile(lambda: vag(theta))
+    lam = _exact_sector_spectrum(problem, U, 4, (2, 2))
+
+    E = [float(e) for e in r.eigenvalues]
+    failed = []
+    if not all(abs(e - ref) <= H4_SSVQE_TOL
+               for e, ref in zip(E, H4_SSVQE_F64)):
+        failed.append(f"energies {E} not within {H4_SSVQE_TOL} of the JAX "
+                      f"package's float64 {H4_SSVQE_F64}")
+    if not (E[0] >= lam[0] - 1e-6
+            and 2 * E[0] + E[1] >= 2 * lam[0] + lam[1] - 1e-5):
+        failed.append(f"energies {E} below the exact sector spectrum "
+                      f"{lam[:2].tolist()} (weights 2, 1)")
+    if not (launches["gemm.rotate_two_body_cuda"] > 0
+            and launches["gemm.matmul"] == 0 and routes["chain"] == 0):
+        failed.append(f"launches {launches}, routes {routes}: the one-pass "
+                      f"transform only, no K1")
+    if not all(abs(a - b) <= H4_SSVQE_TOL
+               for a, b in zip(r_warm.eigenvalues, E)):
+        failed.append("the warm run disagrees with the cold run")
+    emit("excited", problem="H4 cc-pVTZ m=56 -> 8 spin orbitals, "
+         "FusedOptOrbSSVQE, UCCSD (26 parameters), HF and HOMO->LUMO alpha "
+         "single, weights [2, 1], f32", energies=E,
+         energies_warm=[float(e) for e in r_warm.eigenvalues],
+         jax_f64=H4_SSVQE_F64, tolerance=H4_SSVQE_TOL,
+         exact_sector_spectrum=lam[:4].tolist(),
+         outer_iterations=r.outer_iterations,
+         outer_trace=r.energy_convergence_list, stage_stats=r.stage_stats,
+         warm_stage_stats=r_warm.stage_stats, cold_s=cold_s, warm_s=warm_s,
+         lbfgs_evaluation_wall_ms=eval_wall_ms,
+         lbfgs_evaluation_device_ms=eval_ms,
+         lbfgs_evaluation_device_events=eval_events, launches=launches,
+         transform_route_launches=routes, gates_failed=failed)
+    if failed:
+        raise AssertionError("H4 SSVQE gates failed: " + "; ".join(failed))
+
+    from esoo_torch.chem import MoleculeDriver
+    h2 = MoleculeDriver(atom=H2_GEOM, basis="6-31g").run()
+    f64, hf = torch.float64, T.HartreeFock(2, (1, 1))
+    inits = [hf, T.OccupationState(4, 0b0110)]
+    makers = {
+        "ssvqe": lambda d: T.FusedOptOrbSSVQE(
+            4, T.UCCSD(2, (1, 1), reps=2), initial_states=inits,
+            weight_vector=[2, 1], problem=h2, maxiter=20, dtype=f64,
+            device=d).compute_energies().eigenvalues,
+        "mcvqe": lambda d: T.FusedOptOrbMCVQE(
+            4, T.UCCSD(2, (1, 1), reps=2), num_particles=(1, 1), k=2,
+            excitations="s", weight_vector=[2, 1], problem=h2, maxiter=20,
+            dtype=f64, device=d).compute_energies().eigenvalues,
+        "vqd": lambda d: T.FusedOptOrbVQD(
+            4, T.UCCSD(2, (1, 1), reps=2), initial_states=inits,
+            betas=[2.0], weight_vector=[2, 1], problem=h2, maxiter=20,
+            dtype=f64, device=d).compute_energies().eigenvalues,
+        "adapt": lambda d: [T.FusedOptOrbAdaptVQE(
+            4, T.UCCSD(2, (1, 1), initial_state=hf), problem=h2, maxiter=20,
+            dtype=f64, device=d).compute_minimum_energy().eigenvalue]}
+    runs, failed = {}, []
+    for name, make in makers.items():
+        gemm.reset_launch_counts()
+        card_e = [float(e) for e in make("cuda")]
+        fused = gemm.route_launch_counts()["fused"]
+        cpu_e = [float(e) for e in make("cpu")]
+        runs[name] = dict(card=card_e, cpu=cpu_e, transform_launches=fused)
+        if not (max(abs(a - b) for a, b in zip(card_e, cpu_e)) <= 1e-8
+                and all(abs(a - b) <= H2_ANCHOR_TOL for a, b in
+                        zip(card_e, H2_EXCITED_ANCHORS[name])) and fused > 0):
+            failed.append(f"{name}: card {card_e}, CPU {cpu_e}, anchors "
+                          f"{H2_EXCITED_ANCHORS[name]}, {fused} launches")
+    emit("excited_parity", problem="H2 6-31G -> 4 spin orbitals, f64",
+         runs=runs, tolerance=[1e-8, H2_ANCHOR_TOL], gates_failed=failed)
+    if failed:
+        raise AssertionError("H2 excited-state parity failed: "
+                             + "; ".join(failed))
     return launches
 
 
@@ -787,7 +1167,8 @@ def _casscf_f64_witness(problem, solver, r, vals32) -> dict:
                         in float64;
       energy_f64        the float64 Davidson ground energy at U (tol 1e-9).
 
-    The float64 operators take the plain transform (no kernel launch)."""
+    The float64 operators take the plain transform (no kernel launch) and
+    the solver's table storage."""
     import torch
     from esoo_torch.ops import gemm
     from esoo_torch.orbital_optimization import kernels as K
@@ -796,7 +1177,7 @@ def _casscf_f64_witness(problem, solver, r, vals32) -> dict:
     f64, dev = torch.float64, solver.device
     sec, tabs32 = solver._sector, solver._sector_tables
     nB, nA = sec.nB, sec.nA
-    tabs64 = sec.device_tables(f64, device=dev)
+    tabs64 = sec.device_tables(f64, device=dev, storage=solver.table_storage)
     x32 = torch.as_tensor(r.optimal_point, device=dev).reshape(nB, nA)
     x32 = x32 / torch.linalg.norm(x32)
     up = {k: v.double() for k, v in vals32.items()}
@@ -943,30 +1324,33 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_device()
     timed = phase_kernels(card)
-    launches, problem = phase_main_path()
+    paths = {}
+    paths["vqe_h4"], problem = phase_main_path()
     phase_profile(problem)
+    paths["ssvqe_h4"] = phase_excited(problem)
     del problem
-    casscf_launches = phase_casscf()
+    paths["casscf_h8_n28"], problem = phase_casscf()
+    paths["casscf_h8_n32_compact"] = phase_compact(problem)
+    del problem
     phase_parity()
 
     table = []
-    # K2's source is the one-pass kernel for n <= 8 (the main path's);
-    # n > 8 keeps the four-launch chain of gemm.cu
+    # K2's source is the one-pass kernel for n <= 8 (the VQE and SSVQE
+    # paths'); n > 8 keeps the four-launch chain of gemm.cu
     sources = {"gemm.matmul": ("esoo_tpu/ops/pallas_kernels.py:80",
                                "esoo_torch/csrc/gemm.cu", {}),
                "gemm.rotate_two_body_cuda": (
                    "esoo_tpu/ops/pallas_kernels.py:108",
                    "esoo_torch/csrc/transform.cu",
                    {"chain_source": "esoo_torch/csrc/gemm.cu (n > 8)"})}
-    # launches: both main paths' runs, each with the counts zeroed just
+    # launches: the main paths' runs, each with the counts zeroed just
     # before it; the numbers are at the row's `shape`, other shapes nested
     for name, (replaces, source, extra) in sources.items():
         rec = dict(timed[name])
+        by_path = {path: counts[name] for path, counts in paths.items()}
         table.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name] + casscf_launches[name],
-            launches_by_path={"vqe_h4": launches[name],
-                              "casscf_h8": casscf_launches[name]},
+            launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=rec.pop("max_abs_err"), ms=rec.pop("ms"),
             plain_ms=rec.pop("plain_ms"), bound_ms=rec.pop("bound_ms"),
             bound_by=rec.pop("bound_by"), library_ms=rec.pop("library_ms"),

@@ -20,14 +20,19 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-from .orbital_optimization import (FusedOptOrbCASSCF,  # noqa: E402
+from .orbital_optimization import (FusedOptOrbAdaptVQE,  # noqa: E402
+                                   FusedOptOrbCASSCF,
                                    FusedOptOrbEigensolverResult,
-                                   FusedOptOrbResult, FusedOptOrbSACASSCF,
-                                   FusedOptOrbVQE)
-from .sim import UCCSD, HartreeFock, SectorCI  # noqa: E402
+                                   FusedOptOrbMCVQE, FusedOptOrbResult,
+                                   FusedOptOrbSACASSCF, FusedOptOrbSSVQE,
+                                   FusedOptOrbVQD, FusedOptOrbVQE)
+from .sim import (UCC, UCCSD, HartreeFock, OccupationState,  # noqa: E402
+                  SectorCI)
 
 __version__ = "0.1.0"
 
-__all__ = ["FusedOptOrbCASSCF", "FusedOptOrbEigensolverResult",
-           "FusedOptOrbResult", "FusedOptOrbSACASSCF", "FusedOptOrbVQE",
-           "HartreeFock", "SectorCI", "UCCSD"]
+__all__ = ["FusedOptOrbAdaptVQE", "FusedOptOrbCASSCF",
+           "FusedOptOrbEigensolverResult", "FusedOptOrbMCVQE",
+           "FusedOptOrbResult", "FusedOptOrbSACASSCF", "FusedOptOrbSSVQE",
+           "FusedOptOrbVQD", "FusedOptOrbVQE", "HartreeFock",
+           "OccupationState", "SectorCI", "UCC", "UCCSD"]

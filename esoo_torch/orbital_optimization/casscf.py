@@ -21,9 +21,10 @@ eigenvector:
 `dispatch='two'` with `davidson_chunk` runs each solve through the
 k = 1 block machinery in bounded advances (and `davidson_tol_ladder`
 loosens the loop's solves 30x; the final solve stays tight), as the JAX
-package does; the eager loop gives the same results either way.  Not
-ported yet: `mesh=` and the compact int8 tables (`table_storage=
-'compact'`, or 'auto' past 1.1M determinants) — both raise.
+package does; the eager loop gives the same results either way.
+`table_storage='compact'` (and 'auto' past 1.1M determinants) keeps the
+sector's operator stacks int8 and runs the operator-chunked kernels
+(sim/strings.py).  Not ported yet: `mesh=`, which raises.
 """
 
 from __future__ import annotations
@@ -41,10 +42,10 @@ from ..solvers.davidson import (davidson_block, davidson_block_advance,
 from ..utils.config import resolve_device
 from .checkpoint import load_checkpoint
 from .fused import (FusedOptOrbEigensolverResult, FusedOptOrbResult,
-                    _make_program_callback, _numpy, _optorb_loop, _to_dtype)
-from .kernels import (expand_spin_tensors, rotate_one_body, rotate_two_body,
-                      spatial_blocks, spin_blocks_consistent,
-                      spin_reduce_rdms, spin_squared_from_rdms)
+                    _OuterLoopSolver, _numpy, _spatial_integrals,
+                    _state_diagnostics, _states_diagnostics, _to_dtype,
+                    _transition_rdm1s, _weighted_rdms)
+from .kernels import expand_spin_tensors, rotate_one_body, rotate_two_body
 from .stiefel import orth
 
 _SECTOR_CI_CACHE = {}
@@ -112,23 +113,11 @@ def _record(stats, t0, matvecs0, es, rn, tol, iterations, maxiter):
     stats["davidson_exits"].append(end)
 
 
-def _weighted_rdms(sector: SectorCI, tables: dict, weights, V):
-    """sum_i w_i (gamma_i, Gamma_i) over the rows of V, one state at a
-    time."""
-    nB, nA = sector.nB, sector.nA
-    gamma = Gamma = 0.0
-    for w, v in zip(weights, V):
-        g1, g2 = sector.rdms(v.reshape(nB, nA), tables)
-        gamma = gamma + w * g1
-        Gamma = Gamma + w * g2
-    return gamma, Gamma
-
-
 def _stage_fns(sector: SectorCI, k: Optional[int], weights, max_subspace: int,
                davidson_maxiter: int, dtype: torch.dtype, tables: dict,
                stats: dict, chunk: Optional[int] = None, ladder: bool = False,
                solver_stats: Optional[dict] = None):
-    """(solve, final_solve, extract_rdms) of the eigensolver stage.
+    """(solve, extract_rdms, final_solve) of the eigensolver stage.
 
     k=None, the ground state: solve(v, h_act, g_act) -> (v, E) by
     davidson_ground, or chunked by the k = 1 block machinery.  k states:
@@ -180,45 +169,13 @@ def _stage_fns(sector: SectorCI, k: Optional[int], weights, max_subspace: int,
     def extract_rdms(v):
         if k is None:
             return sector.rdms(v.reshape(nB, nA), tables)
-        return _weighted_rdms(sector, tables, weights, v)
+        return _weighted_rdms(sector, weights, v, tables)
 
     loose = tight * 30.0 if ladder else tight
-    return solve_at(loose), solve_at(tight), extract_rdms
+    return solve_at(loose), extract_rdms, solve_at(tight)
 
 
-def _state_diagnostics(sector: SectorCI, v: torch.Tensor, tables: dict):
-    """(natural occupations, <S^2>, spin-summed spatial 1-RDM, spatial
-    spin density) of a sector vector: the descending eigenvalues of the
-    spin-summed 1-RDM (sum = n_alpha + n_beta) and the total spin."""
-    gamma, Gamma = sector.rdms(v.reshape(sector.nB, sector.nA), tables)
-    gamma_s, _ = spin_reduce_rdms(gamma, Gamma)
-    n = gamma.shape[0] // 2
-    return (torch.flip(torch.linalg.eigvalsh(gamma_s), dims=(0,)),
-            spin_squared_from_rdms(gamma, Gamma), gamma_s,
-            gamma[:n, :n] - gamma[n:, n:])
-
-
-def _states_diagnostics(sector: SectorCI, V: torch.Tensor, tables: dict):
-    """_state_diagnostics of each row of a (k, nd) block, stacked."""
-    per = [_state_diagnostics(sector, v, tables) for v in V]
-    return tuple(torch.stack(x) for x in zip(*per))
-
-
-def _transition_rdm1s(sector: SectorCI, V: torch.Tensor,
-                      tables: dict) -> torch.Tensor:
-    """(k, k, n, n) spin-summed spatial transition 1-RDMs
-    t[i, j, p, s] = <psi_i|E_ps|psi_j>: one ket at a time, each against
-    the whole bra stack."""
-    Vg = V.reshape(-1, sector.nB, sector.nA)
-    rows = []
-    for vj in Vg:
-        g = sector.transition_rdm1(Vg, vj, tables)
-        n = g.shape[-1] // 2
-        rows.append(g[:, :n, :n] + g[:, n:, n:])     # rows[j][i] = <i|E|j>
-    return torch.stack(rows).transpose(0, 1)
-
-
-class FusedOptOrbCASSCF:
+class FusedOptOrbCASSCF(_OuterLoopSolver):
     """Orbital-optimized exact active-space diagonalization (CASSCF) as an
     eager loop on one device (see the module docstring).
 
@@ -268,33 +225,13 @@ class FusedOptOrbCASSCF:
                     "it is given")
             num_particles = tuple(problem.num_particles)
 
-        if integral_tensors is not None:
-            h_so = np.asarray(integral_tensors[0], dtype=np.float64)
-            g_so = np.asarray(integral_tensors[1], dtype=np.float64)
-            if not spin_blocks_consistent(h_so, g_so):
-                raise ValueError(
-                    "FusedOptOrbCASSCF requires spin-block-structured "
-                    "integrals")
-            h_sp, g_sp = spatial_blocks(h_so, g_so)
-        elif problem is not None and hasattr(problem,
-                                             "spatial_integral_tensors"):
-            h_sp, g_sp = problem.spatial_integral_tensors()
-        elif problem is not None:
-            h_so, g_so = (np.asarray(a) for a in problem.integral_tensors())
-            if not spin_blocks_consistent(h_so, g_so):
-                raise ValueError(
-                    "FusedOptOrbCASSCF requires spin-block-structured "
-                    "integrals")
-            h_sp, g_sp = spatial_blocks(h_so, g_so)
-        else:
-            raise ValueError(
-                "either `problem` or `integral_tensors` required")
         h_sp, g_sp = (torch.as_tensor(np.ascontiguousarray(a))
-                      if not torch.is_tensor(a) else a for a in (h_sp, g_sp))
+                      for a in _spatial_integrals(problem, integral_tensors,
+                                                  type(self).__name__))
         dtype = _to_dtype(dtype) or h_sp.dtype
         self.dtype = dtype
-        self._h_sp = h_sp.to(device=dev, dtype=dtype).contiguous()
-        self._g_sp = g_sp.to(device=dev, dtype=dtype).contiguous()
+        self._h_sp = h_sp.to(device=dev, dtype=dtype)
+        self._g_sp = g_sp.to(device=dev, dtype=dtype)
 
         self.num_spin_orbitals = num_spin_orbitals
         self._sector = _sector_ci_cached(num_spin_orbitals,
@@ -304,7 +241,7 @@ class FusedOptOrbCASSCF:
             storage = ("compact" if self._sector.dim > _COMPACT_MIN_ND
                        else "dense")
         self.table_storage = storage
-        # raises NotImplementedError for 'compact'; cached on the sector
+        # cached on the (cached) sector: a second solver sends nothing
         self._sector_tables = self._sector.device_tables(
             dtype, device=dev, storage=storage)
 
@@ -326,14 +263,10 @@ class FusedOptOrbCASSCF:
             U0 = np.asarray(initial_partial_unitary, dtype=np.float64)
         self._U0 = torch.as_tensor(U0, device=dev).to(dtype)
 
-        if maxiter < 1:
-            raise ValueError("maxiter must be >= 1")
-        self.maxiter = maxiter
-        self.stopping_tolerance = stopping_tolerance
-        self.inner_stopping_tolerance = inner_stopping_tolerance
-        self.inner_maxiter = inner_maxiter
-        self.initial_BBstepsize = initial_BBstepsize
-        self.decay_factor = decay_factor
+        self._set_outer_loop(maxiter, stopping_tolerance,
+                             inner_stopping_tolerance, inner_maxiter,
+                             initial_BBstepsize, decay_factor,
+                             outer_loop_callback, checkpoint_dir)
         self.max_subspace = max_subspace
         self.davidson_maxiter = davidson_maxiter
         if dispatch not in ("one", "two"):
@@ -354,35 +287,16 @@ class FusedOptOrbCASSCF:
                 "the tolerance across the bounded advance dispatches)")
         self.davidson_tol_ladder = bool(davidson_tol_ladder)
         self.dispatch = dispatch
-        self.outer_loop_callback = outer_loop_callback
-        self.checkpoint_dir = checkpoint_dir
-
-    def _scalars(self):
-        """(outer_tol, inner_tol, bb_stepsize, decay) as device scalars."""
-        return tuple(torch.tensor(v, dtype=self.dtype, device=self.device)
-                     for v in (self.stopping_tolerance,
-                               self.inner_stopping_tolerance,
-                               self.initial_BBstepsize, self.decay_factor))
-
-    def _loop(self, fns, state0, stats: dict, weights=None):
-        solve, final_solve, extract_rdms = fns
-        return _optorb_loop(
-            solve, extract_rdms, state0, self._U0, self._h_sp, self._g_sp,
-            *self._scalars(), outer_maxiter=self.maxiter,
-            inner_maxiter=self.inner_maxiter, weights=weights,
-            final_solve=final_solve,
-            callback=_make_program_callback(self.outer_loop_callback,
-                                            self.checkpoint_dir),
-            stats=stats)
 
     def compute_minimum_energy(self) -> FusedOptOrbResult:
         stats = _new_stats()
         with torch.no_grad():
-            fns = _stage_fns(
+            solve, extract_rdms, final_solve = _stage_fns(
                 self._sector, None, None, self.max_subspace,
                 self.davidson_maxiter, self.dtype, self._sector_tables, stats,
                 chunk=self.davidson_chunk, ladder=self.davidson_tol_ladder)
-            E, v, U, it, trace = self._loop(fns, self._v0, stats)
+            E, v, U, it, trace = self._loop(solve, extract_rdms, self._v0,
+                                            stats, final_solve=final_solve)
             occ, s2, g1, sd = _state_diagnostics(self._sector, v,
                                                  self._sector_tables)
         return FusedOptOrbResult(
@@ -464,13 +378,14 @@ class FusedOptOrbSACASSCF(FusedOptOrbCASSCF):
                             "finish_s": [], "orb_s": []}
             self.stage_stats = solver_stats
         with torch.no_grad():
-            fns = _stage_fns(
+            solve, extract_rdms, final_solve = _stage_fns(
                 self._sector, self.k, self._weights, self.max_subspace,
                 self.davidson_maxiter, self.dtype, self._sector_tables,
                 stats, chunk=self.davidson_chunk,
                 ladder=self.davidson_tol_ladder, solver_stats=solver_stats)
-            es, V, U, it, trace = self._loop(fns, self._V0, stats,
-                                             weights=self._weights)
+            es, V, U, it, trace = self._loop(solve, extract_rdms, self._V0,
+                                             stats, weights=self._weights,
+                                             final_solve=final_solve)
             if solver_stats is not None:
                 # the JAX package times the loop's BB programs, not the
                 # one after the last solve when the loop hits maxiter
@@ -488,4 +403,5 @@ class FusedOptOrbSACASSCF(FusedOptOrbCASSCF):
             spin_squared=_numpy(s2),
             one_rdm_spatial=_numpy(g1),
             spin_density_spatial=_numpy(sd),
-            transition_rdm1_spatial=_numpy(t1))
+            transition_rdm1_spatial=_numpy(t1),
+            stage_stats=stats)

@@ -1,8 +1,9 @@
-"""FusedOptOrbVQE: the OptOrbVQE outer loop on one device.
+"""The fused OptOrb solvers on one device: FusedOptOrbVQE and the
+excited-state family (FusedOptOrbSSVQE, FusedOptOrbMCVQE,
+FusedOptOrbVQD, FusedOptOrbAdaptVQE).
 
-Port of esoo_tpu/orbital_optimization/fused.py (FusedOptOrbVQE and the
-one-dispatch program `_fused_optorb_vqe`).  The JAX package compiles the
-whole loop into one XLA program; here it is an eager Python loop over
+Port of esoo_tpu/orbital_optimization/fused.py.  The JAX package compiles
+each loop into one XLA program; here it is an eager Python loop over
 device tensors, with the same stages and the same decisions:
 
     for each outer iteration:
@@ -12,6 +13,15 @@ device tensors, with the same stages and the same decisions:
         BB/Stiefel descent over U at fixed RDMs
         stop when |E - E_prev| < tol (keeping the U that produced E)
     re-solve at the final U, unconditionally
+
+The excited-state solvers run the same loop with k states in the
+particle-number sector (sim/sector.py SectorUCC): SSVQE and MCVQE push k
+initial states through one theta (one batched gate scan) and minimize
+their weighted energy sum; VQD deflates state by state; ADAPT regrows its
+ansatz from scratch each outer iteration.  What follows the loop differs
+by solver, as in the JAX package: VQE re-solves at the final U, VQD
+reruns the deflation, ADAPT regrows, while SSVQE and MCVQE only evaluate
+the last theta's energies at the final U.
 
 Every host decision (a stop test, a line-search branch) reads a device
 scalar, so the loop syncs with the device several times per step.
@@ -31,9 +41,9 @@ from ..solvers.lbfgs import lbfgs_minimize
 from ..utils.config import resolve_device
 from .checkpoint import load_checkpoint, save_checkpoint
 from .kernels import (expand_spin_tensors, rotate_one_body, rotate_two_body,
-                      rotated_energy_spatial, spatial_blocks,
-                      spin_blocks_consistent, spin_reduce_rdms,
-                      spin_squared_from_rdms)
+                      rotated_energy_spatial, rotated_integrals_spatial,
+                      spatial_blocks, spin_blocks_consistent,
+                      spin_reduce_rdms, spin_squared_from_rdms)
 from .stiefel import _bb_loop, orth, value_and_grad
 
 # single source of truth for the orbital objective
@@ -87,6 +97,8 @@ class FusedOptOrbEigensolverResult:
     transition_rdm1_spatial: Optional[np.ndarray] = None
     # per-state spatial spin densities gamma_aa - gamma_bb, (k, n, n)
     spin_density_spatial: Optional[np.ndarray] = None
+    # where the run went (FusedOptOrbResult.stage_stats)
+    stage_stats: Optional[dict] = None
 
     @property
     def optimal_parameters(self):
@@ -109,18 +121,12 @@ def _inner_bb(vag_fn, U0, data, stepsize, tol, decay, maxiter,
 def _vqe_stage_fns(sector, vqe_maxiter: int, dtype: torch.dtype,
                    ftol=None, stats: Optional[dict] = None):
     """(run_vqe, extract_rdms) for the sector eigensolver stage."""
-    gtol = 1e-9 if torch.finfo(dtype).bits >= 64 else 1e-5
+    gtol = _gtol(dtype)
 
     def run_vqe(theta, h_act, g_act):
-        t0 = time.perf_counter()
-        h_so, g_so = expand_spin_tensors(h_act, g_act)
-        vals = sector.build_values(h_so, g_so)
-        res = lbfgs_minimize(sector.energy_values, theta, args=(vals,),
-                             maxiter=vqe_maxiter, gtol=gtol, ftol=ftol)
-        if stats is not None:
-            stats["lbfgs_iterations"] += res.nit
-            stats["lbfgs_evaluations"] += res.nfev
-            stats["lbfgs_s"] += time.perf_counter() - t0
+        vals = _sector_values(sector, h_act, g_act)
+        res = _lbfgs(sector.energy_values, theta, (vals,), vqe_maxiter,
+                     gtol, ftol, stats)
         return res.x, res.fun
 
     def extract_rdms(theta):
@@ -204,18 +210,37 @@ def _optorb_loop(solve: Callable, extract_rdms: Callable, state, U0, h_sp,
     return es, state, U, it, trace[:it]
 
 
-def _fused_optorb_vqe(sector, theta0, U0, h_sp, g_sp, outer_tol, inner_tol,
-                      bb_stepsize, decay, outer_maxiter: int = 20,
-                      inner_maxiter: int = 10000, vqe_maxiter: int = 200,
-                      vqe_ftol=None, callback: Optional[Callable] = None,
-                      stats: Optional[dict] = None):
-    """The VQE outer loop.  Returns (E, theta, U, n_outer, energy_trace)."""
-    run_vqe, extract_rdms = _vqe_stage_fns(sector, vqe_maxiter, h_sp.dtype,
-                                           ftol=vqe_ftol, stats=stats)
-    return _optorb_loop(run_vqe, extract_rdms, theta0, U0, h_sp, g_sp,
-                        outer_tol, inner_tol, bb_stepsize, decay,
-                        outer_maxiter, inner_maxiter, callback=callback,
-                        stats=stats)
+def _state_diagnostics(sector, v: torch.Tensor, tables: dict = None):
+    """(natural occupations, <S^2>, spin-summed spatial 1-RDM, spatial
+    spin density) of a sector state: the descending eigenvalues of the
+    spin-summed 1-RDM (sum = n_alpha + n_beta) and the total spin (the
+    JAX package's _rdm_diagnostics)."""
+    gamma, Gamma = sector.rdms(v.reshape(sector.nB, sector.nA), tables)
+    gamma_s, _ = spin_reduce_rdms(gamma, Gamma)
+    n = gamma.shape[0] // 2
+    return (torch.flip(torch.linalg.eigvalsh(gamma_s), dims=(0,)),
+            spin_squared_from_rdms(gamma, Gamma), gamma_s,
+            gamma[:n, :n] - gamma[n:, n:])
+
+
+def _states_diagnostics(sector, V: torch.Tensor, tables: dict = None):
+    """_state_diagnostics of each of k states, stacked."""
+    per = [_state_diagnostics(sector, v, tables) for v in V]
+    return tuple(torch.stack(x) for x in zip(*per))
+
+
+def _transition_rdm1s(sector, V: torch.Tensor,
+                      tables: dict = None) -> torch.Tensor:
+    """(k, k, n, n) spin-summed spatial transition 1-RDMs
+    t[i, j, p, s] = <psi_i|E_ps|psi_j> between k sector states: one ket
+    at a time, each against the whole bra stack."""
+    Vg = V.reshape(-1, sector.nB, sector.nA)
+    rows = []
+    for vj in Vg:
+        g = sector.transition_rdm1(Vg, vj, tables)
+        n = g.shape[-1] // 2
+        rows.append(g[:, :n, :n] + g[:, n:, n:])     # rows[j][i] = <i|E|j>
+    return torch.stack(rows).transpose(0, 1)
 
 
 def _attach_vqe_diagnostics(result, solver, theta):
@@ -224,15 +249,74 @@ def _attach_vqe_diagnostics(result, solver, theta):
     if not solver.diagnostics:
         return result
     with torch.no_grad():
-        gamma, Gamma = solver._sector.rdms(solver._sector.state_matrix(theta))
-        gamma_s, _ = spin_reduce_rdms(gamma, Gamma)
-        n = gamma.shape[0] // 2
-        result.natural_occupations = _numpy(
-            torch.flip(torch.linalg.eigvalsh(gamma_s), dims=(0,)))
-        result.spin_squared = float(spin_squared_from_rdms(gamma, Gamma))
-        result.one_rdm_spatial = _numpy(gamma_s)
-        result.spin_density_spatial = _numpy(gamma[:n, :n] - gamma[n:, n:])
+        occ, s2, g1, sd = _state_diagnostics(
+            solver._sector, solver._sector.state_matrix(theta))
+    result.natural_occupations = _numpy(occ)
+    result.spin_squared = float(s2)
+    result.one_rdm_spatial = _numpy(g1)
+    result.spin_density_spatial = _numpy(sd)
     return result
+
+
+def _spatial_integrals(problem, integral_tensors, name: str):
+    """Spatial (h, g) as NumPy arrays: from spin-orbital
+    `integral_tensors` (spin-block structured), or from a problem's
+    spatial_integral_tensors() or integral_tensors()."""
+    if integral_tensors is not None:
+        h_so, g_so = (np.asarray(a, dtype=np.float64)
+                      for a in integral_tensors)
+    elif problem is not None and hasattr(problem, "spatial_integral_tensors"):
+        return tuple(a.detach().cpu().numpy() if torch.is_tensor(a)
+                     else np.asarray(a)
+                     for a in problem.spatial_integral_tensors())
+    elif problem is not None:
+        h_so, g_so = (np.asarray(a) for a in problem.integral_tensors())
+    else:
+        raise ValueError("either `problem` or `integral_tensors` required")
+    if not spin_blocks_consistent(h_so, g_so):
+        raise ValueError(f"{name} requires spin-block-structured integrals")
+    return spatial_blocks(h_so, g_so)
+
+
+def _check_sector_ansatz(ansatz) -> None:
+    """The fused solvers read occupation-basis amplitudes, which only the
+    Jordan-Wigner encoding keeps, and simulate UCC-family circuits only
+    (the full-space simulator is ROADMAP queue 1, item 8)."""
+    enc = getattr(ansatz, "_encoding", "jw")
+    if enc != "jw":
+        raise ValueError(
+            f"fused solvers require a Jordan-Wigner-encoded ansatz; "
+            f"got encoding {enc!r}")
+    if getattr(ansatz, "_ucc_excitations", None) is None:
+        raise NotImplementedError(
+            "only UCC-family ansaetze (sim.ansatz.UCC/UCCSD) run here: "
+            "other circuits need the full-space simulator, ROADMAP "
+            "queue 1, item 8")
+
+
+def _check_options(mesh, simulation: str, dispatch: str) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (sharded integrals and sector tables) is not ported "
+            "yet: ROADMAP queue 1, item 11")
+    if simulation not in ("full", "sector", "auto"):
+        raise ValueError("simulation must be 'full', 'sector' or 'auto'")
+    if simulation == "full":
+        raise NotImplementedError(
+            "simulation='full' (the 2^N statevector simulator) is not "
+            "ported yet: ROADMAP queue 1, item 8")
+    # dispatch bounds the length of one compiled TPU program in the JAX
+    # package; the eager loop has no programs to bound, so it is
+    # validated and gives the dispatch='one' result
+    if dispatch not in ("one", "two"):
+        raise ValueError("dispatch must be 'one' or 'two'")
+
+
+def _initial_partial_unitary(U0, m: int, n: int) -> np.ndarray:
+    if U0 is None:
+        U0 = np.zeros((m, n))
+        U0[np.arange(n), np.arange(n)] = 1.0
+    return np.asarray(U0, dtype=np.float64)
 
 
 def _to_dtype(dtype) -> torch.dtype:
@@ -241,7 +325,46 @@ def _to_dtype(dtype) -> torch.dtype:
     return getattr(torch, np.dtype(dtype).name)
 
 
-class FusedOptOrbVQE:
+class _OuterLoopSolver:
+    """What every fused solver keeps of its outer loop: the stop rule, the
+    BB settings, the callback and checkpoint directory, and `_loop`, the
+    shared `_optorb_loop` at the solver's integrals and starting U."""
+
+    def _set_outer_loop(self, maxiter: int, stopping_tolerance: float,
+                        inner_stopping_tolerance: float, inner_maxiter: int,
+                        initial_BBstepsize: float, decay_factor: float,
+                        outer_loop_callback, checkpoint_dir) -> None:
+        if maxiter < 1:
+            raise ValueError("maxiter must be >= 1 (the outer loop always "
+                             "runs at least one eigensolver iteration)")
+        self.maxiter = maxiter
+        self.stopping_tolerance = stopping_tolerance
+        self.inner_stopping_tolerance = inner_stopping_tolerance
+        self.inner_maxiter = inner_maxiter
+        self.initial_BBstepsize = initial_BBstepsize
+        self.decay_factor = decay_factor
+        self.outer_loop_callback = outer_loop_callback
+        self.checkpoint_dir = checkpoint_dir
+
+    def _loop(self, solve: Callable, extract_rdms: Callable, state0,
+              stats: dict, weights: Optional[torch.Tensor] = None,
+              final_solve: Optional[Callable] = None):
+        """_optorb_loop from (state0, U0): (es, state, U, n_outer, trace)."""
+        scalars = (torch.tensor(v, dtype=self.dtype, device=self.device)
+                   for v in (self.stopping_tolerance,
+                             self.inner_stopping_tolerance,
+                             self.initial_BBstepsize, self.decay_factor))
+        return _optorb_loop(
+            solve, extract_rdms, state0, self._U0, self._h_sp, self._g_sp,
+            *scalars, outer_maxiter=self.maxiter,
+            inner_maxiter=self.inner_maxiter, weights=weights,
+            final_solve=final_solve,
+            callback=_make_program_callback(self.outer_loop_callback,
+                                            self.checkpoint_dir),
+            stats=stats)
+
+
+class FusedOptOrbVQE(_OuterLoopSolver):
     """OptOrbVQE with the built-in sector L-BFGS eigensolver (see module
     docstring).  Keywords are esoo_tpu.orbital_optimization.FusedOptOrbVQE's
     plus `device` ("cuda" by default; "cpu" runs the plain versions)."""
@@ -271,62 +394,20 @@ class FusedOptOrbVQE:
                  resume_from=None,
                  diagnostics: bool = True,
                  device="cuda"):
-        self.device = resolve_device(device)
+        self.device = dev = resolve_device(device)
         self.diagnostics = bool(diagnostics)
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (sharded integrals and sector tables) is not ported "
-                "yet: ROADMAP queue 1, item 11")
-        if simulation not in ("full", "sector", "auto"):
-            raise ValueError("simulation must be 'full', 'sector' or 'auto'")
-        if simulation == "full":
-            raise NotImplementedError(
-                "simulation='full' (the 2^N statevector simulator) is not "
-                "ported yet: ROADMAP queue 1, item 8")
-        if getattr(ansatz, "_ucc_excitations", None) is None:
-            raise NotImplementedError(
-                "only UCC-family ansaetze (sim.ansatz.UCC/UCCSD) run here: "
-                "other circuits need the full-space simulator, ROADMAP "
-                "queue 1, item 8")
-        enc = getattr(ansatz, "_encoding", "jw")
-        if enc != "jw":
-            raise ValueError(
-                f"fused solvers require a Jordan-Wigner-encoded ansatz; "
-                f"got encoding {enc!r}")
+        _check_options(mesh, simulation, dispatch)
+        _check_sector_ansatz(ansatz)
 
         if resume_from is not None:
             ck = load_checkpoint(resume_from)
             initial_partial_unitary = ck["partial_unitary"]
             if "optimal_point" in ck:
                 initial_point = ck["optimal_point"]
-        if integral_tensors is not None:
-            h_so = np.asarray(integral_tensors[0], dtype=np.float64)
-            g_so = np.asarray(integral_tensors[1], dtype=np.float64)
-            if not spin_blocks_consistent(h_so, g_so):
-                raise ValueError(
-                    "FusedOptOrbVQE requires spin-block-structured "
-                    "integrals")
-            h_sp, g_sp = spatial_blocks(h_so, g_so)
-        elif problem is not None and hasattr(problem,
-                                             "spatial_integral_tensors"):
-            h_sp, g_sp = problem.spatial_integral_tensors()
-        elif problem is not None:
-            h_so, g_so = problem.integral_tensors()
-            h_so, g_so = np.asarray(h_so), np.asarray(g_so)
-            if not spin_blocks_consistent(h_so, g_so):
-                raise ValueError(
-                    "FusedOptOrbVQE requires spin-block-structured "
-                    "integrals")
-            h_sp, g_sp = spatial_blocks(h_so, g_so)
-        else:
-            raise ValueError("either `problem` or `integral_tensors` required")
-        h_sp = h_sp.detach().cpu().numpy() if torch.is_tensor(h_sp) \
-            else np.asarray(h_sp)
-        g_sp = g_sp.detach().cpu().numpy() if torch.is_tensor(g_sp) \
-            else np.asarray(g_sp)
+        h_sp, g_sp = _spatial_integrals(problem, integral_tensors,
+                                        type(self).__name__)
         dtype = _to_dtype(dtype) or _to_dtype(h_sp.dtype)
         self.dtype = dtype
-        dev = self.device
         self._h_sp = torch.as_tensor(np.ascontiguousarray(h_sp),
                                      device=dev).to(dtype)
         self._g_sp = torch.as_tensor(np.ascontiguousarray(g_sp),
@@ -335,41 +416,25 @@ class FusedOptOrbVQE:
         self.num_spin_orbitals = num_spin_orbitals
         self.ansatz = ansatz
         self.simulation = "sector"
-        self.mesh = None
         from ..sim.sector import SectorUCC
         self._sector = SectorUCC(ansatz, num_spin_orbitals)
 
-        m = h_sp.shape[0]
-        n = num_spin_orbitals // 2
-        if initial_partial_unitary is None:
-            U0 = np.zeros((m, n))
-            U0[np.arange(n), np.arange(n)] = 1.0
-        else:
-            U0 = np.asarray(initial_partial_unitary, dtype=np.float64)
-        self._U0 = torch.as_tensor(U0, device=dev).to(dtype)
+        self._U0 = torch.as_tensor(_initial_partial_unitary(
+            initial_partial_unitary, h_sp.shape[0], num_spin_orbitals // 2),
+            device=dev).to(dtype)
         if initial_point is None:
             initial_point = np.zeros(ansatz.num_parameters)
         self._theta0 = torch.as_tensor(
             np.asarray(initial_point, dtype=np.float64), device=dev).to(dtype)
 
-        if maxiter < 1:
-            raise ValueError("maxiter must be >= 1 (the outer loop always "
-                             "runs at least one eigensolver iteration)")
-        self.maxiter = maxiter
-        self.stopping_tolerance = stopping_tolerance
-        self.inner_stopping_tolerance = inner_stopping_tolerance
-        self.inner_maxiter = inner_maxiter
-        self.initial_BBstepsize = initial_BBstepsize
-        self.decay_factor = decay_factor
+        self._set_outer_loop(maxiter, stopping_tolerance,
+                             inner_stopping_tolerance, inner_maxiter,
+                             initial_BBstepsize, decay_factor,
+                             outer_loop_callback, checkpoint_dir)
         self.vqe_maxiter = vqe_maxiter
         # eigensolver plateau-stop override (solvers/lbfgs.py `ftol`):
         # None = auto (32 ulp at f32, disabled at f64)
         self.vqe_ftol = vqe_ftol
-        # dispatch/vqe_chunk bound the length of one compiled TPU program in
-        # the JAX package; the eager loop has no programs to bound, so both
-        # are validated and give the same result as dispatch='one'
-        if dispatch not in ("one", "two"):
-            raise ValueError("dispatch must be 'one' or 'two'")
         self.dispatch = dispatch
         if vqe_chunk is not None:
             if dispatch != "two":
@@ -379,32 +444,19 @@ class FusedOptOrbVQE:
                 raise ValueError("vqe_chunk must be a positive iteration "
                                  "count")
         self.vqe_chunk = vqe_chunk
-        self.outer_loop_callback = outer_loop_callback
-        self.checkpoint_dir = checkpoint_dir
 
     def compute_minimum_energy(self) -> FusedOptOrbResult:
         with torch.no_grad():
             return self._run()
 
     def _run(self) -> FusedOptOrbResult:
-        dtype, dev = self.dtype, self.device
-
-        def scalar(v):
-            return torch.tensor(v, dtype=dtype, device=dev)
-
-        stats = {"bb_iterations": 0, "lbfgs_iterations": 0,
-                 "lbfgs_evaluations": 0, "lbfgs_s": 0.0, "bb_s": 0.0,
-                 "bb_s_per_call": []}
-        E, theta, U, it, trace = _fused_optorb_vqe(
-            self._sector, self._theta0, self._U0, self._h_sp, self._g_sp,
-            scalar(self.stopping_tolerance),
-            scalar(self.inner_stopping_tolerance),
-            scalar(self.initial_BBstepsize), scalar(self.decay_factor),
-            outer_maxiter=self.maxiter, inner_maxiter=self.inner_maxiter,
-            vqe_maxiter=self.vqe_maxiter, vqe_ftol=self.vqe_ftol,
-            callback=_make_program_callback(self.outer_loop_callback,
-                                            self.checkpoint_dir),
+        """The loop re-solves at the final U (VQE's tail)."""
+        stats = _vqe_stats()
+        run_vqe, extract_rdms = _vqe_stage_fns(
+            self._sector, self.vqe_maxiter, self.dtype, ftol=self.vqe_ftol,
             stats=stats)
+        E, theta, U, it, trace = self._loop(run_vqe, extract_rdms,
+                                            self._theta0, stats)
         return _attach_vqe_diagnostics(FusedOptOrbResult(
             eigenvalue=float(E),
             optimal_point=_numpy(theta),
@@ -414,3 +466,543 @@ class FusedOptOrbVQE:
             optimal_circuit=self.ansatz,
             stage_stats=stats,
         ), self, theta)
+
+
+def _vqe_stats() -> dict:
+    """stage_stats of the L-BFGS solvers: BB iterations and seconds,
+    L-BFGS iterations, value-and-grad evaluations and seconds."""
+    return {"bb_iterations": 0, "lbfgs_iterations": 0,
+            "lbfgs_evaluations": 0, "lbfgs_s": 0.0, "bb_s": 0.0,
+            "bb_s_per_call": []}
+
+
+def _lbfgs(cost, theta, args, vqe_maxiter, gtol, ftol, stats):
+    """lbfgs_minimize with its iterations, evaluations and seconds added
+    to `stats`."""
+    t0 = time.perf_counter()
+    res = lbfgs_minimize(cost, theta, args=args, maxiter=vqe_maxiter,
+                         gtol=gtol, ftol=ftol)
+    if stats is not None:
+        stats["lbfgs_iterations"] += res.nit
+        stats["lbfgs_evaluations"] += res.nfev
+        stats["lbfgs_s"] += time.perf_counter() - t0
+    return res
+
+
+def _gtol(dtype: torch.dtype) -> float:
+    return 1e-9 if torch.finfo(dtype).bits >= 64 else 1e-5
+
+
+# -- the excited-state family -------------------------------------------------
+
+def _state_vector(state, num_qubits: int) -> np.ndarray:
+    """A real 2^N initial-state vector: an OccupationState (the stand-in
+    for an X-only circuit, like HartreeFock) or a NumPy vector (what
+    compile_circuit(st).state() gives in the JAX package)."""
+    enc = getattr(state, "_encoding", "jw")
+    if enc != "jw":
+        raise ValueError(
+            f"fused solvers require Jordan-Wigner-encoded initial states; "
+            f"got encoding {enc!r}")
+    mask = getattr(state, "mask", None)
+    if mask is not None:
+        v = np.zeros(2 ** num_qubits)
+        v[int(mask)] = 1.0
+        return v
+    if not isinstance(state, np.ndarray):
+        raise NotImplementedError(
+            f"initial state of type {type(state).__name__}: circuits come "
+            "with the full-space simulator (ROADMAP queue 1, item 8); pass "
+            "an OccupationState or a 2^N NumPy vector")
+    if state.shape != (2 ** num_qubits,):
+        raise ValueError(f"initial state vector has shape {state.shape}, "
+                         f"expected ({2 ** num_qubits},)")
+    if not np.allclose(np.imag(state), 0.0):
+        raise ValueError("fused path requires real initial states")
+    return np.real(state).astype(np.float64)
+
+
+def _weighted_rdms(sector, weights: torch.Tensor, Vs: torch.Tensor,
+                   tables: dict = None):
+    """sum_i w_i (gamma_i, Gamma_i) over k sector states, one at a time."""
+    gamma = Gamma = 0.0
+    for w, v in zip(weights, Vs):
+        g1, g2 = sector.rdms(v.reshape(sector.nB, sector.nA), tables)
+        gamma = gamma + w * g1
+        Gamma = Gamma + w * g2
+    return gamma, Gamma
+
+
+def _sector_values(sector, h_act, g_act) -> dict:
+    return sector.build_values(*expand_spin_tensors(h_act, g_act))
+
+
+def _ssvqe_stage_fns(sector, init: torch.Tensor, weights: torch.Tensor,
+                     vqe_maxiter: int, dtype: torch.dtype, ftol=None,
+                     stats: Optional[dict] = None):
+    """(run_ssvqe, state_energies, batch_rdms) of the SSVQE stage: the k
+    initial string matrices `init` (k, nB, nA) go through one theta as one
+    batched gate scan.  run_ssvqe minimizes the weighted energy sum and
+    returns theta and the k energies (their weighted sum is the L-BFGS
+    minimum); state_energies only evaluates them."""
+    gtol = _gtol(dtype)
+
+    def energies(theta, vals):
+        return sector.quadform_values(sector.apply_matrix(init, theta), vals)
+
+    def state_energies(theta, h_act, g_act):
+        return energies(theta, _sector_values(sector, h_act, g_act))
+
+    def run_ssvqe(theta, h_act, g_act):
+        vals = _sector_values(sector, h_act, g_act)
+        res = _lbfgs(lambda th: weights @ energies(th, vals), theta, (),
+                     vqe_maxiter, gtol, ftol, stats)
+        return res.x, energies(res.x, vals)
+
+    def batch_rdms(theta):
+        return _weighted_rdms(sector, weights,
+                              sector.apply_matrix(init, theta))
+
+    return run_ssvqe, state_energies, batch_rdms
+
+
+def _vqd_stage_fns(sector, init: torch.Tensor, betas: torch.Tensor,
+                   weights: torch.Tensor, vqe_maxiter: int,
+                   dtype: torch.dtype, ftol=None,
+                   stats: Optional[dict] = None):
+    """(run_vqd, batch_rdms) of the sequential-deflation stage: state j
+    minimizes E_j + sum_{i<j} betas[i] <psi_i|psi_j>^2 against the states
+    already found in this call, then reports its deflation-free energy."""
+    gtol = _gtol(dtype)
+    k = init.shape[0]
+
+    def run_vqd(thetas, h_act, g_act):
+        vals = _sector_values(sector, h_act, g_act)
+        thetas = thetas.clone()
+        prev, es = [], []
+
+        def deflated(theta, j, P):
+            V = sector.apply_matrix(init[j], theta)
+            e = sector.quadform_values(V, vals)
+            if j == 0:
+                return e
+            ov = P @ V.reshape(-1)
+            return e + torch.sum(betas[:j] * ov * ov)
+
+        for j in range(k):
+            P = torch.stack(prev).flatten(1) if prev else None
+            res = _lbfgs(deflated, thetas[j], (j, P), vqe_maxiter, gtol,
+                         ftol, stats)
+            thetas[j] = res.x
+            V = sector.apply_matrix(init[j], res.x)
+            prev.append(V)
+            es.append(sector.quadform_values(V, vals))
+        return thetas, torch.stack(es)
+
+    def batch_rdms(thetas):
+        return _weighted_rdms(sector, weights, torch.stack(
+            [sector.apply_matrix(v, th) for v, th in zip(init, thetas)]))
+
+    return run_vqd, batch_rdms
+
+
+class FusedOptOrbSSVQE(_OuterLoopSolver):
+    """Excited-state OptOrb loop with the SSVQE eigensolver: k orthonormal
+    initial states through one ansatz, minimizing the weighted sum of
+    their energies; orbitals descend on the weight-combined RDMs.
+
+    Keywords are esoo_tpu.orbital_optimization.FusedOptOrbSSVQE's plus
+    `device`.  Initial states are OccupationStates or real 2^N NumPy
+    vectors; the sector is inferred from the first state's dominant
+    determinant, and every state must lie in it."""
+
+    _requires_orthogonal_inits = True   # VQD relaxes this
+
+    def __init__(self,
+                 num_spin_orbitals: int,
+                 ansatz,
+                 initial_states,
+                 weight_vector=None,
+                 problem=None,
+                 integral_tensors=None,
+                 initial_partial_unitary=None,
+                 initial_point=None,
+                 maxiter: int = 20,
+                 stopping_tolerance: float = 1e-5,
+                 inner_stopping_tolerance: float = 1e-5,
+                 inner_maxiter: int = 10000,
+                 initial_BBstepsize: float = 1e-3,
+                 decay_factor: float = 0.8,
+                 vqe_maxiter: int = 300,
+                 vqe_ftol: float = None,
+                 dtype=None,
+                 mesh=None,
+                 simulation: str = "auto",
+                 dispatch: str = "one",
+                 outer_loop_callback=None,
+                 checkpoint_dir=None,
+                 resume_from=None,
+                 diagnostics: bool = True,
+                 _spatial_tensors=None,
+                 device="cuda"):
+        self.device = dev = resolve_device(device)
+        self.diagnostics = bool(diagnostics)
+        _check_options(mesh, simulation, dispatch)
+        _check_sector_ansatz(ansatz)
+        h_sp, g_sp = (_spatial_tensors if _spatial_tensors is not None
+                      else _spatial_integrals(problem, integral_tensors,
+                                              type(self).__name__))
+        dtype = _to_dtype(dtype) or _to_dtype(h_sp.dtype)
+        self.dtype = dtype
+        self._h_sp = torch.as_tensor(np.ascontiguousarray(h_sp),
+                                     device=dev).to(dtype)
+        self._g_sp = torch.as_tensor(np.ascontiguousarray(g_sp),
+                                     device=dev).to(dtype)
+        self.num_spin_orbitals = N = num_spin_orbitals
+        self.ansatz = ansatz
+
+        V = np.stack([_state_vector(st, N) for st in initial_states])
+        if self._requires_orthogonal_inits:
+            if np.abs(V @ V.T - np.eye(len(V))).max() > 1e-8:
+                raise ValueError(
+                    "initial states must be mutually orthonormal (SSVQE's "
+                    "weighted-sum variational argument requires it)")
+        self.k = len(initial_states)
+        # the sector of the first state's dominant determinant; every
+        # state must lie in it (project_full raises otherwise)
+        from ..sim.sector import SectorUCC
+        nsp = N // 2
+        lead = int(np.argmax(np.abs(V[0])))
+        parts = (bin(lead & ((1 << nsp) - 1)).count("1"),
+                 bin(lead >> nsp).count("1"))
+        try:
+            self._sector = SectorUCC(ansatz, N, num_particles=parts)
+            init = np.stack([self._sector.project_full(v) for v in V])
+        except ValueError as err:
+            if simulation == "sector":
+                raise
+            # 'auto' falls back to the full simulator in the JAX package
+            raise NotImplementedError(
+                f"these initial states or this ansatz need the full-space "
+                f"simulator (ROADMAP queue 1, item 8): {err}") from err
+        self.simulation = "sector"
+        sec = self._sector
+        self._init = torch.as_tensor(
+            init[:, : sec.dim].reshape(self.k, sec.nB, sec.nA),
+            device=dev).to(dtype)
+        if weight_vector is None:
+            weight_vector = [self.k - i for i in range(self.k)]
+        self._weights = torch.as_tensor(
+            np.asarray(weight_vector, dtype=np.float64), device=dev).to(dtype)
+
+        if resume_from is not None:
+            ck = load_checkpoint(resume_from)
+            initial_partial_unitary = ck["partial_unitary"]
+            if "optimal_point" in ck:
+                initial_point = ck["optimal_point"]
+        self._U0 = torch.as_tensor(_initial_partial_unitary(
+            initial_partial_unitary, h_sp.shape[0], nsp), device=dev).to(dtype)
+        if initial_point is None:
+            initial_point = np.zeros(ansatz.num_parameters)
+        self._theta0 = torch.as_tensor(
+            np.asarray(initial_point, dtype=np.float64), device=dev).to(dtype)
+
+        self._set_outer_loop(maxiter, stopping_tolerance,
+                             inner_stopping_tolerance, inner_maxiter,
+                             initial_BBstepsize, decay_factor,
+                             outer_loop_callback, checkpoint_dir)
+        self.vqe_maxiter = vqe_maxiter
+        self.vqe_ftol = vqe_ftol
+        self.dispatch = dispatch
+
+    def _stage(self, stats: dict):
+        """(solve, extract_rdms, final_solve) of the outer loop.  SSVQE's
+        tail evaluates the last theta's energies at the final U; it does
+        not optimize again."""
+        run, state_energies, batch_rdms = _ssvqe_stage_fns(
+            self._sector, self._init, self._weights, self.vqe_maxiter,
+            self.dtype, ftol=self.vqe_ftol, stats=stats)
+        return run, batch_rdms, \
+            lambda theta, h, g: (theta, state_energies(theta, h, g))
+
+    def _theta_start(self) -> torch.Tensor:
+        return self._theta0
+
+    def _eigenstates(self, thetas: torch.Tensor) -> torch.Tensor:
+        """(k, nB, nA): each initial state through the optimized ansatz."""
+        return self._sector.apply_matrix(self._init, thetas)
+
+    def _run(self):
+        """The outer loop: (energies, thetas, U, n_outer, trace, stats)."""
+        stats = _vqe_stats()
+        solve, extract_rdms, final_solve = self._stage(stats)
+        es, thetas, U, it, trace = self._loop(
+            solve, extract_rdms, self._theta_start(), stats,
+            weights=self._weights, final_solve=final_solve)
+        return es, thetas, U, it, trace, stats
+
+    def _result(self, es, thetas, U, it, trace, stats, mix=None):
+        """The result with its transition RDMs and, when `diagnostics`,
+        the per-state diagnostics; `mix` (k, k) re-expresses the
+        eigenstates as mix[:, I]-weighted combinations of the raw states
+        (MCVQE's contracted basis)."""
+        states = self._eigenstates(thetas)
+        t1 = _numpy(_transition_rdm1s(self._sector, states))
+        if mix is not None:
+            # |I> = sum_a mix[a, I] |raw_a>, orthonormal raw states
+            t1 = np.einsum("ai,bj,abps->ijps", mix, mix, t1, optimize=True)
+            states = (torch.as_tensor(mix, device=states.device).to(
+                states.dtype).T @ states.flatten(1)).reshape(states.shape)
+        result = FusedOptOrbEigensolverResult(
+            eigenvalues=_numpy(es),
+            optimal_point=_numpy(thetas),
+            optimal_partial_unitary=_numpy(U),
+            energy_convergence_list=[float(e) for e in trace],
+            outer_iterations=it,
+            transition_rdm1_spatial=t1,
+            stage_stats=stats)
+        if self.diagnostics:
+            occ, s2, g1, sd = _states_diagnostics(self._sector, states)
+            (result.natural_occupations, result.spin_squared,
+             result.one_rdm_spatial, result.spin_density_spatial) = (
+                _numpy(occ), _numpy(s2), _numpy(g1), _numpy(sd))
+        return result
+
+    def compute_energies(self) -> FusedOptOrbEigensolverResult:
+        with torch.no_grad():
+            return self._result(*self._run())
+
+
+class FusedOptOrbMCVQE(FusedOptOrbSSVQE):
+    """MCVQE: the SSVQE loop from the k lowest CIS (excitations='s') or
+    CISD ('sd') states of the integrals rotated at the initial U, then
+    the contracted-Hamiltonian post-processing at the final (theta, U):
+    H_ii = E_i and H_ij = (E_+ - E_-)/2 with (|i> +- |j>)/sqrt(2) pushed
+    through the ansatz, all k + k(k-1) energies evaluated in the sector in
+    one batched call.  Eigenvalues, transition RDMs and diagnostics are
+    those of the contracted eigenstates."""
+
+    def __init__(self, num_spin_orbitals: int, ansatz, num_particles,
+                 k: int = 2, excitations: str = "s", weight_vector=None,
+                 problem=None, integral_tensors=None, **kwargs):
+        from ..initializations.ci import get_CIS_states, get_CISD_states
+        h_sp, g_sp = _spatial_integrals(problem, integral_tensors,
+                                        "FusedOptOrbMCVQE")
+        n = num_spin_orbitals // 2
+        U0 = torch.as_tensor(_initial_partial_unitary(
+            kwargs.get("initial_partial_unitary"), h_sp.shape[0], n))
+        h_act, g_act = rotated_integrals_spatial(
+            U0, torch.as_tensor(np.asarray(h_sp, dtype=np.float64)),
+            torch.as_tensor(np.asarray(g_sp, dtype=np.float64)))
+        h_so, g_so = expand_spin_tensors(h_act, g_act)
+        get = get_CIS_states if excitations == "s" else get_CISD_states
+        states = get(h_so.numpy(), g_so.numpy(), num_particles,
+                     state_representation="dense")
+        if len(states) < k:
+            raise ValueError(f"CI produced {len(states)} states < k={k}")
+        self._ci_vectors = [np.real(np.asarray(s)) for s in states[:k]]
+        super().__init__(num_spin_orbitals, ansatz, self._ci_vectors,
+                         weight_vector=weight_vector,
+                         _spatial_tensors=(h_sp, g_sp), **kwargs)
+
+    def _contracted_energies(self, theta: torch.Tensor,
+                             U: torch.Tensor) -> np.ndarray:
+        """The k raw energies, then E_+ and E_- of each pair i < j, of
+        the CI vectors pushed through the ansatz at theta, under H(U)."""
+        vecs = self._ci_vectors
+        batch = list(vecs)
+        for i in range(self.k):
+            for j in range(i + 1, self.k):
+                batch.append((vecs[i] + vecs[j]) / np.sqrt(2))
+                batch.append((vecs[i] - vecs[j]) / np.sqrt(2))
+        sec = self._sector
+        stack = np.stack([sec.project_full(v)[: sec.dim] for v in batch])
+        V0 = torch.as_tensor(stack.reshape(-1, sec.nB, sec.nA),
+                             device=self.device).to(self.dtype)
+        vals = _sector_values(sec, rotate_one_body(self._h_sp, U),
+                              rotate_two_body(self._g_sp, U))
+        return _numpy(sec.quadform_values(sec.apply_matrix(V0, theta), vals))
+
+    def compute_energies(self) -> FusedOptOrbEigensolverResult:
+        with torch.no_grad():
+            es, theta, U, it, trace, stats = self._run()
+            E = self._contracted_energies(theta, U)
+            kk = self.k
+            Hc = np.diag(E[:kk]).astype(np.float64)
+            pairs = [(i, j) for i in range(kk) for j in range(i + 1, kk)]
+            for idx, (i, j) in enumerate(pairs):
+                Hc[i, j] = Hc[j, i] = 0.5 * (E[kk + 2 * idx]
+                                             - E[kk + 2 * idx + 1])
+            w, Cc = np.linalg.eigh(Hc)
+            result = self._result(es, theta, U, it, trace, stats, mix=Cc)
+        result.eigenvalues = w
+        return result
+
+
+class FusedOptOrbVQD(FusedOptOrbSSVQE):
+    """Excited-state OptOrb loop with VQD: sequential beta-penalized
+    deflation over the k states (state j's penalty reads states < j), each
+    state with its own theta row; orbitals descend on the weight-combined
+    RDMs.  The default beta is the 1-norm of the U0-rotated integrals plus
+    10.  Per-state ansatz lists need the full-space simulator (ROADMAP
+    queue 1, item 8) and raise."""
+
+    _requires_orthogonal_inits = False  # deflation separates the states
+
+    def __init__(self, num_spin_orbitals: int, ansatz, initial_states,
+                 betas=None, weight_vector=None, **kwargs):
+        if isinstance(ansatz, (list, tuple)):
+            if len(ansatz) != len(initial_states):
+                raise ValueError(
+                    f"need one ansatz per state: got {len(ansatz)} ansatze "
+                    f"for {len(initial_states)} initial states")
+            raise NotImplementedError(
+                "per-state ansatze run on the full-space simulator "
+                "(simulation='full'), not ported yet: ROADMAP queue 1, "
+                "item 8")
+        super().__init__(num_spin_orbitals, ansatz, initial_states,
+                         weight_vector=weight_vector, **kwargs)
+        if betas is None:
+            # deflation works when beta exceeds the energy gap: a bound
+            # from the integrals at the starting partial unitary
+            with torch.no_grad():
+                bound = float(
+                    torch.sum(torch.abs(rotate_one_body(self._h_sp,
+                                                        self._U0)))
+                    + torch.sum(torch.abs(rotate_two_body(self._g_sp,
+                                                          self._U0)))) + 10.0
+            betas = [bound] * (self.k - 1)
+        if len(betas) < self.k - 1:
+            raise ValueError("betas must have length k-1")
+        self._betas = torch.as_tensor(
+            np.asarray(betas[: self.k - 1], dtype=np.float64),
+            device=self.device).to(self.dtype)
+
+    def _stage(self, stats: dict):
+        """VQD's tail reruns the deflation at the final U."""
+        run, batch_rdms = _vqd_stage_fns(
+            self._sector, self._init, self._betas, self._weights,
+            self.vqe_maxiter, self.dtype, ftol=self.vqe_ftol, stats=stats)
+        return run, batch_rdms, None
+
+    def _theta_start(self) -> torch.Tensor:
+        th = self._theta0
+        return th if th.dim() == 2 else th.expand(self.k, -1).clone()
+
+    def _eigenstates(self, thetas: torch.Tensor) -> torch.Tensor:
+        return torch.stack([self._sector.apply_matrix(v, th)
+                            for v, th in zip(self._init, thetas)])
+
+
+def _adapt_stage_fns(sector, R: int, P: int, vqe_maxiter: int,
+                     dtype: torch.dtype, grad_tol: torch.Tensor,
+                     eig_tol: torch.Tensor, ftol=None,
+                     stats: Optional[dict] = None):
+    """(run_adapt, extract_rdms) of the ADAPT stage: growth by masking
+    over R slots of the P-excitation pool (theta has R*P entries,
+    unselected ones pinned to zero).  Each growth step screens slot r's
+    pool by the raw gradient at the current theta, sets the mask bit of
+    the largest, and re-optimizes the selected angles; growth stops on
+    the gradient threshold, on an immediate repeat selection, or on an
+    energy gain below the eigenvalue threshold."""
+    gtol = _gtol(dtype)
+
+    def run_adapt(h_act, g_act):
+        vals = _sector_values(sector, h_act, g_act)
+
+        def energy(theta):
+            return sector.energy_values(theta, vals)
+
+        def masked(theta, mask):
+            return energy(theta * mask)
+
+        energy_vag = value_and_grad(energy)
+        dev = h_act.device
+        theta = torch.zeros(R * P, dtype=dtype, device=dev)
+        mask = torch.zeros(R * P, dtype=dtype, device=dev)
+        E = energy(theta)
+        prev = -1
+        for r in range(R):
+            _, grad = energy_vag(theta)
+            pg = torch.abs(grad[r * P:(r + 1) * P])
+            best = int(torch.argmax(pg))
+            if bool(pg[best] < grad_tol) or (r > 0 and best == prev):
+                break
+            mask = mask.clone()
+            mask[r * P + best] = 1.0
+            res = _lbfgs(masked, theta, (mask,), vqe_maxiter, gtol, ftol,
+                         stats)
+            theta = res.x * mask
+            small_gain = r > 0 and bool(torch.abs(res.fun - E) < eig_tol)
+            E, prev = res.fun, best
+            if small_gain:
+                break
+        return theta, mask, E
+
+    def extract_rdms(theta):
+        return sector.rdms(sector.state_matrix(theta))
+
+    return run_adapt, extract_rdms
+
+
+class FusedOptOrbAdaptVQE(FusedOptOrbVQE):
+    """OptOrb loop with an ADAPT-VQE eigensolver: the ansatz regrows from
+    scratch each outer iteration by masking over a padded UCC ansatz
+    whose excitation list is the pool repeated R times (see
+    _adapt_stage_fns).  Keywords beyond FusedOptOrbVQE's:
+    gradient_threshold and eigenvalue_threshold end the growth,
+    max_adapt_iterations is R (default: the pool size).  The result
+    carries `selection_mask` (R*P,)."""
+
+    def __init__(self, num_spin_orbitals: int, ansatz,
+                 gradient_threshold: float = 1e-5,
+                 eigenvalue_threshold: float = 1e-5,
+                 max_adapt_iterations: Optional[int] = None,
+                 **kwargs):
+        if kwargs.get("vqe_chunk") is not None:
+            raise ValueError("vqe_chunk is not supported by "
+                             "FusedOptOrbAdaptVQE (the ADAPT growth loop "
+                             "is one program; use FusedOptOrbVQE for "
+                             "chunked eigensolver dispatches)")
+        excs = getattr(ansatz, "_ucc_excitations", None)
+        if excs is None:
+            raise ValueError(
+                "FusedOptOrbAdaptVQE requires an ansatz built by "
+                "sim.ansatz.UCC/UCCSD (carrying its excitation pool)")
+        self._P = len(excs)
+        self._R = min(max_adapt_iterations or self._P, self._P)
+        padded = dataclasses.replace(
+            ansatz, _ucc_excitations=tuple(excs) * self._R)
+        super().__init__(num_spin_orbitals, padded, **kwargs)
+        self.gradient_threshold = gradient_threshold
+        self.eigenvalue_threshold = eigenvalue_threshold
+
+    def _run(self) -> FusedOptOrbResult:
+        stats = _vqe_stats()
+        thresholds = (torch.tensor(t, dtype=self.dtype, device=self.device)
+                      for t in (self.gradient_threshold,
+                                self.eigenvalue_threshold))
+        run_adapt, extract_rdms = _adapt_stage_fns(
+            self._sector, self._R, self._P, self.vqe_maxiter, self.dtype,
+            *thresholds, ftol=self.vqe_ftol, stats=stats)
+        masks = []
+
+        def solve(_, h_act, g_act):
+            # regrown from scratch: the previous theta is not read
+            theta, mask, E = run_adapt(h_act, g_act)
+            masks.append(mask)
+            return theta, E
+
+        E, theta, U, it, trace = self._loop(
+            solve, extract_rdms, self._theta0.new_zeros(self._R * self._P),
+            stats)
+        result = FusedOptOrbResult(
+            eigenvalue=float(E),
+            optimal_point=_numpy(theta),
+            optimal_partial_unitary=_numpy(U),
+            energy_convergence_list=[float(e) for e in trace],
+            outer_iterations=it,
+            optimal_circuit=self.ansatz,
+            stage_stats=stats)
+        result.selection_mask = _numpy(masks[-1])
+        return _attach_vqe_diagnostics(result, self, theta)

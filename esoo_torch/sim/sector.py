@@ -57,17 +57,17 @@ def _initial_mask_from_circuit(circ) -> int:
     return int(mask)
 
 
-def _device_rdm_maps(cache: dict, n: int, device) -> tuple:
-    """strings.build_rdm_maps(n) as tensors on `device`, cached in
-    `cache` per device."""
-    device = torch.device(device)
-    maps = cache.get(str(device))
+def _device_rdm_maps(cache: dict, n: int, device, q_pad=None) -> tuple:
+    """strings.build_rdm_maps(n, q_pad) as tensors on `device`, cached in
+    `cache` per (device, q_pad)."""
+    key = (str(torch.device(device)), q_pad)
+    maps = cache.get(key)
     if maps is None:
-        IDX, SGN, CASE_A = _strings.build_rdm_maps(n)
+        IDX, SGN, CASE_A = _strings.build_rdm_maps(n, q_pad)
         maps = (torch.as_tensor(IDX, dtype=torch.int64, device=device),
                 torch.as_tensor(SGN, device=device),
                 torch.as_tensor(CASE_A, device=device))
-        cache[str(device)] = maps
+        cache[key] = maps
     return maps
 
 
@@ -168,18 +168,26 @@ class SectorUCC:
         return pair_lo, pair_hi, pair_sg
 
     def device_tables(self, dtype: torch.dtype = torch.float64, *,
-                      device) -> dict:
+                      device, storage: str = "dense") -> dict:
         """The string tables as tensors on `device` (float tables at
         `dtype`, index tables int64), plus the precomputed per-gate
-        fields of strings.gate_fields under "M"/"S"/"flat".  Cached per
-        (dtype, device)."""
+        fields of strings.gate_fields under "M"/"S"/"flat".
+        storage='int8' keeps the MA/MB operator stacks int8 under the
+        dense keys (the dense kernels cast them on the device).  Cached
+        per (dtype, device, storage)."""
+        if storage not in ("dense", "int8"):
+            raise ValueError("storage must be 'dense' or 'int8'")
         device = torch.device(device)
-        key = (dtype, str(device))
+        key = (dtype, str(device), storage)
         tabs = self._dev_tabs.get(key)
         if tabs is None:
             from ..convert import string_tables_from_numpy
             tabs = string_tables_from_numpy(self._str_tabs._asdict(),
                                             dtype=dtype, device=device)
+            if storage == "int8":
+                for k in ("MA", "MB"):
+                    tabs[k] = torch.as_tensor(getattr(self._str_tabs, k),
+                                              device=device)
             self._dev_tabs[key] = tabs
         return tabs
 
@@ -187,18 +195,47 @@ class SectorUCC:
         return _device_rdm_maps(self._rdm_maps, self.num_qubits // 2, device)
 
     # -- simulation ----------------------------------------------------------
+    def project_full(self, vec_full: np.ndarray) -> np.ndarray:
+        """Project a full 2^N vector onto the sector basis (host helper
+        for initial states); returns shape (nd + 1,) with the padding
+        slot.  Raises if the vector has support outside the sector."""
+        vec_full = np.asarray(vec_full)
+        v = vec_full[self.dets]
+        if not np.isclose(float(v @ v), float(vec_full @ vec_full),
+                          atol=1e-9):
+            raise ValueError(
+                "initial state has support outside the particle-number "
+                "sector — sector simulation is invalid for it")
+        return np.concatenate([v, [0.0]])
+
+    def apply_matrix(self, V0: torch.Tensor, theta: torch.Tensor,
+                     tables: dict = None) -> torch.Tensor:
+        """The UCC rotations applied to string matrices V0, (nB, nA) or a
+        stack (k, nB, nA) of k states through one theta (one gate scan
+        for the stack); differentiable in theta."""
+        tabs = tables if tables is not None else \
+            self.device_tables(theta.dtype, device=theta.device)
+        return _strings.apply_gates(V0.to(theta.dtype), theta, tabs,
+                                    (tabs["M"], tabs["S"], tabs["flat"]))
+
+    def apply(self, v0: torch.Tensor, theta: torch.Tensor,
+              tables: dict = None) -> torch.Tensor:
+        """The UCC rotations applied to sector amplitudes v0, shape
+        (nd + 1,) with the trailing pad slot, or (k, nd + 1)."""
+        V = self.apply_matrix(
+            v0[..., : self.dim].reshape(v0.shape[:-1] + (self.nB, self.nA)),
+            theta, tables)
+        return torch.cat([V.flatten(-2), V.new_zeros(V.shape[:-2] + (1,))],
+                         dim=-1)
+
     def state_matrix(self, theta: torch.Tensor, tables: dict = None
                      ) -> torch.Tensor:
         """(nB, nA) string matrix of the HF state after the UCC rotations
         (differentiable in theta through the reversible backward)."""
-        tabs = tables if tables is not None else \
-            self.device_tables(theta.dtype, device=theta.device)
         V0 = torch.zeros(self.nB * self.nA, dtype=theta.dtype,
                          device=theta.device)
         V0[self.init_index] = 1.0
-        return _strings.apply_gates(V0.reshape(self.nB, self.nA), theta,
-                                    tabs, (tabs["M"], tabs["S"],
-                                           tabs["flat"]))
+        return self.apply_matrix(V0.reshape(self.nB, self.nA), theta, tables)
 
     def state(self, theta: torch.Tensor, tables: dict = None
               ) -> torch.Tensor:
@@ -221,6 +258,13 @@ class SectorUCC:
             self.device_tables(theta.dtype, device=theta.device)
         return _strings.quadform(self.state_matrix(theta, tabs), vals, tabs)
 
+    def quadform_values(self, V: torch.Tensor, vals: dict,
+                        tables: dict = None) -> torch.Tensor:
+        """<v|H|v> of string matrices V, (nB, nA) or (k, nB, nA) -> (k,)."""
+        tabs = tables if tables is not None else \
+            self.device_tables(V.dtype, device=V.device)
+        return _strings.quadform(V, vals, tabs)
+
     # -- sector-native RDMs --------------------------------------------------
     def rdms(self, v: torch.Tensor, tables: dict = None):
         """Spin-orbital (gamma, Gamma) from sector amplitudes (nd or
@@ -229,6 +273,14 @@ class SectorUCC:
             self.device_tables(v.dtype, device=v.device)
         V = v.reshape(-1)[: self.dim].reshape(self.nB, self.nA)
         return _strings.rdms(V, tabs, self.rdm_maps(device=v.device))
+
+    def transition_rdm1(self, U: torch.Tensor, V: torch.Tensor,
+                        tables: dict = None) -> torch.Tensor:
+        """Spin-orbital transition 1-RDM gamma[p, s] = <u|a+_p a_s|v>
+        between (nB, nA) string matrices; U may be batched (k, nB, nA)."""
+        tabs = tables if tables is not None else \
+            self.device_tables(V.dtype, device=V.device)
+        return _strings.transition_rdm1(U, V, tabs)
 
 
 class SectorCI:
@@ -270,36 +322,48 @@ class SectorCI:
 
     def device_tables(self, dtype: torch.dtype = torch.float64, *, device,
                       storage: str = "dense") -> dict:
-        """The operator stacks MA/MB (sent as int8, cast on the device)
-        and CROSS at `dtype`, the LIN pair maps int64, on `device`.
-        Cached per (dtype, device): at N=28 each stack is 785 MB in
-        float32."""
-        if storage in ("compact", "int8"):
-            raise NotImplementedError(
-                f"storage={storage!r} (int8 operator stacks and the "
-                "operator-chunked kernels) is not ported yet: ROADMAP "
-                "queue 1, item 6 (what was left out)")
-        if storage != "dense":
+        """The operator stacks and pair maps on `device`, cached per
+        (dtype, device, storage):
+
+          'dense'    MA/MB at `dtype` (sent as int8, cast on the device;
+                     at N=28 each stack is 785 MB in float32);
+          'compact'  int8 stacks under "MA8"/"MB8", padded to a multiple
+                     of strings._OP_CHUNK operators: every kernel runs
+                     its operator-chunked variant (1.7 GB of stacks at
+                     N=32 against 6.8 GB dense in float32);
+          'int8'     int8 stacks under the dense keys (the dense kernels
+                     cast them on each call).
+
+        CROSS is at `dtype`, the LIN pair maps int64."""
+        if storage not in ("dense", "compact", "int8"):
             raise ValueError(
                 "storage must be 'dense', 'compact', or 'int8'")
         device = torch.device(device)
-        key = (dtype, str(device))
+        key = (dtype, str(device), storage)
         tabs = self._dev_tabs.get(key)
         if tabs is None:
             s = self._str_tabs
-            tabs = dict(
-                MA=torch.as_tensor(s.MA, device=device).to(dtype),
-                MB=torch.as_tensor(s.MB, device=device).to(dtype),
-                LIN_A=torch.as_tensor(s.LIN_A.astype(np.int64),
-                                      device=device),
-                LIN_B=torch.as_tensor(s.LIN_B.astype(np.int64),
-                                      device=device),
-                CROSS=torch.as_tensor(s.CROSS, device=device).to(dtype))
+            if storage == "compact":
+                tabs = _strings.compact_tables(s, dtype, device=device)
+            else:
+                stack = (lambda a: torch.as_tensor(a, device=device)) \
+                    if storage == "int8" else \
+                    (lambda a: torch.as_tensor(a, device=device).to(dtype))
+                tabs = dict(
+                    MA=stack(s.MA), MB=stack(s.MB),
+                    LIN_A=torch.as_tensor(s.LIN_A.astype(np.int64),
+                                          device=device),
+                    LIN_B=torch.as_tensor(s.LIN_B.astype(np.int64),
+                                          device=device),
+                    CROSS=torch.as_tensor(s.CROSS, device=device).to(dtype))
             self._dev_tabs[key] = tabs
         return tabs
 
-    def rdm_maps(self, *, device) -> tuple:
-        return _device_rdm_maps(self._rdm_maps, self.num_qubits // 2, device)
+    def rdm_maps(self, *, device, q_pad: int = None) -> tuple:
+        """build_rdm_maps for stacks of operator-axis length `q_pad`
+        (default n^2), as tensors on `device`."""
+        return _device_rdm_maps(self._rdm_maps, self.num_qubits // 2,
+                                device, q_pad)
 
     def _tabs(self, tables, like: torch.Tensor) -> dict:
         return tables if tables is not None else \
@@ -333,8 +397,10 @@ class SectorCI:
     def rdms(self, V: torch.Tensor, tables: dict = None):
         """Spin-orbital (gamma, Gamma) from a normalized (nB, nA) string
         matrix."""
-        return _strings.rdms(V, self._tabs(tables, V),
-                             self.rdm_maps(device=V.device))
+        tabs = self._tabs(tables, V)
+        q_pad = int(tabs["MA8" if "MA8" in tabs else "MA"].shape[0])
+        return _strings.rdms(V, tabs, self.rdm_maps(device=V.device,
+                                                    q_pad=q_pad))
 
     def transition_rdm1(self, U: torch.Tensor, V: torch.Tensor,
                         tables: dict = None) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""String-factorized sector kernels (dense path).
+"""String-factorized sector kernels.
 
 Port of esoo_tpu/sim/strings.py.  The particle-number sector of a UCC
 circuit is the product space {beta string} x {alpha string}: with the
@@ -21,6 +21,9 @@ Host builders (`build_string_tables`, `_one_body_matrices`,
 `_build_pair_tables`, `build_rdm_maps`) are NumPy copies of the JAX
 package's; device kernels take a tables dict of tensors
 (sector.SectorUCC.device_tables or convert.string_tables_from_numpy).
+Compact tables (`compact_tables`: int8 stacks under "MA8"/"MB8") route
+build_ops, sigma, rdms, transition_rdm1 and diagonal to their
+operator-chunked variants.
 """
 
 from __future__ import annotations
@@ -227,8 +230,9 @@ def gate_fields(tabs: dict):
 
 
 def _perm(V: torch.Tensor, flat_k: torch.Tensor) -> torch.Tensor:
-    """V[pB][:, pA] for one gate (the JAX package's EB V EA^T)."""
-    return V.reshape(-1)[flat_k].reshape(V.shape)
+    """V[pB][:, pA] for one gate (the JAX package's EB V EA^T), over the
+    last two axes."""
+    return V.flatten(-2)[..., flat_k].reshape(V.shape)
 
 
 def _gate_step_str(V, flat_k, M_k, S_k, c_k, s_k):
@@ -246,7 +250,9 @@ class _ApplyRevStr(torch.autograd.Function):
     memory) and the cotangent recursion W <- G^T W is the same formula
     with th -> -th.  One batched permutation of (V_k, W) per gate; the
     permutation of V_{k-1} follows from it exactly (perm is an involution
-    mapping dom <-> ran, under which M is even and S odd)."""
+    mapping dom <-> ran, under which M is even and S odd).  V0 may carry
+    leading batch axes (k states through one theta): each state's
+    amplitudes are those of its own run, and dtheta sums over the batch."""
 
     @staticmethod
     def forward(ctx, V0, theta, M, S, flat):
@@ -267,7 +273,7 @@ class _ApplyRevStr(torch.autograd.Function):
         dths = [None] * theta.shape[0]
         for k in reversed(range(theta.shape[0])):
             ck1, sk, Mk, Sk = c[k] - 1.0, s[k], M[k], S[k]
-            GX = torch.stack([Vk, W]).reshape(2, -1)[:, flat[k]].reshape(
+            GX = torch.stack([Vk, W]).flatten(-2)[..., flat[k]].reshape(
                 (2,) + Vk.shape)
             G_k, GW = GX[0], GX[1]
             # V_{k-1} = G(-th) V_k (orthogonal inverse)
@@ -293,6 +299,180 @@ def apply_gates(V0: torch.Tensor, theta: torch.Tensor, tabs: dict,
                               flat)
 
 
+# -- compact (int8-stack, operator-chunked) kernel variants -----------------
+#
+# Port of the compact section of esoo_tpu/sim/strings.py.  The dense
+# kernels hold the float stacks MA/MB ((n^2, ns, ns) per spin) and the
+# whole (2 q, nd) T tensor; at N=32 (nA = 1820, nd = 3.31M) that is 2 x
+# 3.4 GB of float32 stacks and 6.8 GB of T.  Every stack entry is a JW
+# sign in {0, +-1}, so compact tables keep them int8 (keys "MA8"/"MB8",
+# the operator axis zero-padded to a multiple of _OP_CHUNK) and the
+# kernels below cast one chunk of _OP_CHUNK operators at a time, in a
+# Python loop over chunks.  Only one (q_pad, nd) T half is live at a time:
+# the second half is built after the first is deleted.  Key presence
+# ("MA8" in tabs) selects these variants, as in the JAX package.
+
+_OP_CHUNK = 32
+
+
+def compact_tables(s: StringTables, dtype: torch.dtype, *, device) -> dict:
+    """Compact tables dict from a StringTables: int8 operator stacks under
+    "MA8"/"MB8" (operator axis zero-padded to a multiple of _OP_CHUNK),
+    the LIN pair maps int64 and CROSS at `dtype`, on `device`.  Gate
+    tables are not carried (the compact path serves the gate-free
+    SectorCI)."""
+    q = s.MA.shape[0]
+    pad = [(0, -q % _OP_CHUNK), (0, 0), (0, 0)]
+    return dict(
+        MA8=torch.as_tensor(np.pad(np.asarray(s.MA, np.int8), pad),
+                            device=device),
+        MB8=torch.as_tensor(np.pad(np.asarray(s.MB, np.int8), pad),
+                            device=device),
+        LIN_A=torch.as_tensor(s.LIN_A.astype(np.int64), device=device),
+        LIN_B=torch.as_tensor(s.LIN_B.astype(np.int64), device=device),
+        CROSS=torch.as_tensor(s.CROSS, device=device).to(dtype))
+
+
+def _chunks(M8: torch.Tensor):
+    """(start, float-castable int8 chunk) over the operator axis."""
+    c = min(_OP_CHUNK, M8.shape[0])
+    return ((q0, M8[q0:q0 + c]) for q0 in range(0, M8.shape[0], c))
+
+
+def _fold_one_body(hvec: torch.Tensor, M8: torch.Tensor, dt) -> torch.Tensor:
+    """F = sum_q hvec[q] M8[q] without materializing the float stack."""
+    ns = M8.shape[1]
+    F = torch.zeros((ns, ns), dtype=dt, device=M8.device)
+    for q0, Mc in _chunks(M8):
+        F = F + torch.einsum("q,qji->ji", hvec[q0:q0 + Mc.shape[0]],
+                             Mc.to(dt))
+    return F
+
+
+def _t_chunk(V: torch.Tensor, Mc: torch.Tensor, spin: str, out=None):
+    """D_a v for one int8 chunk of operators, (c, nB, nA).  spin 'A':
+    T[q, b, j] = sum_i M[q, j, i] V[b, i]; 'B': T[q, j, a] =
+    sum_i M[q, j, i] V[i, a]."""
+    Mf = Mc.to(V.dtype)
+    if spin == "A":
+        return torch.matmul(V, Mf.mT, out=out)
+    return torch.matmul(Mf, V, out=out)
+
+
+def _t_half(V: torch.Tensor, M8: torch.Tensor, spin: str) -> torch.Tensor:
+    """One (q_pad, nd) T half T_a = D_a v, written chunk by chunk into a
+    preallocated buffer."""
+    nB, nA = V.shape
+    T = torch.empty((M8.shape[0], nB, nA), dtype=V.dtype, device=V.device)
+    for q0, Mc in _chunks(M8):
+        _t_chunk(V, Mc, spin, out=T[q0:q0 + Mc.shape[0]])
+    return T.reshape(M8.shape[0], nB * nA)
+
+
+def _back_contract(Tf: torch.Tensor, G2blk: torch.Tensor, M8: torch.Tensor,
+                   spin: str, nB: int, nA: int) -> torch.Tensor:
+    """sum_a D_a^T-side contraction of U = G2blk @ Tf, formed one operator
+    chunk of rows at a time and contracted back at once (U is never
+    whole).  spin 'A': out[b, j] = sum_{q,i} M[q, j, i] U[q, b, i];
+    'B': out[j, a] = sum_{q,i} M[q, j, i] U[q, i, a]."""
+    acc = torch.zeros((nB, nA), dtype=Tf.dtype, device=Tf.device)
+    for q0, Mc in _chunks(M8):
+        Mf = Mc.to(Tf.dtype)
+        Uc = (G2blk[q0:q0 + Mc.shape[0]] @ Tf).reshape(-1, nB, nA)
+        for Mq, Uq in zip(Mf, Uc):
+            if spin == "A":
+                acc.addmm_(Uq, Mq.T)
+            else:
+                acc.addmm_(Mq, Uq)
+    return acc
+
+
+def _sigma_compact(V: torch.Tensor, ops: dict, tabs: dict) -> torch.Tensor:
+    """H . v with int8 stacks: the math of `sigma`, streamed over operator
+    chunks.  G2 is split into its four spin blocks; the alpha half TAf is
+    consumed (AA and BA blocks) and deleted before the beta half is
+    built, so one (q_pad, nd) half is live at a time."""
+    MA8, MB8 = tabs["MA8"], tabs["MB8"]
+    nB, nA = V.shape
+    q = MA8.shape[0]
+    G2 = ops["G2"]
+    s = V @ ops["FA"].T + ops["FB"] @ V
+    TAf = _t_half(V, MA8, "A")
+    s = s + _back_contract(TAf, G2[:q, :q], MA8, "A", nB, nA)
+    s = s + _back_contract(TAf, G2[q:, :q], MB8, "B", nB, nA)
+    del TAf
+    TBf = _t_half(V, MB8, "B")
+    s = s + _back_contract(TBf, G2[:q, q:], MA8, "A", nB, nA)
+    return s + _back_contract(TBf, G2[q:, q:], MB8, "B", nB, nA)
+
+
+def _assemble_rdms(gp_a, gp_b, G2f, maps, dt):
+    """(gamma, Gamma) from the pair sums T v (alpha, beta halves) and the
+    flat pair-correlation matrix, through the build_rdm_maps triple."""
+    IDX, SGN, CASE_A = maps
+    N = CASE_A.shape[0]
+    nsp = N // 2
+    gamma = torch.zeros((N, N), dtype=dt, device=G2f.device)
+    gamma[:nsp, :nsp] = gp_a[: nsp * nsp].reshape(nsp, nsp)
+    gamma[nsp:, nsp:] = gp_b[: nsp * nsp].reshape(nsp, nsp)
+    Gamma = (SGN.to(dt) * G2f[IDX.long()]).reshape(N, N, N, N)
+    eye = torch.eye(N, dtype=dt, device=G2f.device)
+    Gamma = Gamma - CASE_A.to(dt) * torch.einsum("qr,ps->pqrs", eye, gamma)
+    return gamma, Gamma
+
+
+def _rdms_compact(V: torch.Tensor, tabs: dict, maps):
+    """`rdms` with int8 stacks: the (2 q_pad)^2 pair-correlation matrix by
+    spin blocks with one T half live at a time (the cross block
+    TAf TBf^T streams beta chunks recomputed on the fly; BA = AB^T)."""
+    MA8, MB8 = tabs["MA8"], tabs["MB8"]
+    v = V.reshape(-1)
+    TAf = _t_half(V, MA8, "A")
+    gp_a = TAf @ v
+    AA = TAf @ TAf.T
+    AB = torch.cat([TAf @ _t_chunk(V, Mc, "B").flatten(1).T
+                    for _, Mc in _chunks(MB8)], dim=1)
+    del TAf
+    TBf = _t_half(V, MB8, "B")
+    gp_b = TBf @ v
+    BB = TBf @ TBf.T
+    del TBf
+    G2f = torch.cat([torch.cat([AA, AB], dim=1),
+                     torch.cat([AB.T, BB], dim=1)], dim=0).reshape(-1)
+    return _assemble_rdms(gp_a, gp_b, G2f, maps, V.dtype)
+
+
+def _diag_same_spin(G2blk: torch.Tensor, M8: torch.Tensor, dt):
+    """d2[i] = sum_ab G2blk[a,b] sum_j M[a,i,j] M[b,j,i], both operator
+    axes streamed in chunks: W[a, j, i] = sum_b G2blk[a, b] M[b, j, i] is
+    accumulated for one chunk of a, then contracted with M[a, i, j]."""
+    ns = M8.shape[1]
+    d2 = torch.zeros((ns,), dtype=dt, device=M8.device)
+    for a0, Ma in _chunks(M8):
+        ca = Ma.shape[0]
+        W = torch.zeros((ca, ns * ns), dtype=dt, device=M8.device)
+        for b0, Mb in _chunks(M8):
+            W.addmm_(G2blk[a0:a0 + ca, b0:b0 + Mb.shape[0]],
+                     Mb.to(dt).reshape(Mb.shape[0], -1))
+        d2 = d2 + (Ma.to(dt).mT * W.reshape(ca, ns, ns)).sum(dim=(0, 1))
+    return d2
+
+
+def _diagonal_compact(ops: dict, tabs: dict) -> torch.Tensor:
+    """Exact diag(H) with int8 stacks (the identity of `diagonal`)."""
+    dt = ops["FA"].dtype
+    MA8, MB8 = tabs["MA8"], tabs["MB8"]
+    q = MA8.shape[0]
+    G2 = ops["G2"]
+    W_cross = G2[:q, q:] + G2[q:, :q].T
+    DA = torch.diagonal(MA8, dim1=1, dim2=2).to(dt)
+    DB = torch.diagonal(MB8, dim1=1, dim2=2).to(dt)
+    dA = torch.diagonal(ops["FA"]) + _diag_same_spin(G2[:q, :q], MA8, dt)
+    dB = torch.diagonal(ops["FB"]) + _diag_same_spin(G2[q:, q:], MB8, dt)
+    cross = torch.einsum("ab,ai,bj->ji", W_cross, DA, DB)
+    return dA[None, :] + dB[:, None] + cross
+
+
 # -- sigma / quadform -------------------------------------------------------
 
 def build_ops(h_so: torch.Tensor, g_so: torch.Tensor, tabs: dict) -> dict:
@@ -300,58 +480,75 @@ def build_ops(h_so: torch.Tensor, g_so: torch.Tensor, tabs: dict) -> dict:
     convention E = sum h gamma + sum g Gamma: the (P, P) pair coupling
     G2 = g~ (gathered from g via the LIN tables) and the one-body string
     matrices F = sum h~ D with h~ = h - sum_q g[p, q, q, s] over same-spin
-    q.  Differentiable in (h, g)."""
+    q.  Differentiable in (h, g).  With stacks padded on their operator
+    axis (compact tables), G2 is embedded at the padded block offsets
+    with zero rows and columns for the zero operators."""
     dt = h_so.dtype
+    compact = "MA8" in tabs
     P_half = tabs["CROSS"].shape[0] // 2
     nsp = int(round(np.sqrt(P_half)))               # spatial orbitals
-    if tabs["MA"].shape[0] != P_half:
-        raise ValueError("padded operator stacks belong to the sharded "
-                         "placement, which is not ported")
+    q = tabs["MA8" if compact else "MA"].shape[0]
     gf = g_so.reshape(-1)
     G2 = gf[tabs["LIN_A"]] - tabs["CROSS"].to(dt) * gf[tabs["LIN_B"]]
+    if q != P_half:
+        G2p = G2.new_zeros((2 * q, 2 * q))
+        for r, c in ((0, 0), (0, 1), (1, 0), (1, 1)):
+            G2p[r * q:r * q + P_half, c * q:c * q + P_half] = \
+                G2[r * P_half:(r + 1) * P_half, c * P_half:(c + 1) * P_half]
+        G2 = G2p
     # delta correction over SAME-SPIN q only: cross-spin q = r terms are
     # expanded through the cross-pairing identity and live in G2
     sA = torch.einsum("pqqs->ps", g_so[:, :nsp, :nsp, :])
     sB = torch.einsum("pqqs->ps", g_so[:, nsp:, nsp:, :])
-    hA = (h_so - sA)[:nsp, :nsp].reshape(-1)
-    hB = (h_so - sB)[nsp:, nsp:].reshape(-1)
-    FA = torch.einsum("q,qji->ji", hA, tabs["MA"].to(dt))
-    FB = torch.einsum("q,qji->ji", hB, tabs["MB"].to(dt))
+    hA = torch.nn.functional.pad((h_so - sA)[:nsp, :nsp].reshape(-1),
+                                 (0, q - P_half))
+    hB = torch.nn.functional.pad((h_so - sB)[nsp:, nsp:].reshape(-1),
+                                 (0, q - P_half))
+    if compact:
+        FA = _fold_one_body(hA, tabs["MA8"], dt)
+        FB = _fold_one_body(hB, tabs["MB8"], dt)
+    else:
+        FA = torch.einsum("q,qji->ji", hA, tabs["MA"].to(dt))
+        FB = torch.einsum("q,qji->ji", hB, tabs["MB"].to(dt))
     return {"G2": G2, "FA": FA, "FB": FB}
 
 
 def _t_tensor(V: torch.Tensor, MA: torch.Tensor, MB: torch.Tensor):
-    """T = [D_a v]_a over the 2 n^2 same-spin operators, (2 P_A, nB*nA)."""
-    nB, nA = V.shape
-    TA = torch.einsum("qji,bi->qbj", MA, V)
-    TB = torch.einsum("qji,ia->qja", MB, V)
-    return torch.cat([TA, TB], dim=0).reshape(-1, nB * nA)
+    """T = [D_a v]_a over the 2 n^2 same-spin operators, (2 P_A, nB*nA);
+    leading batch axes of V carry through, (..., 2 P_A, nB*nA)."""
+    TA = torch.einsum("qji,...bi->...qbj", MA, V)
+    TB = torch.einsum("qji,...ia->...qja", MB, V)
+    return torch.cat([TA, TB], dim=-3).flatten(-2)
 
 
 def sigma(V: torch.Tensor, ops: dict, tabs: dict) -> torch.Tensor:
     """H . v on the string matrix:
-    sigma = V FA^T + FB V + sum_a D_a (sum_b g~[a,b] D_b v)."""
+    sigma = V FA^T + FB V + sum_a D_a (sum_b g~[a,b] D_b v).
+    V (nB, nA), or (k, nB, nA) for k states at once (dense tables)."""
+    if "MA8" in tabs:
+        return _sigma_compact(V, ops, tabs)
     dt = V.dtype
-    nB, nA = V.shape
+    nB, nA = V.shape[-2:]
     MA = tabs["MA"].to(dt)
     MB = tabs["MB"].to(dt)
     P_A = MA.shape[0]
     s1 = V @ ops["FA"].T + ops["FB"] @ V
     T = _t_tensor(V, MA, MB)
-    U = (ops["G2"] @ T).reshape(2 * P_A, nB, nA)
-    s2A = torch.einsum("qji,qbi->bj", MA, U[:P_A])
-    s2B = torch.einsum("qji,qia->ja", MB, U[P_A:])
+    U = (ops["G2"] @ T).unflatten(-1, (nB, nA))
+    s2A = torch.einsum("qji,...qbi->...bj", MA, U[..., :P_A, :, :])
+    s2B = torch.einsum("qji,...qia->...ja", MB, U[..., P_A:, :, :])
     return s1 + s2A + s2B
 
 
 def quadform(V: torch.Tensor, ops: dict, tabs: dict) -> torch.Tensor:
-    """<v|H|v> = vec(V) . vec(sigma(V)) (gradients from autograd)."""
-    return torch.sum(V * sigma(V, ops, tabs))
+    """<v|H|v> = vec(V) . vec(sigma(V)) (gradients from autograd); one
+    value per state for a (k, nB, nA) stack."""
+    return torch.sum(V * sigma(V, ops, tabs), dim=(-2, -1))
 
 
 # -- RDMs -------------------------------------------------------------------
 
-def build_rdm_maps(n: int):
+def build_rdm_maps(n: int, q_pad: int = None):
     """Host-side maps turning the pair-correlation matrix
     G2f[a, b] = (D_a v) . (D_b v) into the spin-orbital 2-RDM
     Gamma[p, q, r, s] = <a+_p a+_q a_s a_r>:
@@ -362,15 +559,19 @@ def build_rdm_maps(n: int):
           Gamma = -G2f[(r,q), (p,s)]
       otherwise 0.
 
+    `q_pad` is the per-spin operator-axis length of the stacks (default
+    n^2; compact stacks are padded), where the beta block of T starts.
     Returns (IDX, SGN, CASE_A): IDX (N^4,) int32 into G2f.reshape(-1),
     SGN (N^4,) in {0, +-1}, CASE_A the (N, N, N, N) 0/1 delta mask."""
     N = 2 * n
     sp = (np.arange(N) >= n).astype(np.int64)
-    P = 2 * n * n
+    if q_pad is None:
+        q_pad = n * n
+    P = 2 * q_pad
 
     def pair(x, y):
         # same-spin pair index in the MA/MB ordering (alpha block first)
-        return sp[x] * n * n + (x % n) * n + (y % n)
+        return sp[x] * q_pad + (x % n) * n + (y % n)
 
     p = np.arange(N)[:, None, None, None]
     q = np.arange(N)[None, :, None, None]
@@ -390,27 +591,18 @@ def build_rdm_maps(n: int):
 def rdms(V: torch.Tensor, tabs: dict, maps):
     """Spin-orbital (gamma, Gamma) from the string matrix: products plus
     one constant-index gather of the (P, P) pair-correlation matrix.
-    `maps` is a build_rdm_maps triple (as tensors or arrays)."""
-    dt, dev = V.dtype, V.device
-    IDX, SGN, CASE_A = (torch.as_tensor(a, device=dev) for a in maps)
-    N = CASE_A.shape[0]
-    nsp = N // 2
+    `maps` is a build_rdm_maps triple (as tensors or arrays) for the
+    tables' operator-axis length q_pad."""
+    maps = tuple(torch.as_tensor(a, device=V.device) for a in maps)
+    if "MA8" in tabs:
+        return _rdms_compact(V, tabs, maps)
+    dt = V.dtype
     MA = tabs["MA"].to(dt)
-    MB = tabs["MB"].to(dt)
-    if MA.shape[0] != nsp * nsp:
-        raise ValueError("padded operator stacks belong to the sharded "
-                         "placement, which is not ported")
-    T = _t_tensor(V, MA, MB)
-    v = V.reshape(-1)
-    gpairs = T @ v                                   # (2 n^2,)
-    gamma = torch.zeros((N, N), dtype=dt, device=dev)
-    gamma[:nsp, :nsp] = gpairs[: nsp * nsp].reshape(nsp, nsp)
-    gamma[nsp:, nsp:] = gpairs[nsp * nsp:].reshape(nsp, nsp)
+    q = MA.shape[0]
+    T = _t_tensor(V, MA, tabs["MB"].to(dt))
+    gpairs = T @ V.reshape(-1)                       # (2 q,)
     G2f = (T @ T.T).reshape(-1)                      # (P*P,)
-    Gamma = (SGN.to(dt) * G2f[IDX.long()]).reshape(N, N, N, N)
-    eye = torch.eye(N, dtype=dt, device=dev)
-    Gamma = Gamma - CASE_A.to(dt) * torch.einsum("qr,ps->pqrs", eye, gamma)
-    return gamma, Gamma
+    return _assemble_rdms(gpairs[:q], gpairs[q:], G2f, maps, dt)
 
 
 def transition_rdm1(U: torch.Tensor, V: torch.Tensor,
@@ -427,10 +619,22 @@ def transition_rdm1(U: torch.Tensor, V: torch.Tensor,
     nsp = int(round(np.sqrt(P_half)))
     N = 2 * nsp
     k = Ub.shape[0]
-    MA = tabs["MA"].to(dt)
-    MB = tabs["MB"].to(dt)
-    ga = torch.einsum("qbj,kbj->kq", torch.einsum("qji,bi->qbj", MA, V), Ub)
-    gb = torch.einsum("qja,kja->kq", torch.einsum("qji,ia->qja", MB, V), Ub)
+    if "MA8" in tabs:
+        # one (c, nd) chunk of T live at a time
+        Uf = Ub.reshape(k, -1)
+
+        def pairs(M8, spin):
+            return torch.cat([Uf @ _t_chunk(V, Mc, spin).flatten(1).T
+                              for _, Mc in _chunks(M8)], dim=1)
+
+        ga, gb = pairs(tabs["MA8"], "A"), pairs(tabs["MB8"], "B")
+    else:
+        MA = tabs["MA"].to(dt)
+        MB = tabs["MB"].to(dt)
+        ga = torch.einsum("qbj,kbj->kq",
+                          torch.einsum("qji,bi->qbj", MA, V), Ub)
+        gb = torch.einsum("qja,kja->kq",
+                          torch.einsum("qji,ia->qja", MB, V), Ub)
     gamma = torch.zeros((k, N, N), dtype=dt, device=V.device)
     gamma[:, :nsp, :nsp] = ga[:, : nsp * nsp].reshape(k, nsp, nsp)
     gamma[:, nsp:, nsp:] = gb[:, : nsp * nsp].reshape(k, nsp, nsp)
@@ -449,6 +653,8 @@ def diagonal(ops: dict, tabs: dict) -> torch.Tensor:
 
     (same-spin products need the full intermediate sum over j of
     M[a,i,j] M[b,j,i]; cross-spin products factor over the grid)."""
+    if "MA8" in tabs:
+        return _diagonal_compact(ops, tabs)
     dt = ops["FA"].dtype
     MA = tabs["MA"].to(dt)
     MB = tabs["MB"].to(dt)

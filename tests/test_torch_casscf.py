@@ -20,6 +20,7 @@ import torch
 
 from esoo_tpu.orbital_optimization import (
     FusedOptOrbCASSCF as JCASSCF, FusedOptOrbSACASSCF as JSACASSCF)
+from esoo_tpu.orbital_optimization import casscf as JCASSCF_MODULE
 from esoo_tpu.orbital_optimization.checkpoint import (
     save_checkpoint as jax_save_checkpoint)
 from esoo_tpu.sim import HartreeFock as JHF, UCCSD as JUCCSD
@@ -148,10 +149,19 @@ def test_transition_rdm1_matches_jax(sector_pair, batched):
 
 
 def test_sector_ci_storage_outside_the_slice_raises():
-    ts = SectorCI(4, (1, 1))
-    for storage in ("compact", "int8"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            ts.device_tables(torch.float64, device="cpu", storage=storage)
+    """The compact and int8 tables equal the JAX package's (the kernels
+    on them: tests/test_torch_compact.py); an unknown storage raises."""
+    ts, js = SectorCI(4, (1, 1)), JSectorCI(4, (1, 1))
+    for storage, keys in (("compact", ("MA8", "MB8")), ("int8", ("MA", "MB"))):
+        tt = ts.device_tables(torch.float64, device="cpu", storage=storage)
+        jt = js.device_tables(np.float64, storage=storage)
+        assert set(tt) == set(jt)
+        for k in keys + ("LIN_A", "LIN_B", "CROSS"):
+            np.testing.assert_array_equal(tt[k].numpy(), np.asarray(jt[k]),
+                                          err_msg=f"{storage} {k}")
+        assert all(tt[k].dtype == torch.int8 for k in keys)
+        assert ts.device_tables(torch.float64, device="cpu",
+                                storage=storage) is tt           # cached
     with pytest.raises(ValueError):
         ts.device_tables(torch.float64, device="cpu", storage="sparse")
 
@@ -473,8 +483,13 @@ def test_casscf_options_validated_as_in_jax(h2_631g, monkeypatch):
 
     with pytest.raises(NotImplementedError, match="mesh"):
         make(mesh=object())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        make(table_storage="compact")
+    # compact storage: the JAX package's int8 stacks
+    comp = make(table_storage="compact")
+    jcomp = JCASSCF(4, problem=h2_631g, table_storage="compact")
+    assert comp.table_storage == jcomp.table_storage == "compact"
+    for k in ("MA8", "MB8"):
+        np.testing.assert_array_equal(comp._sector_tables[k].numpy(),
+                                      np.asarray(jcomp._sector_tables[k]))
     with pytest.raises(ValueError, match="table_storage"):
         make(table_storage="int8")
     with pytest.raises(ValueError, match="davidson_chunk"):
@@ -499,8 +514,11 @@ def test_casscf_options_validated_as_in_jax(h2_631g, monkeypatch):
     # 'auto' resolves to the compact tables past _COMPACT_MIN_ND
     assert make().table_storage == "dense"
     monkeypatch.setattr(TC, "_COMPACT_MIN_ND", 3)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        make(table_storage="auto")
+    monkeypatch.setattr(JCASSCF_MODULE, "_COMPACT_MIN_ND", 3)
+    auto = make(table_storage="auto")
+    assert auto.table_storage == "compact" == JCASSCF(
+        4, problem=h2_631g).table_storage
+    assert "MA8" in auto._sector_tables
     assert make(table_storage="dense").table_storage == "dense"
 
 

@@ -197,3 +197,61 @@ def test_sector_ci_sigma_and_diagonal_at_n20_float32(card):
     for got, ref in zip(out[torch.float32], out[torch.float64]):
         err = float((got.double().cpu() - ref).abs().max())
         assert err <= 5e-6 * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("N,parts", [(12, (3, 3)), (16, (3, 3))])
+def test_compact_kernels_match_dense_on_the_card(card, N, parts):
+    """The compact int8 tables' operator-chunked sigma, RDMs and diagonal
+    on the card (N=12: q = 36 padded to 64; N=16: q = 64) against the
+    dense tables on the card, float32, within 1e-5 * max(1, max|ref|) (the
+    two sum the same products in different orders), and against float64
+    on the CPU within 5e-6 * max(1, max|ref|)."""
+    from esoo_torch.sim import SectorCI
+    sec = SectorCI(N, parts)
+    rng = np.random.default_rng(N)
+    h = rng.normal(size=(N, N))
+    g0 = rng.normal(size=(N,) * 4)
+    g = (g0 + g0.transpose(1, 0, 3, 2) + g0.transpose(2, 3, 0, 1)
+         + g0.transpose(3, 2, 1, 0))
+    V = rng.normal(size=(sec.nB, sec.nA))
+    V /= np.linalg.norm(V)
+    out = {}
+    for dev, dt, storage in ((card, torch.float32, "dense"),
+                             (card, torch.float32, "compact"),
+                             ("cpu", torch.float64, "compact")):
+        tabs = sec.device_tables(dt, device=dev, storage=storage)
+        vals = sec.build_values(torch.as_tensor((h + h.T) / 2).to(dev, dt),
+                                torch.as_tensor(g).to(dev, dt), tabs)
+        Vt = torch.as_tensor(V).to(dev, dt)
+        out[(dt, storage)] = [sec.sigma_values(Vt, vals, tabs),
+                              sec.diagonal_values(vals, tabs),
+                              *sec.rdms(Vt, tabs)]
+    for got, dense, ref in zip(out[(torch.float32, "compact")],
+                               out[(torch.float32, "dense")],
+                               out[(torch.float64, "compact")]):
+        got, dense = got.double().cpu(), dense.double().cpu()
+        assert float((got - dense).abs().max()) <= 1e-5 * max(
+            1.0, float(dense.abs().max()))
+        assert float((got - ref).abs().max()) <= 5e-6 * max(
+            1.0, float(ref.abs().max()))
+
+
+def test_ssvqe_h2_on_the_card_matches_the_cpu(card):
+    from esoo_torch import (FusedOptOrbSSVQE, HartreeFock, OccupationState,
+                            UCCSD)
+    from esoo_torch.chem import MoleculeDriver
+    p = MoleculeDriver(atom="H 0 0 0; H 0 0 0.735", basis="6-31g").run()
+    runs = []
+    for device in ("cuda", "cpu"):
+        gemm.reset_launch_counts()
+        runs.append(FusedOptOrbSSVQE(
+            4, UCCSD(2, (1, 1), reps=2),
+            initial_states=[HartreeFock(2, (1, 1)),
+                            OccupationState(4, 0b0110)],
+            weight_vector=[2, 1], problem=p, maxiter=20, dtype=torch.float64,
+            device=device).compute_energies().eigenvalues)
+        if device == "cuda":
+            assert gemm.route_launch_counts()["fused"] > 0
+    np.testing.assert_allclose(runs[0], runs[1], rtol=0, atol=1e-8)
+    np.testing.assert_allclose(runs[0], [-1.85403538, -1.37044354], rtol=0,
+                               atol=1.5e-3)
