@@ -13,7 +13,9 @@ Phases, one JSON line each:
             GEMM chain beyond, at the CASSCF shapes m=112, n=14 and 16),
             and its time beside its bound, the plain version's and the
             library call's (the transform also beside the chain's, in the
-            same run);
+            same run); K1's narrow kernel also at NARROW_SHAPES (two calls
+            bit for bit), at stage 1 of m=112 for n = 4, 8, 12, 14 and
+            16, and at each of the chain's four stages;
   main path FusedOptOrbVQE on H4 cc-pVTZ (m=56 -> 8 spin orbitals,
             UCCSD, f32) with the launch counts zeroed before and read
             after; energy gates against the reference values; per-step
@@ -114,6 +116,16 @@ H2_CASSCF_TOL = 1e-4
 H2_SA_REFERENCE = (-1.85703467, -1.46615986)
 H2_SA_TOL = 1.5e-5
 
+# the narrow K1 kernel's check shapes (M, K, N), x^T y with x (K, M): N
+# from 1 to 16; M ragged against a tile and not a multiple of 4; K of one
+# ring stage, of 7 and of 19 (y in two chunks at float32, three at
+# float64, N = 16)
+NARROW_SHAPES = ([(729, 112, n) for n in (1, 4, 5, 8, 12, 14, 16)]
+                 + [(4097, k, 16) for k in (1, 3, 112, 300)]
+                 + [(729, 300, 5), (4098, 7, 14)])
+# stage 1 of the transform's chain at m=112: the n of the sweep
+K1_SWEEP_N = (4, 8, 12, 14, 16)
+
 # published H100 peaks (NVIDIA data sheets): memory bytes/s and the
 # float32 CUDA-core FLOP/s (the kernels use no tensor cores)
 _PEAKS = (("PCIe", 2.0e12, 51.2e12), ("NVL", 3.9e12, 60.0e12),
@@ -205,16 +217,22 @@ def device_profile(fn, reps: int = 20, match: str = ""):
     """(milliseconds, events) per call of the device kernels and copies
     whose name contains `match` (torch.profiler/CUPTI): the kernels'
     durations alone, without the gaps between kernels that `time_ms`
-    includes."""
+    includes.  A profiling window in which CUPTI delivered no device
+    event at all (seen now and then on the card, for any kernel) is
+    taken again, at most twice."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = [t for name, t in _device_events(prof) if match in name]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = _device_events(prof)
+        if events:
+            break
+    times = [t for name, t in events if match in name]
     if not times:
         raise AssertionError(f"profiler recorded no device kernel "
                              f"matching {match!r}")
@@ -292,18 +310,24 @@ def phase_kernels(card: str) -> dict:
     for dtype in (torch.float32, torch.float64):
         cases = [((300, 700, 150), tr) for tr in (False, True)] + \
                 [((17, 33, 5), tr) for tr in (False, True)] + \
-                [(s, True) for s in stage_shapes]
+                [(s, True) for s in stage_shapes + NARROW_SHAPES]
         for (M, K, N), tr in cases:
             x = torch.randn((K, M) if tr else (M, K), dtype=torch.float64,
                             generator=gen).to(dtype).to(dev)
             y = torch.randn(K, N, dtype=torch.float64,
                             generator=gen).to(dtype).to(dev)
             out = gemm.matmul(x, y, trans_x=tr)
+            again = gemm.matmul(x, y, trans_x=tr)
             torch.cuda.synchronize()
             err = check_close(out, gemm.matmul_plain(x, y, trans_x=tr),
                               dtype, f"matmul {M}x{K}x{N} trans_x={tr}")
+            same = bool(torch.equal(out, again))
+            if tr and N <= 16 and not same:       # the narrow kernel
+                raise AssertionError(f"two narrow matmul calls {M}x{K}x{N} "
+                                     f"{dtype} differ")
             checks.append(dict(kernel="gemm.matmul", M=M, K=K, N=N,
-                               trans_x=tr, dtype=str(dtype), err=err))
+                               trans_x=tr, dtype=str(dtype), err=err,
+                               repeat_bit_identical=same))
         # the one-pass kernel (transform.cu) at the headline shape, n = 8,
         # odd m (element-wise copies) and more blocks than slabs; the
         # four-launch chain (gemm.cu) at n = 12
@@ -429,7 +453,9 @@ def phase_kernels(card: str) -> dict:
     # (m, n) = (112, 14) and (112, 16), where they run on main paths.
     # The chain's own traffic (each stage's input read and output written)
     # is kept beside the function's, counted for bound_ms (g in, g_rot out).
-    at_casscf = {nh: _kernels_at_casscf_shape(checks, nh) for nh in (14, 16)}
+    at_casscf = {nh: _kernels_at_casscf_shape(checks, nh, (bw, fl32))
+                 for nh in (14, 16)}
+    k1_sweep = _k1_stage1_sweep(checks, (bw, fl32))
     mh = 112
     Mh = mh ** 3
     bounded = [(k1, k1_bytes, k1_flops), (k2, k2_bytes, k2_flops)]
@@ -457,23 +483,73 @@ def phase_kernels(card: str) -> dict:
          matmul_casscf_stage1=k1_h8, rotate_two_body_chain_casscf=chain_h8,
          matmul_casscf_stage1_n16=k1_h8_16,
          rotate_two_body_chain_casscf_n16=chain_h8_16,
+         matmul_stage1_m112_sweep=k1_sweep,
          timing=f"ms: median over 50 calls after 5 warm-up of CUDA events "
          f"around each call, the calls queued behind a device spin (no host "
          f"launch gaps); kernel_ms: profiler kernel time per call; "
          f"host_100_calls_ms: host wall of 100 calls and one sync; {card}")
     return {"gemm.matmul": dict(k1_h8, shape="m=112 n=14 stage 1 "
                                 "(1404928x112)^T @ (112x14)",
-                                at_h4_stage1=k1, at_m112_n16=k1_h8_16),
+                                at_h4_stage1=k1, at_m112_n16=k1_h8_16,
+                                stage1_m112_sweep=k1_sweep),
             "gemm.rotate_two_body_cuda": dict(
                 k2, shape="m=56 n=4 one-pass kernel",
                 chain_at_m112_n14=chain_h8, chain_at_m112_n16=chain_h8_16)}
 
 
-def _kernels_at_casscf_shape(checks: list, n: int):
+def _k1_bounded(rec: dict, K: int, M: int, N: int, peak: tuple) -> dict:
+    """rec with the bound of x^T y, x (K, M), y (K, N), float32: the larger
+    of the bytes of x and y read once and of out written once at the
+    memory rate, and the 2 K M N FLOPs at the float32 CUDA-core rate."""
+    bw, fl32 = peak
+    nbytes, flops = 4 * (K * M + K * N + M * N), 2 * K * M * N
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / fl32 * 1e3
+    rec.update(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    rec["pct_of_bound"] = 100 * rec["bound_ms"] / rec["kernel_ms"]
+    return rec
+
+
+def _k1_stage1_sweep(checks: list, peak: tuple) -> list:
+    """K1 at stage 1 of the transform at m=112 (x (112, 112^3), float32)
+    for each n of K1_SWEEP_N: held against its plain version, its kernel
+    time beside its bound and torch.matmul(x.T, u)'s."""
+    import torch
+    from esoo_torch.ops import gemm
+    dev, f32, m = torch.device("cuda"), torch.float32, 112
+    x = torch.randn(m, m ** 3, dtype=f32, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+    recs = []
+    for n in K1_SWEEP_N:
+        u = _partial_unitary(m, n, f32,
+                             torch.Generator().manual_seed(n)).to(dev)
+        out = gemm.matmul(x, u, trans_x=True)
+        torch.cuda.synchronize()
+        err = check_close(out, gemm.matmul_plain(x, u, trans_x=True), f32,
+                          f"gemm.matmul m=112 n={n} stage 1")
+        checks.append(dict(kernel="gemm.matmul", M=m ** 3, K=m, N=n,
+                           trans_x=True, dtype=str(f32), err=err,
+                           shape="stage 1 sweep"))
+        def call():
+            return gemm.matmul(x, u, trans_x=True)
+
+        def library():
+            return torch.matmul(x.T, u)
+
+        recs.append(_k1_bounded(dict(
+            n=n, kernel_ms=kernel_ms(call, match="gemm_"), ms=time_ms(call),
+            library_ms=time_ms(library), library_kernel_ms=kernel_ms(library),
+            max_abs_err=err), m, m ** 3, n, peak))
+    return recs
+
+
+def _kernels_at_casscf_shape(checks: list, n: int, peak: tuple):
     """K1 stage 1 and the transform's chain route at a CASSCF path's
     shape (m=112, n=14 at N=28 or 16 at N=32, float32), held against
-    their plain versions and timed.  The 629 MB g does not fit the 50 MB
-    L2, so every call reads it from HBM and no flush is needed."""
+    their plain versions and timed; the chain's four K1 stages also one
+    by one, each on its own input from the chain.  The 629 MB g does not
+    fit the 50 MB L2, so every call reads it from HBM and no flush is
+    needed."""
     import torch
     from esoo_torch.ops import gemm
     dev, f32 = torch.device("cuda"), torch.float32
@@ -520,11 +596,27 @@ def _kernels_at_casscf_shape(checks: list, n: int):
               plain_kernel_ms=kernel_ms(k1_plain),
               max_abs_err=float((k1_call() - torch.matmul(x.T, u))
                                 .abs().max()))
+    stages, t, rest = [], g, m ** 3
+    for _ in range(4):
+        xs = t.reshape(m, rest)
+        t = gemm.matmul(xs, u, trans_x=True)
+        def call(xs=xs):
+            return gemm.matmul(xs, u, trans_x=True)
+
+        def library(xs=xs):
+            return torch.matmul(xs.T, u)
+
+        stages.append(_k1_bounded(dict(
+            M=rest, kernel_ms=kernel_ms(call, match="gemm_"),
+            ms=time_ms(call), library_ms=time_ms(library),
+            library_kernel_ms=kernel_ms(library)), m, rest, n, peak))
+        rest = rest // m * n
     chain = dict(ms=time_ms(chain_call), plain_ms=time_ms(chain_plain),
                  library_ms=time_ms(chain_library),
                  kernel_ms=chain_kernel_ms,
                  kernel_launches_per_call=chain_events,
                  plain_kernel_ms=kernel_ms(chain_plain),
+                 stages=stages,
                  max_abs_err=float((chain_call() - chain_library())
                                    .abs().max()))
     return k1, chain

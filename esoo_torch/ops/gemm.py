@@ -36,7 +36,13 @@ import torch
 from . import _build
 
 _KERNEL_DTYPES = (torch.float32, torch.float64)
-_NARROW_N = 16                   # trans_x and N <= 16: gemm_narrow_tx, 1-D grid
+_NARROW_N = 16                   # trans_x and N <= 16: gemm_narrow_ring
+# gemm_narrow_ring's constants (csrc/gemm.cu), mirrored by _narrow_plan
+_NARROW_THREADS = 256            # kThreads
+_NARROW_RING = 2                 # kRing: stages in the cp.async ring
+_NARROW_STAGE_K = 16             # kStageK: k-rows of x a stage
+_NARROW_Y_BYTES = 16384          # kYBytes: the y chunk
+_NARROW_OUT_LANES = 8            # kOutLanes: lanes a warp stages a round
 _MAX_TILE_ROWS = 65535 * 64      # gemm_tiled grid.y limit
 _FUSED_MAX_N = 8                 # transform.cu: n^4 <= 16 accumulators x 256
 _FUSED_MAX_M = 256               # transform.cu: a thread to a slab column
@@ -53,6 +59,10 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p]
+    lib.esoo_matmul_narrow_plan.restype = ctypes.c_int
+    lib.esoo_matmul_narrow_plan.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
@@ -98,6 +108,33 @@ def _transform_plan(m: int, n: int, itemsize: int) -> tuple:
                 if _transform_smem(m, n, itemsize, stages) <= limit:
                     return "fused", stages
     return "chain", 0
+
+
+def _narrow_plan(M: int, K: int, N: int, itemsize: int, sms: int,
+                 per_sm: int) -> dict:
+    """The launch plan of csrc/gemm.cu's gemm_narrow_ring for out = x^T y
+    (x (K, M), y (K, N), N <= 16) on a card of `sms` SMs that holds
+    `per_sm` blocks an SM: y padded to nb columns; `rows` rows of out a
+    thread (16 bytes of x a k); a ring of `ring` stages of `stage_k`
+    k-rows; y staged in chunks of `y_rows` rows; `smem` bytes of dynamic
+    shared memory; a persistent 1-D grid of `blocks` blocks (at most one a
+    warp's groups) over the G = `groups` groups of `rows` rows, which
+    deals tiles of 256 groups to the blocks in rounds and splits the
+    groups past the last full round evenly over them; `stages` ring
+    stages a tile; 16-byte copies of x when its rows are 16-byte aligned
+    (`vec`)."""
+    nb = 4 if N <= 4 else (8 if N <= 8 else 16)
+    rows = 16 // itemsize
+    groups = -(-M // rows)
+    smem = (_NARROW_RING * _NARROW_STAGE_K * _NARROW_THREADS * 16
+            + _NARROW_Y_BYTES
+            + _NARROW_THREADS // 32 * _NARROW_OUT_LANES * (nb + 1) * 16)
+    return dict(nb=nb, rows=rows, stage_k=_NARROW_STAGE_K,
+                ring=_NARROW_RING, y_rows=_NARROW_Y_BYTES // (nb * itemsize),
+                smem=smem, sms=sms, per_sm=per_sm,
+                blocks=min(sms * per_sm, -(-groups // 32)),
+                stages=max(1, -(-K // _NARROW_STAGE_K)),
+                vec=int(M * itemsize % 16 == 0), groups=groups)
 
 
 def matmul_plain(x: torch.Tensor, y: torch.Tensor, *,

@@ -7,6 +7,8 @@ GPU and skip without one; run them there with
 Tolerances: float32 5e-6 * max(1, max|ref|) (the JAX package's GEMM
 test); float64 1e-12 * max(1, max|ref|)."""
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -59,6 +61,85 @@ def test_matmul_narrow_kernel_takes_rows_beyond_the_tile_grid(card):
     _close(out, gemm.matmul_plain(x, y, trans_x=True))
     with pytest.raises(ValueError, match="out of range"):
         gemm.matmul(x.T.contiguous(), y)          # the tiled kernel's limit
+
+
+_NARROW_SHAPES = ([(729, 112, n) for n in (1, 4, 5, 8, 12, 14, 16)]
+                  + [(4097, k, 16) for k in (1, 3, 112, 300)]
+                  + [(729, 300, 5), (4096, 112, 16), (4098, 7, 14),
+                     (1, 5, 3)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("M,K,N", _NARROW_SHAPES)
+def test_narrow_matmul_kernel_matches_plain(card, dtype, M, K, N):
+    """gemm_narrow_ring (trans_x, N <= 16): N from 1 to 16; M ragged
+    against a tile (729, 4097) and not a multiple of 4 (element copies);
+    K of one ring stage (1, 3), of 7 (112) and of 19 (300: y in two
+    chunks at float32 and three at float64, N = 16)."""
+    rng = np.random.default_rng(M * 7 + K * 3 + N)
+    x = torch.as_tensor(rng.normal(size=(K, M)), device=card).to(dtype)
+    y = torch.as_tensor(rng.normal(size=(K, N)), device=card).to(dtype)
+    out = gemm.matmul(x, y, trans_x=True)
+    torch.cuda.synchronize()
+    _close(out, gemm.matmul_plain(x, y, trans_x=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_narrow_matmul_takes_an_unaligned_x(card, dtype):
+    """x starting one element past a 16-byte boundary: element copies."""
+    M, K, N = 1024, 37, 14
+    rng = np.random.default_rng(5)
+    buf = torch.as_tensor(rng.normal(size=K * M + 1), device=card).to(dtype)
+    x = buf[1:].view(K, M)
+    y = torch.as_tensor(rng.normal(size=(K, N)), device=card).to(dtype)
+    out = gemm.matmul(x, y, trans_x=True)
+    torch.cuda.synchronize()
+    _close(out, gemm.matmul_plain(x, y, trans_x=True))
+
+
+@pytest.mark.parametrize("stage", [1, 2, 3, 4])
+def test_narrow_matmul_at_the_chain_stages(card, stage):
+    """The four stages of the transform's chain at (m, n) = (112, 16),
+    float32: x (112, rest) with rest = m^3, m^2 n, m n^2, n^3."""
+    m, n = 112, 16
+    rest = (m ** 3, m * m * n, m * n * n, n ** 3)[stage - 1]
+    gen = torch.Generator(device=card).manual_seed(stage)
+    x = torch.randn(m, rest, dtype=torch.float32, device=card, generator=gen)
+    u = torch.randn(m, n, dtype=torch.float32, device=card, generator=gen)
+    out = gemm.matmul(x, u, trans_x=True)
+    torch.cuda.synchronize()
+    _close(out, gemm.matmul_plain(x, u, trans_x=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("M,K,N", [(112 ** 3, 112, 16), (4097, 300, 14)])
+def test_narrow_matmul_repeats_bit_for_bit(card, dtype, M, K, N):
+    gen = torch.Generator(device=card).manual_seed(M + N)
+    x = torch.randn(K, M, dtype=dtype, device=card, generator=gen)
+    y = torch.randn(K, N, dtype=dtype, device=card, generator=gen)
+    first = gemm.matmul(x, y, trans_x=True)
+    second = gemm.matmul(x, y, trans_x=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("M,K,N,itemsize", [(112 ** 3, 112, 16, 4),
+                                            (112 * 16 * 16, 112, 14, 4),
+                                            (4096, 112, 16, 4),
+                                            (17, 33, 5, 8), (4097, 300, 16, 8),
+                                            (65535 * 64 + 1000, 3, 4, 4)])
+def test_narrow_plan_matches_the_kernel(card, M, K, N, itemsize):
+    """ops/gemm.py::_narrow_plan (which the CPU tests hold to the limits
+    and emulate) equals the built kernel's own launch plan on this card
+    (csrc/gemm.cu esoo_matmul_narrow_plan)."""
+    plan = (ctypes.c_int * 11)()
+    assert gemm._lib().esoo_matmul_narrow_plan(M, K, N, itemsize, plan) == 0
+    keys = ("nb", "rows", "stage_k", "ring", "y_rows", "smem", "sms",
+            "per_sm", "blocks", "stages", "vec")
+    got = dict(zip(keys, plan), groups=-(-M // plan[1]))
+    assert got == gemm._narrow_plan(M, K, N, itemsize, got["sms"],
+                                    got["per_sm"])
+    assert got["per_sm"] >= 1
 
 
 def _transform_inputs(m, n, dtype, card):
