@@ -15,7 +15,8 @@ Phases, one JSON line each:
             library call's (the transform also beside the chain's, in the
             same run); K1's narrow kernel also at NARROW_SHAPES (two calls
             bit for bit), at stage 1 of m=112 for n = 4, 8, 12, 14 and
-            16, and at each of the chain's four stages;
+            16, and at each of the chain's four stages; the transform
+            and K1's stage 1 also at the N2 paths' (26, 8) and (58, 10);
   main path FusedOptOrbVQE on H4 cc-pVTZ (m=56 -> 8 spin orbitals,
             UCCSD, f32) with the launch counts zeroed before and read
             after; energy gates against the reference values; per-step
@@ -52,7 +53,26 @@ Phases, one JSON line each:
             phase and a float64 witness on compact float64 tables;
   parity    H2 6-31G -> 4 spin orbitals at f64 on the card against the
             reference energies and the port's own CPU run: FusedOptOrbVQE,
-            FusedOptOrbCASSCF and FusedOptOrbSACASSCF (k=2).
+            FusedOptOrbCASSCF and FusedOptOrbSACASSCF (k=2);
+  chem      the chemistry past hydrogen, two more main paths, each RHF
+            with the two N 1s cores frozen (active_space()) and
+            FusedOptOrbCASSCF at f32, the launch counts zeroed before the
+            solve and read after: N2 cc-pVDZ m=26 -> 16 spin orbitals,
+            maxiter 12, tol 1e-6 (gates: RHF total within 2e-5 of
+            -108.954128, (5, 5) in 26 orbitals, CASSCF total within 5e-4
+            of -109.102359, the natural occupations of
+            tests/test_n2_showcase.py, every transform launch on the
+            one-pass route at (26, 8)), then its dipole (|mu| < 1e-4),
+            quadrupole and Mulliken populations (14 electrons) from the
+            1-RDM on the host; N2 cc-pVTZ m=58 -> 20, 100 outer
+            iterations (gates: RHF total within 5e-4 of -108.9835,
+            63,504 determinants, E within 5e-4 of the JAX package's
+            float64 energy JAX_N2_TZ_20_F64, 4 K1 launches a rotation on
+            the chain route at (58, 10), the native C++ ERI engine for
+            its f shells); both with the CASSCF gates of the
+            casscf phase (E at or below the first outer energy, the final
+            Davidson exit and residual, the float64 witness); `chem_s`
+            (host integrals, SCF, active space), `solve_s`, `eri_engine`.
 Then the kernel table line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises (non-zero exit, no
 result line); so does a machine without CUDA.  Imports nothing of JAX or
@@ -115,6 +135,26 @@ H2_ANCHOR_TOL = 1.5e-3
 H2_CASSCF_TOL = 1e-4
 H2_SA_REFERENCE = (-1.85703467, -1.46615986)
 H2_SA_TOL = 1.5e-5
+# N2 past hydrogen (the chem phase): cc-pVDZ, the JAX package's showcase
+# (tests/test_n2_showcase.py:21 and :37, totals: the literature RHF and
+# its float64 FusedOptOrbCASSCF at 16 spin orbitals), and cc-pVTZ
+# (tests/test_basis_universal.py:142, the literature RHF total)
+N2_GEOM = "N 0 0 0; N 0 0 1.0977"
+N2_DZ_RHF = -108.954128
+N2_DZ_RHF_TOL = 2e-5
+N2_DZ_CASSCF = -109.102359
+N2_TZ_RHF = -108.9835
+N2_TOL = 5e-4
+N2_CASSCF_KW = dict(maxiter=12, stopping_tolerance=1e-6)
+# N2 cc-pVTZ 58 -> 20 creeps down a flat valley for a hundred outer
+# iterations and more, and on the way the float32 trajectory parts from
+# the float64 one by more than N2_TOL.
+# So the path runs 100 outer iterations with no early stop (at |E| ~ 32 a
+# float32 |dE| below 1e-6 is two equal roundings, not convergence), and
+# the gate is the JAX package's float64 energy at the same settings
+# (tests/test_torch_n2.py recomputes it).
+N2_TZ_KW = dict(maxiter=100, stopping_tolerance=0.0)
+JAX_N2_TZ_20_F64 = -31.746012714748243
 
 # the narrow K1 kernel's check shapes (M, K, N), x^T y with x (K, M): N
 # from 1 to 16; M ragged against a tile and not a multiple of 4; K of one
@@ -329,11 +369,13 @@ def phase_kernels(card: str) -> dict:
                                trans_x=tr, dtype=str(dtype), err=err,
                                repeat_bit_identical=same))
         # the one-pass kernel (transform.cu) at the headline shape, n = 8,
-        # odd m (element-wise copies) and more blocks than slabs; the
-        # four-launch chain (gemm.cu) at n = 12
+        # odd m (element-wise copies), more blocks than slabs and the N2
+        # cc-pVDZ path's (26, 8); the four-launch chain (gemm.cu) at n = 12
+        # and at the N2 cc-pVTZ path's (58, 10)
         for (mm, nn, route) in ((56, 4, "fused"), (24, 8, "fused"),
                                 (9, 3, "fused"), (4, 2, "fused"),
-                                (24, 12, "chain")):
+                                (26, 8, "fused"), (24, 12, "chain"),
+                                (58, 10, "chain")):
             g = torch.randn(mm, mm, mm, mm, dtype=torch.float64,
                             generator=gen).to(dtype).to(dev)
             u = _partial_unitary(mm, nn, dtype, gen).to(dev)
@@ -456,6 +498,7 @@ def phase_kernels(card: str) -> dict:
     at_casscf = {nh: _kernels_at_casscf_shape(checks, nh, (bw, fl32))
                  for nh in (14, 16)}
     k1_sweep = _k1_stage1_sweep(checks, (bw, fl32))
+    at_n2 = _kernels_at_n2_shapes((bw, fl32))
     mh = 112
     Mh = mh ** 3
     bounded = [(k1, k1_bytes, k1_flops), (k2, k2_bytes, k2_flops)]
@@ -483,7 +526,7 @@ def phase_kernels(card: str) -> dict:
          matmul_casscf_stage1=k1_h8, rotate_two_body_chain_casscf=chain_h8,
          matmul_casscf_stage1_n16=k1_h8_16,
          rotate_two_body_chain_casscf_n16=chain_h8_16,
-         matmul_stage1_m112_sweep=k1_sweep,
+         matmul_stage1_m112_sweep=k1_sweep, at_n2_shapes=at_n2,
          timing=f"ms: median over 50 calls after 5 warm-up of CUDA events "
          f"around each call, the calls queued behind a device spin (no host "
          f"launch gaps); kernel_ms: profiler kernel time per call; "
@@ -491,10 +534,87 @@ def phase_kernels(card: str) -> dict:
     return {"gemm.matmul": dict(k1_h8, shape="m=112 n=14 stage 1 "
                                 "(1404928x112)^T @ (112x14)",
                                 at_h4_stage1=k1, at_m112_n16=k1_h8_16,
-                                stage1_m112_sweep=k1_sweep),
+                                stage1_m112_sweep=k1_sweep,
+                                stage1_at_m58_n10=at_n2["matmul_stage1"]),
             "gemm.rotate_two_body_cuda": dict(
                 k2, shape="m=56 n=4 one-pass kernel",
-                chain_at_m112_n14=chain_h8, chain_at_m112_n16=chain_h8_16)}
+                chain_at_m112_n14=chain_h8, chain_at_m112_n16=chain_h8_16,
+                at_m26_n8=at_n2["one_pass"],
+                chain_at_m58_n10=at_n2["chain"])}
+
+
+def _kernels_at_n2_shapes(peak: tuple) -> dict:
+    """The transform at the N2 paths' shapes, float32: the one-pass kernel
+    at (26, 8) (cc-pVDZ; g is 1.8 MB, L2-resident on the path, also timed
+    after a 128 MB write), the K1 chain at (58, 10) (cc-pVTZ; g is 45 MB)
+    and the chain's stage 1, (195112 x 58)^T @ (58 x 10); each beside its
+    bound, its plain version and the library call.  Held against the
+    plain versions in the kernels phase's checks."""
+    import torch
+    from esoo_torch.ops import gemm
+    dev, f32 = torch.device("cuda"), torch.float32
+    bw, fl32 = peak
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    out = {}
+    for key, (m, n, route, match) in {
+            "one_pass": (26, 8, "fused", "transform_"),
+            "chain": (58, 10, "chain", "gemm_")}.items():
+        if gemm._transform_plan(m, n, 4)[0] != route:
+            raise AssertionError(f"m={m} n={n} should take the {route} "
+                                 f"route")
+        g = torch.randn((m,) * 4, dtype=f32, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(m))
+        u = _partial_unitary(m, n, f32,
+                             torch.Generator().manual_seed(n)).to(dev)
+
+        def call(g=g, u=u):
+            return gemm.rotate_two_body_cuda(g, u)
+
+        def cold(g=g, u=u):
+            flush.zero_()
+            return gemm.rotate_two_body_cuda(g, u)
+
+        def library(g=g, u=u):
+            t = torch.tensordot(g, u, dims=([0], [0]))
+            t = torch.tensordot(t, u, dims=([0], [0]))
+            t = torch.tensordot(t, u, dims=([0], [0]))
+            return torch.tensordot(t, u, dims=([0], [0]))
+
+        kms, events = device_profile(call, match=match)
+        rec = dict(m=m, n=n, route=route, kernel_ms=kms,
+                   kernel_launches_per_call=events,
+                   kernel_ms_l2_flushed=kernel_ms(cold, match=match),
+                   ms=time_ms(call),
+                   plain_ms=time_ms(lambda g=g, u=u:
+                                    gemm.rotate_two_body_plain(g, u)),
+                   library_ms=time_ms(library),
+                   max_abs_err=float((call() - library()).abs().max()))
+        nbytes = 4 * (m ** 4 + m * n + n ** 4)
+        if route == "fused":        # the one-pass kernel's FMAs
+            flops = 2 * (m * m * (m * m * n + m * n * n)
+                         + m * (m * n ** 3 + n ** 4))
+        else:                       # the chain's four stages
+            flops = 2 * (m ** 4 * n + m ** 3 * n ** 2 + m ** 2 * n ** 3
+                         + m * n ** 4)
+        t_bytes, t_ops = nbytes / bw * 1e3, flops / fl32 * 1e3
+        rec.update(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        rec["pct_of_bound"] = 100 * rec["bound_ms"] / rec["kernel_ms"]
+        out[key] = rec
+        if route == "chain":
+            x = g.reshape(m, m ** 3)
+
+            def k1(x=x, u=u):
+                return gemm.matmul(x, u, trans_x=True)
+
+            out["matmul_stage1"] = _k1_bounded(dict(
+                m=m, n=n, kernel_ms=kernel_ms(k1, match="gemm_"),
+                ms=time_ms(k1), plain_ms=time_ms(
+                    lambda x=x, u=u: gemm.matmul_plain(x, u, trans_x=True)),
+                library_ms=time_ms(lambda x=x, u=u: torch.matmul(x.T, u)),
+                max_abs_err=float((k1() - torch.matmul(x.T, u))
+                                  .abs().max())), m, m ** 3, n, peak)
+    return out
 
 
 def _k1_bounded(rec: dict, K: int, M: int, N: int, peak: tuple) -> dict:
@@ -880,8 +1000,10 @@ def phase_casscf() -> dict:
     return launches, problem
 
 
-def _casscf_gates(r, witness: dict, launches: dict, routes: dict) -> list:
-    """The gates every H8 CASSCF solve meets beside its energy window."""
+def _casscf_gates(r, witness: dict, launches: dict, routes: dict,
+                  route: str = "chain") -> list:
+    """The gates every CASSCF solve of the smoke meets beside its energy
+    window; `route` is the transform's route at the solve's (m, n)."""
     E, trace, stats = r.eigenvalue, r.energy_convergence_list, r.stage_stats
     rotations = stats["davidson_solves"]     # one rotation before each solve
     failed = []
@@ -906,11 +1028,15 @@ def _casscf_gates(r, witness: dict, launches: dict, routes: dict) -> list:
         failed.append(f"the float64 energy at the final orbitals "
                       f"{witness['energy_f64']!r} differs from {E!r} by "
                       f"more than {H8_F64_WITNESS_TOL}")
-    # n > 8: every rotation is the transform's four-launch K1 chain
+    # every rotation is the transform's four-launch K1 chain (n > 8) or
+    # one C call of the one-pass kernel, two launches (n <= 8)
+    per = 4 if route == "chain" else 2
+    expected = {"fused": 0, "chain": 0}
+    expected[route] = per * rotations
     if not (rotations == r.outer_iterations + 1
-            and launches["gemm.matmul"] == 4 * rotations
-            and launches["gemm.rotate_two_body_cuda"] == 4 * rotations
-            and routes == {"fused": 0, "chain": 4 * rotations}):
+            and launches["gemm.matmul"] == expected["chain"]
+            and launches["gemm.rotate_two_body_cuda"] == per * rotations
+            and routes == expected):
         failed.append(f"{rotations} rotations but launches {launches}, "
                       f"routes {routes}")
     return failed
@@ -1405,6 +1531,125 @@ def phase_parity() -> None:
          launches=cas_launches)
 
 
+def _n2_casscf(basis: str, n_act: int, kw: dict, route: str):
+    """N2 at `basis` (RHF, the automatic frozen core) and
+    FusedOptOrbCASSCF(2 n_act) on it at float32, with the launch counts
+    zeroed just before the solve and read just after; then the gates
+    every CASSCF solve meets, `route` being the transform's route."""
+    import torch
+    from esoo_torch.chem import MoleculeDriver
+    from esoo_torch.ops import gemm
+    from esoo_torch.orbital_optimization import kernels as K
+    t0 = time.perf_counter()
+    full = MoleculeDriver(atom=N2_GEOM, basis=basis).run()
+    problem = full.active_space()
+    chem_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver = _casscf_solver(problem, n_act, torch.float32, "cuda", **kw)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    held_bytes = torch.cuda.memory_allocated()  # earlier phases' too
+    gemm.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = solver.compute_minimum_energy()
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = gemm.launch_counts()
+    routes = gemm.route_launch_counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    U = torch.as_tensor(r.optimal_partial_unitary, device=solver.device)
+    vals = solver._sector.build_values(*K.expand_spin_tensors(
+        K.rotate_one_body(solver._h_sp, U), K.rotate_two_body(solver._g_sp, U)),
+        solver._sector_tables)
+    witness = _casscf_f64_witness(problem, solver, r, vals)
+    failed = _casscf_gates(r, witness, launches, routes, route)
+    rhf = full.scf.energy_electronic + full.nuclear_repulsion_energy
+    total = r.eigenvalue + problem.core_energy + problem.nuclear_repulsion_energy
+    rec = dict(m=problem.num_spatial_orbitals, n=n_act,
+               num_particles=list(problem.num_particles),
+               determinants=solver._sector.dim, rhf_total=rhf,
+               energy=r.eigenvalue, energy_total=total,
+               core_energy=problem.core_energy, settings=kw,
+               outer_iterations=r.outer_iterations,
+               outer_trace=r.energy_convergence_list,
+               stage_stats=r.stage_stats, chem_s=chem_s, setup_s=setup_s,
+               solve_s=solve_s, eri_engine=problem.eri_engine,
+               peak_memory_bytes=peak_bytes,
+               held_before_solve_bytes=held_bytes, launches=launches,
+               transform_route_launches=routes, f64_witness=witness)
+    return full, problem, r, rec, launches, failed
+
+
+def phase_chem() -> dict:
+    """N2 past hydrogen, the chemistry ported whole: cc-pVDZ 26 -> 16 spin
+    orbitals (the JAX package's showcase; the one-pass transform at
+    (26, 8)) and cc-pVTZ 58 -> 20 (the K1 chain at (58, 10)), each RHF
+    with the two N 1s cores frozen, FusedOptOrbCASSCF at float32; then
+    the dipole, quadrupole and Mulliken populations of the cc-pVDZ solve
+    from its 1-RDM on the host."""
+    from esoo_torch.chem import (dipole_moment, populations,
+                                 quadrupole_moment)
+    paths = {}
+    full, act, r, rec, paths["casscf_n2_dz"], failed = _n2_casscf(
+        "cc-pvdz", 8, N2_CASSCF_KW, "fused")
+    occ = sorted((float(o) for o in r.natural_occupations), reverse=True)
+    g, U = r.one_rdm_spatial, r.optimal_partial_unitary
+    mu = dipole_moment(act, g, U)
+    quad = quadrupole_moment(act, g, U)
+    pops, charges = populations(act, g, U)
+    if not abs(rec["rhf_total"] - N2_DZ_RHF) <= N2_DZ_RHF_TOL:
+        failed.append(f"RHF total {rec['rhf_total']!r} not within "
+                      f"{N2_DZ_RHF_TOL} of {N2_DZ_RHF}")
+    if not (act.num_particles == (5, 5) and act.num_spatial_orbitals == 26):
+        failed.append(f"active space {act.num_particles} in "
+                      f"{act.num_spatial_orbitals} orbitals, not (5, 5) in "
+                      f"26")
+    if not abs(rec["energy_total"] - N2_DZ_CASSCF) <= N2_TOL:
+        failed.append(f"CASSCF total {rec['energy_total']!r} not within "
+                      f"{N2_TOL} of {N2_DZ_CASSCF}")
+    if not (occ[0] > 1.98 and occ[4] < 1.97 and sum(occ[5:8]) > 0.05):
+        failed.append(f"natural occupations {occ}")
+    if not (float(abs(mu).max()) < 1e-4
+            and abs(float(pops.sum()) - 14.0) <= 1e-4):
+        failed.append(f"dipole {mu.tolist()} (|mu| < 1e-4 by symmetry), "
+                      f"populations summing to {float(pops.sum())!r} (14)")
+    emit("chem", path="casscf_n2_dz", problem="N2 cc-pVDZ, RHF, 2 frozen "
+         "1s cores, m=26 -> 16 spin orbitals, (5, 5) electrons, f32",
+         **rec, gates=[N2_DZ_RHF, N2_DZ_RHF_TOL, N2_DZ_CASSCF, N2_TOL],
+         natural_occupations=occ, dipole_au=mu.tolist(),
+         quadrupole_au=quad.tolist(), mulliken_populations=pops.tolist(),
+         mulliken_charges=charges.tolist(), gates_failed=failed)
+    if failed:
+        raise AssertionError("N2 cc-pVDZ gates failed: " + "; ".join(failed))
+
+    full, act, r, rec, paths["casscf_n2_tz"], failed = _n2_casscf(
+        "cc-pvtz", 10, N2_TZ_KW, "chain")
+    if not abs(rec["rhf_total"] - N2_TZ_RHF) <= N2_TOL:
+        failed.append(f"RHF total {rec['rhf_total']!r} not within {N2_TOL} "
+                      f"of {N2_TZ_RHF}")
+    if not (act.num_particles == (5, 5) and act.num_spatial_orbitals == 58
+            and rec["determinants"] == 252 ** 2):
+        failed.append(f"active space {act.num_particles} in "
+                      f"{act.num_spatial_orbitals} orbitals, "
+                      f"{rec['determinants']} determinants")
+    if not abs(r.eigenvalue - JAX_N2_TZ_20_F64) <= N2_TOL:
+        failed.append(f"energy {r.eigenvalue!r} not within {N2_TOL} of the "
+                      f"JAX package's float64 {JAX_N2_TZ_20_F64}")
+    if rec["eri_engine"] != "native":      # f shells: C++, not Python
+        failed.append(f"ERI engine {rec['eri_engine']!r}, not the native "
+                      f"C++ engine")
+    emit("chem", path="casscf_n2_tz", problem="N2 cc-pVTZ, RHF, 2 frozen "
+         "1s cores, m=58 -> 20 spin orbitals, (5, 5) electrons, 63,504 "
+         "determinants, f32", **rec, gates=[N2_TZ_RHF, JAX_N2_TZ_20_F64,
+                                            N2_TOL], gates_failed=failed)
+    if failed:
+        raise AssertionError("N2 cc-pVTZ gates failed: " + "; ".join(failed))
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1425,6 +1670,7 @@ def main() -> int:
     paths["casscf_h8_n32_compact"] = phase_compact(problem)
     del problem
     phase_parity()
+    paths.update(phase_chem())
 
     table = []
     # K2's source is the one-pass kernel for n <= 8 (the VQE and SSVQE

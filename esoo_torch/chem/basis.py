@@ -1,17 +1,23 @@
 """Gaussian basis set data and shell construction (host NumPy).
 
-Copy of the part of esoo_tpu/chem/basis.py that hydrogen chains need:
-STO-3G (H-Ne), 6-31G (H, He) and cc-pVTZ (H), the Shell normalization and
-the cartesian-to-spherical transform.  The rest of the JAX package's basis
-library (further elements and sets, .gbs files, ghost atoms) is still to
-be ported (ROADMAP queue 1, item 12).
+Copy of esoo_tpu/chem/basis.py: STO-3G (H-Ar), 6-31G, 6-31G* and 6-31G**
+(Pople cartesian d), cc-pVDZ, cc-pVTZ and cc-pVQZ, ATOMIC_NUMBERS to Kr,
+ghost atoms ('@He' or 'ghost:He': basis functions without a nucleus) and
+any Gaussian94 .gbs file (chem/gbs.py).  The basis data is embedded
+here; nothing is downloaded.
 
-``BASIS_SETS[name][element]`` is a list of shells, each a dict
-``{"l": 0, "prims": [(exponent, coefficient), ...]}``; SP shells are
-stored expanded into separate S and P shells that share exponents.
-Coefficients are the published values for normalized primitives
-(basis-set-exchange data); contraction renormalization happens in
-`Shell.__post_init__`.
+Data layout
+-----------
+``BASIS_SETS[name][element]`` is a list of shells, each shell a dict::
+
+    {"l": 0, "prims": [(exponent, coefficient), ...]}
+
+SP shells (as in STO-3G) are stored expanded into separate S and P shells
+that share exponents.  Coefficients are the published values for *normalized
+primitives*; contraction renormalization happens in `Shell.__post_init__`.
+
+All values are the standard published basis-set-exchange parameters
+(public domain data).
 """
 
 from __future__ import annotations
@@ -52,6 +58,60 @@ STO3G = {
     "Ne": _sto3g((207.0156100, 37.7081510, 10.2052970), (8.2463151, 1.9162662, 0.6232293)),
 }
 
+# third row: (1s)(2sp)(3sp); the 3sp expansion coefficients are the
+# universal STO-3G fit constants (Hehre/Stewart/Pople), exponents are the
+# published per-atom values (validated in tests against literature
+# molecular RHF energies, e.g. HCl)
+_STO3G_3S_COEFFS = (-0.2196203936, 0.2255954336, 0.9003984260)
+_STO3G_3P_COEFFS = (0.0105876043, 0.5951670053, 0.4620010120)
+
+
+def _sto3g3(exps_1s, exps_2sp, exps_3sp):
+    return [
+        {"l": 0, "prims": list(zip(exps_1s, _STO3G_S_COEFFS))},
+        {"l": 0, "prims": list(zip(exps_2sp, _STO3G_2S_COEFFS))},
+        {"l": 1, "prims": list(zip(exps_2sp, _STO3G_2P_COEFFS))},
+        {"l": 0, "prims": list(zip(exps_3sp, _STO3G_3S_COEFFS))},
+        {"l": 1, "prims": list(zip(exps_3sp, _STO3G_3P_COEFFS))},
+    ]
+
+
+STO3G.update({
+    "Si": _sto3g3((407.7975514, 74.28083305, 20.10329229),
+                  (23.19365606, 5.389706871, 1.752899952),
+                  (1.4787406220, 0.4125648801, 0.1614750979)),
+    "P": _sto3g3((468.3656378, 85.31338559, 23.09131500),
+                 (28.03263958, 6.514182577, 2.118614352),
+                 (1.7431032310, 0.4863213771, 0.1903428909)),
+    "S": _sto3g3((533.1257359, 97.10951830, 26.28162542),
+                 (33.32975173, 7.745117521, 2.518952599),
+                 (2.0291942740, 0.5661400518, 0.2215833792)),
+    "Cl": _sto3g3((601.3456136, 109.5358542, 29.64467686),
+                  (38.96041889, 9.053563477, 2.944499834),
+                  (2.1293864950, 0.5940934274, 0.2325241410)),
+    "Ar": _sto3g3((674.4465184, 122.8512753, 33.24834945),
+                  (45.16424392, 10.49519900, 3.413364448),
+                  (2.6213665180, 0.7313546050, 0.2862472356)),
+})
+
+def _pople_631g(s6_exps, s6_coeffs, sp3_exps, sp3_s, sp3_p, sp1_exp):
+    """First-row 6-31G shell structure: (10s4p) -> [3s2p].
+
+    Core 6s contraction; inner-valence SP shell (3 primitives, shared
+    exponents, separate s/p coefficients, stored expanded); outer-valence
+    single-primitive SP shell.  Data: Hehre, Ditchfield & Pople,
+    J. Chem. Phys. 56, 2257 (1972); Li/Be: Dill & Pople, J. Chem. Phys.
+    62, 2921 (1975).
+    """
+    return [
+        {"l": 0, "prims": list(zip(s6_exps, s6_coeffs))},
+        {"l": 0, "prims": list(zip(sp3_exps, sp3_s))},
+        {"l": 1, "prims": list(zip(sp3_exps, sp3_p))},
+        {"l": 0, "prims": [(sp1_exp, 1.0)]},
+        {"l": 1, "prims": [(sp1_exp, 1.0)]},
+    ]
+
+
 SIX31G = {
     "H": [
         {"l": 0, "prims": [(18.7311370, 0.03349460),
@@ -65,7 +125,192 @@ SIX31G = {
                            (1.2417740, 0.4696300)]},
         {"l": 0, "prims": [(0.2979640, 1.0)]},
     ],
+    "Li": _pople_631g(
+        (642.41892, 96.798515, 22.091121, 6.2010703, 1.9351177, 0.6367358),
+        (0.0021426, 0.0162089, 0.0773156, 0.2457860, 0.4701890, 0.3454708),
+        (2.3249184, 0.6324306, 0.0790534),
+        (-0.0350917, -0.1912328, 1.0839878),
+        (0.0089415, 0.1410095, 0.9453637),
+        0.0359620),
+    "Be": _pople_631g(
+        (1264.5857, 189.93681, 43.159089, 12.098663, 3.8063232, 1.2728903),
+        (0.0019448, 0.0148351, 0.0720906, 0.2371542, 0.4691987, 0.3565202),
+        (3.1964631, 0.7478133, 0.2199663),
+        (-0.1126487, -0.2295064, 1.1869167),
+        (0.0559802, 0.2615506, 0.7939723),
+        0.0823099),
+    "B": _pople_631g(
+        (2068.8823, 310.64957, 70.683033, 19.861080, 6.2993048, 2.1270270),
+        (0.0018663, 0.0142515, 0.0695516, 0.2325729, 0.4670787, 0.3634314),
+        (4.7279710, 1.1903377, 0.3594117),
+        (-0.1303938, -0.1307889, 1.1309444),
+        (0.0745976, 0.3078467, 0.7434568),
+        0.1267512),
+    "C": _pople_631g(
+        (3047.5249, 457.36951, 103.94869, 29.210155, 9.2866630, 3.1639270),
+        (0.0018347, 0.0140373, 0.0688426, 0.2321844, 0.4679413, 0.3623120),
+        (7.8682724, 1.8812885, 0.5442493),
+        (-0.1193324, -0.1608542, 1.1434564),
+        (0.0689991, 0.3164240, 0.7443083),
+        0.1687144),
+    "N": _pople_631g(
+        (4173.5110, 627.45790, 142.90210, 40.234330, 12.820210, 4.3904370),
+        (0.0018348, 0.0139950, 0.0685870, 0.2322410, 0.4690700, 0.3604550),
+        (11.626358, 2.7162800, 0.7722180),
+        (-0.1149610, -0.1691180, 1.1458520),
+        (0.0675800, 0.3239070, 0.7408950),
+        0.2120313),
+    "O": _pople_631g(
+        (5484.6717, 825.23495, 188.04696, 52.964500, 16.897570, 5.7996353),
+        (0.0018311, 0.0139501, 0.0684451, 0.2327143, 0.4701930, 0.3585209),
+        (15.539616, 3.5999336, 1.0137618),
+        (-0.1107775, -0.1480263, 1.1307670),
+        (0.0708743, 0.3397528, 0.7271586),
+        0.2700058),
+    "F": _pople_631g(
+        (7001.7130, 1051.3660, 239.28569, 67.397445, 21.519957, 7.4031013),
+        (0.0018196, 0.0139161, 0.0684053, 0.2331858, 0.4712674, 0.3566185),
+        (20.847952, 4.8083083, 1.3440698),
+        (-0.1085070, -0.1464517, 1.1286886),
+        (0.0716287, 0.3459121, 0.7224700),
+        0.3581514),
+    "Ne": _pople_631g(
+        (8425.8515, 1268.5194, 289.62141, 80.859596, 25.945130, 8.8468607),
+        (0.0018843, 0.0143369, 0.0701096, 0.2373733, 0.4730071, 0.3484012),
+        (26.532131, 6.1755501, 1.8391377),
+        (-0.1071183, -0.1461638, 1.1277735),
+        (0.0719096, 0.3495134, 0.7199405),
+        0.4829340),
 }
+
+def _dunning_vdz(s_exps, s_c1, s_c2, p_exps, p_c, d_exp):
+    """First-row cc-pVDZ shell structure: (9s4p1d) -> [3s2p1d].
+
+    Two general s contractions over the first len(s_c1) primitives, one
+    free outer s; one p contraction over the first len(p_c) primitives,
+    one free outer p; one free d.  Data: Dunning, J. Chem. Phys. 90,
+    1007 (1989) for B-Ne; Li/Be: Prascher et al., Theor. Chem. Acc. 128,
+    69 (2011).
+    """
+    return [
+        {"l": 0, "prims": list(zip(s_exps, s_c1))},
+        {"l": 0, "prims": list(zip(s_exps, s_c2))},
+        {"l": 0, "prims": [(s_exps[-1], 1.0)]},
+        {"l": 1, "prims": list(zip(p_exps, p_c))},
+        {"l": 1, "prims": [(p_exps[-1], 1.0)]},
+        {"l": 2, "prims": [(d_exp, 1.0)]},
+    ]
+
+
+CCPVDZ = {
+    "H": [
+        {"l": 0, "prims": [(13.0100, 0.0196850), (1.9620, 0.1379770),
+                           (0.4446, 0.4781480), (0.1220, 0.5012400)]},
+        {"l": 0, "prims": [(0.1220, 1.0)]},
+        {"l": 1, "prims": [(0.7270, 1.0)]},
+    ],
+    "He": [
+        {"l": 0, "prims": [(38.3600, 0.0238090), (5.7700, 0.1548910),
+                           (1.2400, 0.4699870), (0.2976, 0.5130270)]},
+        {"l": 0, "prims": [(0.2976, 1.0)]},
+        {"l": 1, "prims": [(1.2750, 1.0)]},
+    ],
+    "Li": _dunning_vdz(
+        (1469.0, 220.5, 50.26, 14.24, 4.581, 1.580, 0.5640, 0.0734500,
+         0.0280500),
+        (0.000766, 0.005892, 0.029671, 0.109180, 0.282789, 0.453123,
+         0.274774, 0.009751),
+        (-0.000120, -0.000923, -0.004689, -0.017682, -0.048902, -0.096009,
+         -0.136380, 0.575102),
+        (1.534, 0.2749, 0.07362, 0.0240300),
+        (0.022784, 0.139107, 0.500375),
+        0.1144),
+    "Be": _dunning_vdz(
+        (2940.0, 441.2, 100.5, 28.43, 9.169, 3.196, 1.159, 0.1811,
+         0.0589000),
+        (0.000680, 0.005236, 0.026606, 0.099993, 0.269702, 0.451469,
+         0.295074, 0.012587),
+        (-0.000123, -0.000966, -0.004831, -0.018798, -0.052925, -0.109726,
+         -0.165043, 0.570563),
+        (3.619, 0.7110, 0.1951, 0.0601800),
+        (0.029110, 0.169365, 0.513458),
+        0.2354),
+    "B": _dunning_vdz(
+        (4570.0, 685.9, 156.5, 44.47, 14.48, 5.131, 1.898, 0.3329, 0.1043),
+        (0.000696, 0.005353, 0.027134, 0.101380, 0.272055, 0.448403,
+         0.290123, 0.014322),
+        (-0.000139, -0.001097, -0.005444, -0.021916, -0.059751, -0.138732,
+         -0.131482, 0.539526),
+        (6.001, 1.241, 0.3364, 0.0953800),
+        (0.035481, 0.198072, 0.505230),
+        0.3430),
+    "C": _dunning_vdz(
+        (6665.0, 1000.0, 228.0, 64.71, 21.06, 7.495, 2.797, 0.5215, 0.1596),
+        (0.000692, 0.005329, 0.027077, 0.101718, 0.274740, 0.448564,
+         0.285074, 0.015204),
+        (-0.000146, -0.001154, -0.005725, -0.023312, -0.063955, -0.149981,
+         -0.127262, 0.544529),
+        (9.439, 2.002, 0.5456, 0.1517),
+        (0.038109, 0.209480, 0.508557),
+        0.5500),
+    "N": _dunning_vdz(
+        (9046.0, 1357.0, 309.3, 87.73, 28.56, 10.21, 3.838, 0.7466, 0.2248),
+        (0.000700, 0.005389, 0.027406, 0.103207, 0.278723, 0.448540,
+         0.278238, 0.015440),
+        (-0.000153, -0.001208, -0.005992, -0.024544, -0.067459, -0.158078,
+         -0.121831, 0.549003),
+        (13.55, 2.917, 0.7973, 0.2185),
+        (0.039919, 0.217169, 0.510319),
+        0.8170),
+    "O": _dunning_vdz(
+        (11720.0, 1759.0, 400.8, 113.7, 37.03, 13.27, 5.025, 1.013, 0.3023),
+        (0.000710, 0.005470, 0.027837, 0.104800, 0.283062, 0.448719,
+         0.270952, 0.015458),
+        (-0.000160, -0.001263, -0.006267, -0.025716, -0.070924, -0.165411,
+         -0.116955, 0.557368),
+        (17.70, 3.854, 1.046, 0.2753),
+        (0.043018, 0.228913, 0.508728),
+        1.1850),
+    "F": _dunning_vdz(
+        (14710.0, 2207.0, 502.8, 142.6, 46.47, 16.70, 6.356, 1.316, 0.3897),
+        (0.000721, 0.005553, 0.028267, 0.106444, 0.286814, 0.448641,
+         0.264761, 0.015333),
+        (-0.000165, -0.001308, -0.006495, -0.026691, -0.073690, -0.170776,
+         -0.112327, 0.562814),
+        (22.67, 4.977, 1.347, 0.3471),
+        (0.044878, 0.235718, 0.508521),
+        1.6400),
+    "Ne": _dunning_vdz(
+        (17880.0, 2683.0, 611.5, 173.5, 56.64, 20.42, 7.810, 1.653, 0.4869),
+        (0.000738, 0.005677, 0.028883, 0.108540, 0.290907, 0.448324,
+         0.258026, 0.015063),
+        (-0.000172, -0.001357, -0.006737, -0.027663, -0.076208, -0.175227,
+         -0.107038, 0.567050),
+        (28.39, 6.270, 1.695, 0.4317),
+        (0.046087, 0.240181, 0.508744),
+        2.2020),
+}
+
+def _dunning_vtz_row1(s_exps, s_c1, s_c2, s_free1, s_free2,
+                      p_exps, p_c, p_free1, p_free2, d1, d2, f1):
+    """First-row cc-pVTZ shell structure: (10s5p2d1f) -> [4s3p2d1f].
+
+    Two general s contractions over the 8 listed primitives, two free s;
+    one p contraction over 3 primitives, two free p; two free d, one free
+    f.  Data: Dunning, J. Chem. Phys. 90, 1007 (1989) / EMSL exchange;
+    validated against literature RHF energies in tests (H2O cc-pVTZ)."""
+    return [
+        {"l": 0, "prims": list(zip(s_exps, s_c1))},
+        {"l": 0, "prims": list(zip(s_exps, s_c2))},
+        {"l": 0, "prims": [(s_free1, 1.0)]},
+        {"l": 0, "prims": [(s_free2, 1.0)]},
+        {"l": 1, "prims": list(zip(p_exps, p_c))},
+        {"l": 1, "prims": [(p_free1, 1.0)]},
+        {"l": 1, "prims": [(p_free2, 1.0)]},
+        {"l": 2, "prims": [(d1, 1.0)]},
+        {"l": 2, "prims": [(d2, 1.0)]},
+        {"l": 3, "prims": [(f1, 1.0)]},
+    ]
 
 
 CCPVTZ = {
@@ -78,23 +323,127 @@ CCPVTZ = {
         {"l": 1, "prims": [(0.3880, 1.0)]},
         {"l": 2, "prims": [(1.0570, 1.0)]},
     ],
+    "C": _dunning_vtz_row1(
+        (8236.0, 1235.0, 280.8, 79.27, 25.59, 8.997, 3.319, 0.3643),
+        (0.000531, 0.004108, 0.021087, 0.081853, 0.234817, 0.434401,
+         0.346129, -0.008983),
+        (-0.000113, -0.000878, -0.004540, -0.018133, -0.055760, -0.126895,
+         -0.170352, 0.598684),
+        0.9059, 0.1285,
+        (18.71, 4.133, 1.200), (0.014031, 0.086866, 0.290216),
+        0.3827, 0.1209, 1.097, 0.318, 0.761),
+    "N": _dunning_vtz_row1(
+        (11420.0, 1712.0, 389.3, 110.0, 35.57, 12.54, 4.644, 0.5118),
+        (0.000523, 0.004045, 0.020775, 0.080727, 0.233074, 0.433501,
+         0.347472, -0.008508),
+        (-0.000115, -0.000895, -0.004624, -0.018528, -0.057339, -0.132076,
+         -0.172510, 0.599944),
+        1.293, 0.1787,
+        (26.63, 5.948, 1.742), (0.014670, 0.091764, 0.298683),
+        0.555, 0.1725, 1.654, 0.469, 1.093),
+    "O": _dunning_vtz_row1(
+        (15330.0, 2299.0, 522.4, 147.3, 47.55, 16.76, 6.207, 0.6882),
+        (0.000508, 0.003929, 0.020243, 0.079181, 0.230687, 0.433118,
+         0.350260, -0.008154),
+        (-0.000115, -0.000895, -0.004636, -0.018724, -0.058463, -0.136463,
+         -0.175740, 0.603418),
+        1.752, 0.2384,
+        (34.46, 7.749, 2.280), (0.015928, 0.099740, 0.310492),
+        0.7156, 0.2140, 2.314, 0.645, 1.428),
+    "F": _dunning_vtz_row1(
+        (19500.0, 2923.0, 664.5, 187.5, 60.62, 21.42, 7.950, 0.8815),
+        (0.000507, 0.003923, 0.020200, 0.079010, 0.230439, 0.432872,
+         0.349964, -0.007892),
+        (-0.000117, -0.000912, -0.004717, -0.019086, -0.059655, -0.140010,
+         -0.176782, 0.605043),
+        2.257, 0.3041,
+        (43.88, 9.926, 2.930), (0.016665, 0.104472, 0.317260),
+        0.9132, 0.2672, 3.107, 0.855, 1.917),
+    "Ne": _dunning_vtz_row1(
+        (24350.0, 3650.0, 829.6, 237.0, 75.61, 26.73, 9.927, 1.102),
+        (0.000502, 0.003881, 0.019977, 0.078418, 0.229676, 0.432722,
+         0.350642, -0.007645),
+        (-0.000118, -0.000915, -0.004737, -0.019233, -0.060269, -0.142508,
+         -0.177878, 0.605836),
+        2.836, 0.3782,
+        (54.70, 12.43, 3.679), (0.017151, 0.108656, 0.324669),
+        1.143, 0.3300, 4.014, 1.096, 2.544),
 }
 
+CCPVQZ = {
+    # Dunning cc-pVQZ for H (EMSL basis-set-exchange values).  Validated
+    # variationally in tests: E_FCI(QZ) < E_FCI(TZ) and above the exact
+    # Born-Oppenheimer limit.
+    "H": [
+        {"l": 0, "prims": [(82.6400, 0.0020060), (12.4100, 0.0153430),
+                           (2.8240, 0.0755790), (0.7977, 0.2568750),
+                           (0.2581, 0.4973680), (0.0898900, 0.2961330)]},
+        {"l": 0, "prims": [(0.7977, 1.0)]},
+        {"l": 0, "prims": [(0.2581, 1.0)]},
+        {"l": 0, "prims": [(0.0898900, 1.0)]},
+        {"l": 1, "prims": [(2.2920, 1.0)]},
+        {"l": 1, "prims": [(0.8380, 1.0)]},
+        {"l": 1, "prims": [(0.2920, 1.0)]},
+        {"l": 2, "prims": [(2.0620, 1.0)]},
+        {"l": 2, "prims": [(0.6620, 1.0)]},
+        {"l": 3, "prims": [(1.3970, 1.0)]},
+    ],
+}
+
+# 6-31G* / 6-31G**: 6-31G plus single polarization shells (Hariharan &
+# Pople, Theor. Chim. Acta 28, 213 (1973)): one cartesian-d on Li-Ne
+# (standard exponents below), one p (exponent 1.1) on H/He for **.
+_POL_D_EXP = {"Li": 0.200, "Be": 0.400, "B": 0.600, "C": 0.800,
+              "N": 0.800, "O": 0.800, "F": 0.800, "Ne": 0.800}
+
+
+def _with_polarization(base: dict, hydrogen_p: bool) -> dict:
+    out = {}
+    for el, shells in base.items():
+        shells = [dict(sh) for sh in shells]
+        if el in _POL_D_EXP:
+            # Pople-convention polarization d: CARTESIAN (6 components) —
+            # published 6-31G* energies assume 6d
+            shells.append({"l": 2, "prims": [(_POL_D_EXP[el], 1.0)],
+                           "pure": False})
+        elif el in ("H", "He") and hydrogen_p:
+            shells.append({"l": 1, "prims": [(1.100, 1.0)]})
+        out[el] = shells
+    return out
+
+
+SIX31G_STAR = _with_polarization(SIX31G, hydrogen_p=False)
+SIX31G_STARSTAR = _with_polarization(SIX31G, hydrogen_p=True)
 
 BASIS_SETS = {
     "sto-3g": STO3G,
     "sto3g": STO3G,
     "6-31g": SIX31G,
     "631g": SIX31G,
+    "6-31g*": SIX31G_STAR,
+    "631g*": SIX31G_STAR,
+    "6-31g(d)": SIX31G_STAR,
+    "6-31g**": SIX31G_STARSTAR,
+    "631g**": SIX31G_STARSTAR,
+    "6-31g(d,p)": SIX31G_STARSTAR,
+    "cc-pvdz": CCPVDZ,
+    "ccpvdz": CCPVDZ,
     "cc-pvtz": CCPVTZ,
     "ccpvtz": CCPVTZ,
+    "cc-pvqz": CCPVQZ,
+    "ccpvqz": CCPVQZ,
 }
 
 ATOMIC_NUMBERS = {
     "H": 1, "He": 2, "Li": 3, "Be": 4, "B": 5,
     "C": 6, "N": 7, "O": 8, "F": 9, "Ne": 10,
+    "Na": 11, "Mg": 12, "Al": 13, "Si": 14, "P": 15,
+    "S": 16, "Cl": 17, "Ar": 18,
+    # fourth row — reachable via .gbs basis files (chem/gbs.py)
+    "K": 19, "Ca": 20, "Sc": 21, "Ti": 22, "V": 23, "Cr": 24,
+    "Mn": 25, "Fe": 26, "Co": 27, "Ni": 28, "Cu": 29, "Zn": 30,
+    "Ga": 31, "Ge": 32, "As": 33, "Se": 34, "Br": 35, "Kr": 36,
 }
-
 
 ANGSTROM_TO_BOHR = 1.0 / 0.52917721092
 
@@ -248,6 +597,21 @@ def cart_to_pure_matrix(l: int, cart_overlap: np.ndarray,
     return np.array(rows)
 
 
+def is_ghost(symbol: str) -> bool:
+    """Ghost-atom marker: '@He' or 'ghost:He' — basis functions at the
+    center, no nucleus and no electrons (counterpoise corrections)."""
+    return symbol.startswith("@") or symbol.lower().startswith("ghost:")
+
+
+def element_symbol(symbol: str) -> str:
+    """The element behind a (possibly ghost-marked) atom symbol."""
+    if symbol.startswith("@"):
+        return symbol[1:]
+    if symbol.lower().startswith("ghost:"):
+        return symbol[6:]
+    return symbol
+
+
 def parse_geometry(atom: str):
     """Parse 'H 0 0 0; H 0 0 0.735' (Angstrom) into (symbols, coords_bohr)."""
     symbols, coords = [], []
@@ -274,19 +638,27 @@ def build_shells(atom: str, basis: str, custom_basis: dict | None = None):
     symbols, coords = parse_geometry(atom)
     if custom_basis is not None:
         table = custom_basis
+    elif basis.lower().endswith(".gbs"):
+        # universal ingestion: any Gaussian94 basis file (the interchange
+        # format the Basis Set Exchange exports for every published set)
+        from .gbs import load_gbs
+        table = load_gbs(basis)
     elif basis.lower() not in BASIS_SETS:
         raise ValueError(
             f"unknown basis {basis!r}: choose from "
-            f"{sorted(set(BASIS_SETS))} or pass custom_basis=")
+            f"{sorted(set(BASIS_SETS))}, pass a .gbs file path, or pass "
+            f"custom_basis=")
     else:
         table = BASIS_SETS[basis.lower()]
     shells = []
     for sym, xyz in zip(symbols, coords):
-        if sym not in table:
+        el = element_symbol(sym)
+        if el not in table:
             raise ValueError(
-                f"No {basis} data for element {sym}; pass custom_basis= "
-                f"with published exponents/coefficients.")
-        for sh in table[sym]:
+                f"No {basis} data for element {el}; pass custom_basis= with "
+                f"published exponents/coefficients."
+            )
+        for sh in table[el]:
             prims = sh["prims"]
             shells.append(
                 Shell(

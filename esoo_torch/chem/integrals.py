@@ -1,10 +1,10 @@
 """McMurchie-Davidson Gaussian integral engine (host-side, numpy float64).
 
-Copy of the part of esoo_tpu/chem/integrals.py that MoleculeDriver needs:
-overlap (S), kinetic (T), nuclear attraction (V) and two-electron
-repulsion integrals (ERI, chemist notation (pq|rs)) over contracted
-cartesian Gaussians of arbitrary angular momentum, with spherical (pure)
-transformation for l >= 2 shells.  Integrals are computed once per
+Copy of esoo_tpu/chem/integrals.py: overlap (S), kinetic (T), nuclear
+attraction (V), Cartesian multipoles (dipole, second moments) and
+two-electron repulsion integrals (ERI, chemist notation (pq|rs)) over
+contracted cartesian Gaussians of arbitrary angular momentum, with
+spherical (pure) transformation for l >= 2 shells.  Integrals are computed once per
 molecule on the host; the OptOrb loop works with the transformed MO
 tensors.  The ERI runs in the native C++ engine (esoo_torch/native) when
 g++ can build it, and in the pure-Python code below otherwise.
@@ -224,6 +224,80 @@ def nuclear_block(sha: Shell, shb: Shell, charges, centers):
     return V
 
 
+def _moment_1d(p: float, XPC: float, e: int, tmax: int) -> np.ndarray:
+    """1-D Hermite multipole integrals M^e_t = ∫ x_C^e Λ_t(x; p, P) dx
+    for t = 0..tmax, with X_PC = P_x - C_x (Helgaker/Jørgensen/Olsen
+    eq. 9.5.31-9.5.36):
+
+        M^0_t    = δ_t0 √(π/p)
+        M^{e+1}_t = t·M^e_{t-1} + X_PC·M^e_t + M^e_{t+1}/(2p)
+    """
+    T = tmax + e + 1          # each order consumes one Hermite index
+    M = np.zeros((e + 1, T))
+    M[0, 0] = math.sqrt(math.pi / p)
+    for o in range(e):
+        for t in range(T - 1):
+            v = XPC * M[o, t] + M[o, t + 1] / (2.0 * p)
+            if t >= 1:
+                v += t * M[o, t - 1]
+            M[o + 1, t] = v
+    return M[e, : tmax + 1]
+
+
+def moment_block(sha: Shell, shb: Shell, comps, origin) -> np.ndarray:
+    """Contracted Cartesian-moment blocks ⟨a|Π_d (x_d − origin_d)^{e_d}|b⟩
+    for each exponent triple in `comps` (cartesian shell components).
+
+    comps = [(1,0,0), (0,1,0), (0,0,1)] gives the three dipole blocks;
+    higher orders (quadrupole etc.) follow from the same 1-D recursion.
+    They come from the same Hermite expansion as the overlap
+    (McMurchie-Davidson)."""
+    la, lb = sha.l, shb.l
+    ca = cartesian_components(la)
+    cb = cartesian_components(lb)
+    fa = _cart_norm_factors(sha)
+    fb = _cart_norm_factors(shb)
+    origin = np.asarray(origin, dtype=np.float64)
+    out = np.zeros((len(comps), len(ca), len(cb)))
+    A, B = sha.center, shb.center
+    emax = [max(c[d] for c in comps) for d in range(3)]
+    for ia, wa in enumerate(sha.cnorm):
+        for ib, wb in enumerate(shb.cnorm):
+            a, b = sha.exps[ia], shb.exps[ib]
+            p = a + b
+            P = (a * A + b * B) / p
+            Es = [hermite_coefs(la, lb, A[d] - B[d], a, b)
+                  for d in range(3)]
+            # per-dimension M^e_t vectors, shared across comps
+            Ms = [[_moment_1d(p, P[d] - origin[d], e, la + lb)
+                   for e in range(emax[d] + 1)] for d in range(3)]
+            for icmp, ce in enumerate(comps):
+                for i, ci in enumerate(ca):
+                    for j, cj in enumerate(cb):
+                        m3 = wa * wb * fa[i] * fb[j]
+                        for d in range(3):
+                            Ed = Es[d][ci[d], cj[d]]
+                            m3 *= float(Ed @ Ms[d][ce[d]])
+                        out[icmp, i, j] += m3
+    return out
+
+
+def nuclear_block(sha: Shell, shb: Shell, charges, centers):
+    """Contracted nuclear-attraction block (cartesian components)."""
+    la, lb = sha.l, shb.l
+    nca = sha.ncart
+    ncb = shb.ncart
+    V = np.zeros((nca, ncb))
+    L = la + lb
+    for p, P, cc, E3 in _shell_pair_blocks(sha, shb):
+        for Z, C in zip(charges, centers):
+            R = hermite_coulomb(L, L, L, p, P - C)
+            V += -Z * cc * (2.0 * math.pi / p) * np.einsum(
+                "abtuv,tuv->ab", E3, R[: L + 1, : L + 1, : L + 1], optimize=True
+            )
+    return V
+
+
 def eri_block(sha: Shell, shb: Shell, shc: Shell, shd: Shell) -> np.ndarray:
     """Contracted ERI block (ab|cd) in chemist notation, cartesian components."""
     Lab = sha.l + shb.l
@@ -323,6 +397,40 @@ class IntegralEngine:
                         arr[oj: oj + shj.nfunc, oi: oi + shi.nfunc] = b.T
         return S, T, V
 
+    def moments(self, comps, origin=(0.0, 0.0, 0.0)) -> np.ndarray:
+        """Multipole matrices ⟨μ|Π_d (x_d − origin_d)^{e_d}|ν⟩, one
+        (nbf, nbf) matrix per exponent triple in `comps`."""
+        n = self.nbf
+        out = np.zeros((len(comps), n, n))
+        ns = len(self.shells)
+        for i in range(ns):
+            for j in range(i + 1):
+                shi, shj = self.shells[i], self.shells[j]
+                blk = moment_block(shi, shj, comps, origin)
+                for c in range(len(comps)):
+                    b = self._transform(shi, blk[c], 0)
+                    b = self._transform(shj, b, 1)
+                    oi, oj = self._offsets[i], self._offsets[j]
+                    out[c, oi: oi + shi.nfunc, oj: oj + shj.nfunc] = b
+                    if i != j:
+                        out[c, oj: oj + shj.nfunc, oi: oi + shi.nfunc] = b.T
+        return out
+
+    def dipole(self, origin=(0.0, 0.0, 0.0)) -> np.ndarray:
+        """AO dipole-operator matrices ⟨μ|r_d − origin_d|ν⟩, shape
+        (3, nbf, nbf).  (Electric dipole = −e·r; the sign convention is
+        applied at the property level, chem/properties.py.)"""
+        return self.moments([(1, 0, 0), (0, 1, 0), (0, 0, 1)], origin)
+
+    # second-moment component order (upper triangle, row-major)
+    QUAD_COMPS = ((2, 0, 0), (1, 1, 0), (1, 0, 1),
+                  (0, 2, 0), (0, 1, 1), (0, 0, 2))
+
+    def quadrupole(self, origin=(0.0, 0.0, 0.0)) -> np.ndarray:
+        """AO second-moment matrices ⟨μ|(r_a−o_a)(r_b−o_b)|ν⟩ for the
+        six unique (a, b) pairs in QUAD_COMPS order (xx, xy, xz, yy,
+        yz, zz), shape (6, nbf, nbf)."""
+        return self.moments(list(self.QUAD_COMPS), origin)
 
     def _global_pure_matrix(self) -> Optional[np.ndarray]:
         """Block-diagonal (nbf_sph, nbf_cart) cartesian->final transform,

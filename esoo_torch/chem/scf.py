@@ -4,7 +4,8 @@ Copy of esoo_tpu/chem/scf.py: produces the MO coefficients that define
 the large starting basis the OptOrb solvers reduce from.  ROHF (Roothaan
 effective Fock, Guest-Saunders coupling) keeps ONE set of spatial
 orbitals shared by both spins, the form the spatial partial unitary U
-requires; UHF seeds its guess.
+requires.  UHF seeds the ROHF guess and serves validation and standalone
+SCF use.
 """
 
 from __future__ import annotations

@@ -3,8 +3,9 @@
 The port imports nothing of `esoo_tpu`; what crosses is plain NumPy, e.g.
 `np.asarray` of an `esoo_tpu` FusedOptOrbVQE's `_h_sp`, `_g_sp`, `_U0`,
 `_theta0`, of a FusedOptOrbCASSCF's `_v0` (FusedOptOrbSACASSCF: `_V0`,
-`_weights`), or of a SectorUCC's `_str_tabs._asdict()`.  The parity tests
-feed both packages the same state this way.
+`_weights`), or of a SectorUCC's `_str_tabs._asdict()`; a whole
+`esoo_tpu.chem` problem crosses as its fields (`problem_from_numpy`).
+The parity tests feed both packages the same state this way.
 """
 
 from __future__ import annotations
@@ -50,3 +51,49 @@ def string_tables_from_numpy(host: dict, *, dtype: torch.dtype,
                                      device=device).to(dtype)
     out["M"], out["S"], out["flat"] = _strings.gate_fields(out)
     return out
+
+
+def problem_from_numpy(fields: dict):
+    """The port's ElectronicStructureProblem from the fields of either
+    package's problem (`dataclasses.asdict`, or `vars`, of an
+    `esoo_tpu.chem` one).  Arrays are copied as float64 NumPy; `scf` and
+    `ao_basis` cross as plain data: an SCFResult or AOBasisInfo of either
+    package, or the dict `asdict` made of one, is rebuilt as the port's
+    dataclass.  Fields the port's problem does not have raise."""
+    import dataclasses
+
+    from .chem.basis import Shell
+    from .chem.driver import AOBasisInfo, ElectronicStructureProblem
+    from .chem.scf import SCFResult
+
+    def rebuild(cls, value):
+        if value is None or isinstance(value, cls):
+            return value
+        if not isinstance(value, dict):
+            value = {f.name: getattr(value, f.name)
+                     for f in dataclasses.fields(cls)}
+        return cls(**value)
+
+    def shell(sh):
+        if not isinstance(sh, dict):
+            sh = {k: getattr(sh, k)
+                  for k in ("l", "center", "exps", "coeffs", "pure")}
+        return Shell(l=int(sh["l"]), center=np.array(sh["center"]),
+                     exps=np.array(sh["exps"]),
+                     coeffs=np.array(sh["coeffs"]), pure=bool(sh["pure"]))
+
+    out = {}
+    for k, v in fields.items():
+        if k == "scf":
+            v = rebuild(SCFResult, v)
+        elif k == "ao_basis":
+            v = rebuild(AOBasisInfo, v)
+            if v is not None and v.shells is not None:
+                v = dataclasses.replace(v, shells=[shell(sh)
+                                                   for sh in v.shells])
+        elif k == "num_particles":
+            v = tuple(int(x) for x in v)
+        elif isinstance(v, np.ndarray) or hasattr(v, "__array__"):
+            v = np.array(v, dtype=np.float64)
+        out[k] = v
+    return ElectronicStructureProblem(**out)

@@ -216,8 +216,8 @@ class FusedOptOrbCASSCF(_OuterLoopSolver):
                 "table_storage must be 'auto', 'dense', or 'compact'")
         if mesh is not None:
             raise NotImplementedError(
-                "mesh= (sharded integrals and sector tables) is not ported "
-                "yet: ROADMAP queue 1, item 11")
+                "mesh= (sharded integrals and sector tables) needs the "
+                "multi-GPU sharding, not ported yet")
         if num_particles is None:
             if problem is None or not hasattr(problem, "num_particles"):
                 raise ValueError(

@@ -281,7 +281,7 @@ def _spatial_integrals(problem, integral_tensors, name: str):
 def _check_sector_ansatz(ansatz) -> None:
     """The fused solvers read occupation-basis amplitudes, which only the
     Jordan-Wigner encoding keeps, and simulate UCC-family circuits only
-    (the full-space simulator is ROADMAP queue 1, item 8)."""
+    (the full-space simulator is not ported yet)."""
     enc = getattr(ansatz, "_encoding", "jw")
     if enc != "jw":
         raise ValueError(
@@ -290,21 +290,21 @@ def _check_sector_ansatz(ansatz) -> None:
     if getattr(ansatz, "_ucc_excitations", None) is None:
         raise NotImplementedError(
             "only UCC-family ansaetze (sim.ansatz.UCC/UCCSD) run here: "
-            "other circuits need the full-space simulator, ROADMAP "
-            "queue 1, item 8")
+            "other circuits need the full-space simulator, not ported "
+            "yet")
 
 
 def _check_options(mesh, simulation: str, dispatch: str) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "mesh= (sharded integrals and sector tables) is not ported "
-            "yet: ROADMAP queue 1, item 11")
+            "mesh= (sharded integrals and sector tables) needs the "
+            "multi-GPU sharding, not ported yet")
     if simulation not in ("full", "sector", "auto"):
         raise ValueError("simulation must be 'full', 'sector' or 'auto'")
     if simulation == "full":
         raise NotImplementedError(
-            "simulation='full' (the 2^N statevector simulator) is not "
-            "ported yet: ROADMAP queue 1, item 8")
+            "simulation='full' needs the full-space simulator (the 2^N "
+            "statevector), not ported yet")
     # dispatch bounds the length of one compiled TPU program in the JAX
     # package; the eager loop has no programs to bound, so it is
     # validated and gives the dispatch='one' result
@@ -512,7 +512,7 @@ def _state_vector(state, num_qubits: int) -> np.ndarray:
     if not isinstance(state, np.ndarray):
         raise NotImplementedError(
             f"initial state of type {type(state).__name__}: circuits come "
-            "with the full-space simulator (ROADMAP queue 1, item 8); pass "
+            "with the full-space simulator, not ported yet; pass "
             "an OccupationState or a 2^N NumPy vector")
     if state.shape != (2 ** num_qubits,):
         raise ValueError(f"initial state vector has shape {state.shape}, "
@@ -684,7 +684,7 @@ class FusedOptOrbSSVQE(_OuterLoopSolver):
             # 'auto' falls back to the full simulator in the JAX package
             raise NotImplementedError(
                 f"these initial states or this ansatz need the full-space "
-                f"simulator (ROADMAP queue 1, item 8): {err}") from err
+                f"simulator, not ported yet: {err}") from err
         self.simulation = "sector"
         sec = self._sector
         self._init = torch.as_tensor(
@@ -844,8 +844,8 @@ class FusedOptOrbVQD(FusedOptOrbSSVQE):
     deflation over the k states (state j's penalty reads states < j), each
     state with its own theta row; orbitals descend on the weight-combined
     RDMs.  The default beta is the 1-norm of the U0-rotated integrals plus
-    10.  Per-state ansatz lists need the full-space simulator (ROADMAP
-    queue 1, item 8) and raise."""
+    10.  Per-state ansatz lists need the full-space simulator, not ported
+    yet, and raise."""
 
     _requires_orthogonal_inits = False  # deflation separates the states
 
@@ -858,8 +858,8 @@ class FusedOptOrbVQD(FusedOptOrbSSVQE):
                     f"for {len(initial_states)} initial states")
             raise NotImplementedError(
                 "per-state ansatze run on the full-space simulator "
-                "(simulation='full'), not ported yet: ROADMAP queue 1, "
-                "item 8")
+                "(simulation='full'): the full-space simulator, not "
+                "ported yet")
         super().__init__(num_spin_orbitals, ansatz, initial_states,
                          weight_vector=weight_vector, **kwargs)
         if betas is None:

@@ -113,8 +113,8 @@ def _check_mapper(qubit_mapper) -> None:
     if qubit_mapper is not None:
         raise NotImplementedError(
             "only the Jordan-Wigner encoding (qubit_mapper=None) is ported; "
-            "qubit mappers come with the full-space simulator (ROADMAP "
-            "queue 1, item 8)")
+            "qubit mappers come with the full-space simulator, not "
+            "ported yet")
 
 
 def UCC(num_spatial_orbitals: int,

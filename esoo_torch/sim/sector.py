@@ -8,8 +8,8 @@ excitation rotation exp(theta (T - T+)) acts on that basis as a bank of
 turns into per-gate operations on an (nB, nA) string matrix.
 
 Only the string kernel is ported: a circuit whose sector does not
-factorize raises (the pairwise gather kernels are ROADMAP queue 1,
-item 10).  `SectorCI` is the gate-free full sector of exact CASSCF.
+factorize raises (the pairwise gather kernels, kernel='pairs', are not
+ported yet).  `SectorCI` is the gate-free full sector of exact CASSCF.
 """
 
 from __future__ import annotations
@@ -88,7 +88,7 @@ class SectorUCC:
         if kernel not in ("auto", "strings"):
             raise NotImplementedError(
                 f"kernel={kernel!r}: only the string kernel is ported (the "
-                "pairwise kernels are ROADMAP queue 1, item 10)")
+                "pairwise gather kernels are not ported yet)")
         excs = getattr(ansatz, "_ucc_excitations", None)
         if excs is None:
             raise ValueError(

@@ -196,6 +196,46 @@ def test_rotate_two_body_launch_counts_per_route(card, m, n, route,
     assert gemm.route_launch_counts()[route] == launches
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,n,route", [(26, 8, "fused"), (58, 10, "chain")])
+def test_rotate_two_body_at_the_n2_shapes(card, dtype, m, n, route):
+    """The N2 paths' transforms: cc-pVDZ (26, 8) on the one-pass kernel
+    (m not a multiple of 4: the ragged m*m slab stride and the slab ring's
+    tail), cc-pVTZ (58, 10) on the K1 chain, whose stage 1 has M = 58^3."""
+    g, u = _transform_inputs(m, n, dtype, card)
+    assert gemm._transform_plan(m, n, g.element_size())[0] == route
+    gemm.reset_launch_counts()
+    out = gemm.rotate_two_body_cuda(g, u)
+    again = gemm.rotate_two_body_cuda(g, u)
+    torch.cuda.synchronize()
+    per = 2 if route == "fused" else 4
+    assert gemm.route_launch_counts()[route] == 2 * per
+    _close(out, gemm.rotate_two_body_plain(g, u))
+    assert torch.equal(out, again)
+    if route == "chain":
+        x = g.reshape(m, m ** 3)
+        _close(gemm.matmul(x, u, trans_x=True),
+               gemm.matmul_plain(x, u, trans_x=True))
+
+
+def test_casscf_n2_sto3g_on_the_card_matches_the_cpu(card):
+    """The ported chemistry past hydrogen on the card: N2 STO-3G, frozen
+    core, FusedOptOrbCASSCF(12) at float64, card against CPU."""
+    from esoo_torch import FusedOptOrbCASSCF
+    from esoo_torch.chem import MoleculeDriver
+    p = MoleculeDriver(atom="N 0 0 0; N 0 0 1.0977",
+                       basis="sto-3g").run().active_space()
+    runs = []
+    for device in ("cuda", "cpu"):
+        gemm.reset_launch_counts()
+        runs.append(FusedOptOrbCASSCF(
+            12, problem=p, maxiter=12, stopping_tolerance=1e-6,
+            device=device, dtype=torch.float64).compute_minimum_energy())
+        if device == "cuda":
+            assert gemm.route_launch_counts()["fused"] > 0
+    assert abs(runs[0].eigenvalue - runs[1].eigenvalue) <= 1e-8
+
+
 def test_rotate_two_body_refuses_a_strided_g(card):
     g, u = _transform_inputs(8, 4, torch.float32, card)
     with pytest.raises(ValueError, match="contiguous"):
