@@ -17,6 +17,9 @@ Phases, one JSON line each:
             bit for bit), at stage 1 of m=112 for n = 4, 8, 12, 14 and
             16, and at each of the chain's four stages; the transform
             and K1's stage 1 also at the N2 paths' (26, 8) and (58, 10);
+            the one-pass transform at the full path's (112, 6) beside its
+            bound, its plain version, the tensordot chain and the K1
+            chain;
   main path FusedOptOrbVQE on H4 cc-pVTZ (m=56 -> 8 spin orbitals,
             UCCSD, f32) with the launch counts zeroed before and read
             after; energy gates against the reference values; per-step
@@ -51,9 +54,30 @@ Phases, one JSON line each:
             other on one vector at N=32 (and sigma at N=28), each timed
             with its extra peak memory; after it, the gates of the casscf
             phase and a float64 witness on compact float64 tables;
+  full      the full-space path (after compact, on the same H8
+            integrals): FusedOptOrbVQE(simulation='full') on H8 cc-pVTZ
+            (m=112 -> 12 spin orbitals, UCCSD(6, (4, 4)) from HF, 92
+            parameters, 640 Pauli rotations on 4,096 amplitudes, f32,
+            maxiter 10) with the launch counts zeroed before and read
+            after; gates: E within 5e-4 of the JAX package's float64
+            energy JAX_H8_12_FULL_F64, the sector solver's first outer
+            energy within 1e-4 of the full path's, E at or above the exact
+            sector ground energy at the final orbitals, every transform
+            launch one-pass; E, the outer trace, the solve's wall, peak
+            memory, one L-BFGS evaluation's wall, device ms and launches,
+            BB iterations and seconds, L-BFGS evaluations per solve, and
+            the card's busy share over a one-outer-iteration solve;
   parity    H2 6-31G -> 4 spin orbitals at f64 on the card against the
             reference energies and the port's own CPU run: FusedOptOrbVQE,
-            FusedOptOrbCASSCF and FusedOptOrbSACASSCF (k=2);
+            FusedOptOrbCASSCF and FusedOptOrbSACASSCF (k=2); then the
+            full-space simulator (`parity_full`): FusedOptOrbVQE with
+            simulation='full' and with 'auto''s fallback for a non-UCC
+            circuit, FusedOptOrbVQD with per-state ansatz lists and
+            FusedOptOrbAdaptVQE(simulation='full'), each 1e-8 of the CPU
+            run; the statevectors of RealAmplitudes(4), EfficientSU2(4)
+            and the H8 -> 12 UCCSD circuit against the CPU's (1e-12);
+            the Estimator on H2 STO-3G; rdm_energy against the hand
+            contraction of one_rdm and two_rdm;
   chem      the chemistry past hydrogen, two more main paths, each RHF
             with the two N 1s cores frozen (active_space()) and
             FusedOptOrbCASSCF at f32, the launch counts zeroed before the
@@ -155,6 +179,25 @@ N2_CASSCF_KW = dict(maxiter=12, stopping_tolerance=1e-6)
 # (tests/test_torch_n2.py recomputes it).
 N2_TZ_KW = dict(maxiter=100, stopping_tolerance=0.0)
 JAX_N2_TZ_20_F64 = -31.746012714748243
+# the full-space path (the `full` phase): FusedOptOrbVQE on H8 cc-pVTZ
+# m=112 -> 12 spin orbitals, UCCSD(6, (4, 4)) from HF (92 parameters,
+# 640 Pauli rotations on 4,096 amplitudes), simulation='full', f32, the
+# (12, "full", "one") configuration of bench.py:307 run_h8_scale.  The
+# gate: the JAX package's float64 energy at the same settings
+# (tests/test_torch_full.py's slow case recomputes it); its f32 run on
+# the CPU lands 4.3e-5 above it, and the two traces part by up to ~1e-3
+# on the way, so only the final energy is gated
+H8_FULL_KW = dict(maxiter=10, stopping_tolerance=1e-5)
+JAX_H8_12_FULL_F64 = -10.183879808455526
+H8_FULL_TOL = 5e-4
+# BENCH_r02.json's record of this configuration (the JAX package on a
+# TPU v5e, older code): printed beside E, not gated
+BENCH_R02_H8_12 = -10.1839046
+# FusedOptOrbVQE on H2 6-31G -> 4 with the non-UCC real circuit of
+# tests/test_fused.py:462-467 (simulation 'auto' falls back to full): the
+# JAX package's float64 energy on the CPU (tests/test_torch_full.py holds
+# the port's CPU run to it at 1e-8)
+H2_FALLBACK_JAX_F64 = -1.846778352577036
 
 # the narrow K1 kernel's check shapes (M, K, N), x^T y with x (K, M): N
 # from 1 to 16; M ragged against a tile and not a multiple of 4; K of one
@@ -499,6 +542,7 @@ def phase_kernels(card: str) -> dict:
                  for nh in (14, 16)}
     k1_sweep = _k1_stage1_sweep(checks, (bw, fl32))
     at_n2 = _kernels_at_n2_shapes((bw, fl32))
+    at_full = _transform_at_full_shape(checks, (bw, fl32))
     mh = 112
     Mh = mh ** 3
     bounded = [(k1, k1_bytes, k1_flops), (k2, k2_bytes, k2_flops)]
@@ -527,6 +571,7 @@ def phase_kernels(card: str) -> dict:
          matmul_casscf_stage1_n16=k1_h8_16,
          rotate_two_body_chain_casscf_n16=chain_h8_16,
          matmul_stage1_m112_sweep=k1_sweep, at_n2_shapes=at_n2,
+         rotate_two_body_cuda_m112_n6=at_full,
          timing=f"ms: median over 50 calls after 5 warm-up of CUDA events "
          f"around each call, the calls queued behind a device spin (no host "
          f"launch gaps); kernel_ms: profiler kernel time per call; "
@@ -540,7 +585,7 @@ def phase_kernels(card: str) -> dict:
                 k2, shape="m=56 n=4 one-pass kernel",
                 chain_at_m112_n14=chain_h8, chain_at_m112_n16=chain_h8_16,
                 at_m26_n8=at_n2["one_pass"],
-                chain_at_m58_n10=at_n2["chain"])}
+                chain_at_m58_n10=at_n2["chain"], at_m112_n6=at_full)}
 
 
 def _kernels_at_n2_shapes(peak: tuple) -> dict:
@@ -615,6 +660,63 @@ def _kernels_at_n2_shapes(peak: tuple) -> dict:
                 max_abs_err=float((k1() - torch.matmul(x.T, u))
                                   .abs().max())), m, m ** 3, n, peak)
     return out
+
+
+def _transform_at_full_shape(checks: list, peak: tuple) -> dict:
+    """The one-pass transform at the full-space path's (m, n) = (112, 6),
+    float32: its first run at m = 112 (a 4-slab ring of 112 x 112 slabs,
+    one block an SM).  Held against its plain version (two calls bit for
+    bit), its kernel time beside its bound, the plain version's, the
+    tensordot chain's (the library call) and the K1 chain's at the same
+    shape.  The 629 MB g never fits the 50 MB L2."""
+    import torch
+    from esoo_torch.ops import gemm
+    dev, f32 = torch.device("cuda"), torch.float32
+    m, n = 112, 6
+    if gemm._transform_plan(m, n, 4) != ("fused", 4):
+        raise AssertionError(f"m={m} n={n} planned "
+                             f"{gemm._transform_plan(m, n, 4)}, expected "
+                             f"('fused', 4)")
+    g = torch.randn((m,) * 4, dtype=f32, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(6))
+    u = _partial_unitary(m, n, f32, torch.Generator().manual_seed(6)).to(dev)
+
+    def call():
+        return gemm.rotate_two_body_cuda(g, u)
+
+    def chain():
+        return gemm.rotate_two_body_chain(g, u)
+
+    def library():
+        t = torch.tensordot(g, u, dims=([0], [0]))
+        t = torch.tensordot(t, u, dims=([0], [0]))
+        t = torch.tensordot(t, u, dims=([0], [0]))
+        return torch.tensordot(t, u, dims=([0], [0]))
+
+    out, again = call(), call()
+    torch.cuda.synchronize()
+    err = check_close(out, gemm.rotate_two_body_plain(g, u), f32,
+                      "rotate_two_body_cuda m=112 n=6 one-pass")
+    if not torch.equal(out, again):
+        raise AssertionError("two one-pass calls at m=112 n=6 differ")
+    checks.append(dict(kernel="gemm.rotate_two_body_cuda", route="fused",
+                       m=m, n=n, dtype=str(f32), err=err, shape="full",
+                       repeat_bit_identical=True))
+    kms, events = device_profile(call, match="transform_")
+    bw, fl32 = peak
+    nbytes = 4 * (m ** 4 + m * n + n ** 4)
+    flops = 2 * (m * m * (m * m * n + m * n * n) + m * (m * n ** 3 + n ** 4))
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / fl32 * 1e3
+    rec = dict(m=m, n=n, route="fused", stages=4, kernel_ms=kms,
+               kernel_launches_per_call=events, ms=time_ms(call),
+               plain_ms=time_ms(lambda: gemm.rotate_two_body_plain(g, u)),
+               library_ms=time_ms(library), chain_ms=time_ms(chain),
+               chain_kernel_ms=kernel_ms(chain, match="gemm_"),
+               max_abs_err=float((call() - library()).abs().max()),
+               bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    rec["pct_of_bound"] = 100 * rec["bound_ms"] / kms
+    return rec
 
 
 def _k1_bounded(rec: dict, K: int, M: int, N: int, peak: tuple) -> dict:
@@ -1221,6 +1323,129 @@ def phase_compact(problem) -> dict:
     return launches
 
 
+def _full_solver(problem, simulation: str, dtype, device, **kw):
+    """FusedOptOrbVQE on H8 cc-pVTZ -> 12 spin orbitals: UCCSD(6, (4, 4))
+    from Hartree-Fock (92 parameters; 8 X gates merged into the start
+    index and 640 Pauli rotations)."""
+    import esoo_torch as T
+    ansatz = T.UCCSD(6, (4, 4), initial_state=T.HartreeFock(6, (4, 4)))
+    return T.FusedOptOrbVQE(num_spin_orbitals=12, ansatz=ansatz,
+                            problem=problem, simulation=simulation,
+                            dtype=dtype, device=device, **kw)
+
+
+def phase_full(problem) -> dict:
+    """The full-space path: FusedOptOrbVQE(simulation='full') on H8
+    cc-pVTZ (m=112 -> 12 spin orbitals, 4,096 amplitudes), f32, maxiter
+    10, tol 1e-5 (bench.py:307 run_h8_scale's defaults), the launch
+    counts zeroed just before the solve and read just after.  Gates: (a)
+    E within H8_FULL_TOL of JAX_H8_12_FULL_F64; (b) the first outer
+    energy of the same solver on the sector within 1e-4 of the full
+    path's (the same unitary from the same U0); (c) E at or above the
+    exact sector ground energy at the final orbitals, less 1e-6; (d)
+    every transform launch on the one-pass route.  Then one L-BFGS
+    evaluation's wall, device time and launches at the final state, and
+    the card's busy share over a one-outer-iteration solve."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from esoo_torch.ops import gemm
+    from esoo_torch.orbital_optimization import kernels as K
+    from esoo_torch.orbital_optimization.stiefel import value_and_grad
+    from esoo_torch.sim.rdm import rdm_energy
+    f32, dev = torch.float32, "cuda"
+    if problem.num_spatial_orbitals != 112:
+        raise AssertionError(f"H8 cc-pVTZ gave m="
+                             f"{problem.num_spatial_orbitals}, expected 112")
+    t0 = time.perf_counter()
+    solver = _full_solver(problem, "full", f32, dev, **H8_FULL_KW)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    prots = sum(g.name == "prot" for g in solver.ansatz.gates)
+
+    held_bytes = torch.cuda.memory_allocated()   # earlier phases' too
+    torch.cuda.reset_peak_memory_stats()
+    gemm.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = solver.compute_minimum_energy()
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = gemm.launch_counts()
+    routes = gemm.route_launch_counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    E, trace, stats = r.eigenvalue, r.energy_convergence_list, r.stage_stats
+
+    sector = _full_solver(problem, "sector", f32, dev, maxiter=1)
+    sector_first = sector.compute_minimum_energy().energy_convergence_list[0]
+    U = torch.as_tensor(r.optimal_partial_unitary, device=dev)
+    lam = _exact_sector_spectrum(problem, U, 6, (4, 4))
+
+    # one L-BFGS evaluation at the final state: the 640-gate scan, the
+    # direct-RDM energy, and the backward through both
+    theta = torch.as_tensor(r.optimal_point, device=dev)
+    h_so, g_so = K.expand_spin_tensors(K.rotate_one_body(solver._h_sp, U),
+                                       K.rotate_two_body(solver._g_sp, U))
+    vag = value_and_grad(lambda th: rdm_energy(
+        solver._compiled.state_fn(th, f32), h_so, g_so))
+    vag(theta)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        vag(theta)
+    torch.cuda.synchronize()
+    eval_wall_ms = (time.perf_counter() - t0) / 10 * 1e3
+    eval_ms, eval_events = device_profile(lambda: vag(theta), reps=3)
+
+    # the card's busy share over a one-outer-iteration solve (a whole
+    # solve would hold a million profiler events)
+    window = _full_solver(problem, "full", f32, dev, maxiter=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        window.compute_minimum_energy()
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+    busy_s = sum(t for _, t in _device_events(prof)) / 1e6
+
+    solves = r.outer_iterations + 1            # the loop's and the tail's
+    failed = []
+    if not abs(E - JAX_H8_12_FULL_F64) <= H8_FULL_TOL:
+        failed.append(f"(a) energy {E!r} not within {H8_FULL_TOL} of the "
+                      f"JAX package's float64 {JAX_H8_12_FULL_F64}")
+    if not abs(trace[0] - sector_first) <= 1e-4:
+        failed.append(f"(b) first outer energy {trace[0]!r} vs the "
+                      f"sector's {sector_first!r}")
+    if not E >= lam[0] - 1e-6:
+        failed.append(f"(c) energy {E!r} below the exact sector ground "
+                      f"energy {lam[0]!r} at the final orbitals")
+    if not (launches["gemm.rotate_two_body_cuda"] > 0
+            and launches["gemm.matmul"] == 0 and routes["chain"] == 0):
+        failed.append(f"(d) launches {launches}, routes {routes}: the "
+                      f"one-pass transform only")
+    emit("full", problem="H8 cc-pVTZ m=112 -> 12 spin orbitals, (4, 4) "
+         "electrons, UCCSD(6, (4, 4)) from HF, simulation='full', 4,096 "
+         "amplitudes, f32, maxiter 10, tol 1e-5", energy=E,
+         jax_f64=JAX_H8_12_FULL_F64, tolerance=H8_FULL_TOL,
+         bench_r02_tpu=BENCH_R02_H8_12, sector_first_outer=sector_first,
+         exact_sector_ground=float(lam[0]), outer_trace=trace,
+         outer_iterations=r.outer_iterations, parameters=len(theta),
+         pauli_rotations=prots, setup_s=setup_s, solve_s=solve_s,
+         peak_memory_bytes=peak_bytes, held_before_solve_bytes=held_bytes,
+         stage_stats=stats, lbfgs_evaluations_per_solve=stats["lbfgs_evaluations"] / solves,
+         bb_iterations=stats["bb_iterations"], bb_s=stats["bb_s"],
+         lbfgs_evaluation_wall_ms=eval_wall_ms,
+         lbfgs_evaluation_device_ms=eval_ms,
+         lbfgs_evaluation_device_events=eval_events,
+         busy_window=dict(maxiter=1, wall_s=window_s, device_busy_s=busy_s,
+                          device_busy_share=busy_s / window_s),
+         launches=launches, transform_route_launches=routes,
+         gates_failed=failed)
+    if failed:
+        raise AssertionError("H8 full-space gates failed: "
+                             + "; ".join(failed))
+    return launches
+
+
 def _ssvqe_h4(problem, dtype, device):
     import esoo_torch as T
     return T.FusedOptOrbSSVQE(
@@ -1529,6 +1754,118 @@ def phase_parity() -> None:
              H2_CASSCF_TOL, 1e-8], sa_casscf_gpu=[float(e) for e in sa],
          sa_reference=H2_SA_REFERENCE, sa_tolerance=H2_SA_TOL,
          launches=cas_launches)
+    _parity_full(problem)
+
+
+def _parity_full(problem) -> None:
+    """The full-space simulator at f64, card against the port's CPU run:
+    on H2 6-31G -> 4 FusedOptOrbVQE(simulation='full'), 'auto''s
+    fallback for a non-UCC real circuit, FusedOptOrbVQD with per-state
+    ansatz lists and FusedOptOrbAdaptVQE(simulation='full') (each 1e-8 of
+    the CPU run and within its anchor); the statevectors of
+    RealAmplitudes(4) (real path), EfficientSU2(4) (complex path) and the
+    H8 -> 12 UCCSD circuit at seeded theta (1e-12 of the CPU's); the
+    Estimator's H2 STO-3G energy on both; and rdm_energy against one_rdm
+    and two_rdm contracted by hand."""
+    import esoo_torch as T
+    import numpy as np
+    import torch
+    from esoo_torch.ops import ActiveSpaceHamiltonianBuilder, gemm
+    from esoo_torch.sim import (Estimator, one_rdm, rdm_energy, statevector,
+                                two_rdm)
+    f64, hf = torch.float64, T.HartreeFock(2, (1, 1))
+
+    def fallback():
+        qc = T.QuantumCircuit(4)
+        qc.x(0)
+        qc.x(2)
+        qc.ry(qc.parameter(), 1)
+        qc.cx(1, 3)
+        return qc
+
+    kw = dict(problem=problem, maxiter=20, dtype=f64)
+    makers = {
+        "vqe_full": (lambda d: T.FusedOptOrbVQE(
+            4, T.UCCSD(2, (1, 1), initial_state=hf), simulation="full",
+            device=d, **kw), (H2_REFERENCE,), H2_TOL),
+        "vqe_auto_fallback": (lambda d: T.FusedOptOrbVQE(
+            4, fallback(), device=d, **kw), (H2_FALLBACK_JAX_F64,), 1e-6),
+        "vqd_per_state": (lambda d: T.FusedOptOrbVQD(
+            4, [T.UCCSD(2, (1, 1)), T.UCCSD(2, (1, 1), reps=2)],
+            initial_states=[hf, T.OccupationState(4, 0b0110)], betas=[2.0],
+            weight_vector=[2, 1], device=d, **kw),
+            H2_EXCITED_ANCHORS["vqd"], H2_ANCHOR_TOL),
+        "adapt_full": (lambda d: T.FusedOptOrbAdaptVQE(
+            4, T.UCCSD(2, (1, 1), initial_state=hf), simulation="full",
+            device=d, **kw), H2_EXCITED_ANCHORS["adapt"], H2_ANCHOR_TOL)}
+    runs, failed = {}, []
+    for name, (make, anchors, tol) in makers.items():
+        out = []
+        for d in ("cuda", "cpu"):
+            solver = make(d)
+            gemm.reset_launch_counts()
+            if hasattr(solver, "compute_energies"):
+                es = solver.compute_energies().eigenvalues
+            else:
+                es = [solver.compute_minimum_energy().eigenvalue]
+            out.append([float(e) for e in es])
+            if d == "cuda":
+                fused = gemm.route_launch_counts()["fused"]
+        card_e, cpu_e = out
+        runs[name] = dict(card=card_e, cpu=cpu_e, simulation=solver.simulation,
+                          transform_launches=fused)
+        if not (solver.simulation == "full" and fused > 0
+                and max(abs(a - b) for a, b in zip(card_e, cpu_e)) <= 1e-8
+                and all(abs(a - b) <= tol
+                        for a, b in zip(card_e, anchors))):
+            failed.append(f"{name}: card {card_e}, CPU {cpu_e}, anchors "
+                          f"{anchors} (tol {tol}), simulation "
+                          f"{solver.simulation}, {fused} launches")
+
+    gen = np.random.default_rng(12)
+    circuits = {"real_amplitudes": T.RealAmplitudes(4),
+                "efficient_su2": T.EfficientSU2(4),
+                "uccsd_h8_12": T.UCCSD(6, (4, 4),
+                                       initial_state=T.HartreeFock(6, (4, 4)))}
+    sv = {}
+    for name, qc in circuits.items():
+        theta = gen.normal(size=qc.num_parameters) * 0.1
+        card = statevector(qc, theta, device="cuda")
+        cpu = statevector(qc, theta, device="cpu")
+        err = float((card.cpu() - cpu).abs().max())
+        sv[name] = dict(dtype=str(card.dtype), max_abs_err=err,
+                        gates=len(qc.gates))
+        if not err <= 1e-12:
+            failed.append(f"statevector {name}: card vs CPU {err:.3e}")
+    # the Estimator on H2 STO-3G's qubit Hamiltonian (its direct-RDM path)
+    from esoo_torch.chem import MoleculeDriver
+    sto3g = MoleculeDriver(atom=H2_GEOM, basis="sto-3g").run()
+    H = ActiveSpaceHamiltonianBuilder(4).build(*sto3g.integral_tensors())
+    ans = T.UCCSD(2, (1, 1), initial_state=hf)
+    est = [Estimator(device=d).run(ans, H, [0.1, -0.2, 0.3]).result()
+           .values[0] for d in ("cuda", "cpu")]
+    if not abs(est[0] - est[1]) <= 1e-12:
+        failed.append(f"Estimator card {est[0]!r} vs CPU {est[1]!r}")
+    # rdm_energy against one_rdm/two_rdm contracted by hand, at the H8
+    # UCCSD state and seeded symmetric integrals
+    N = 12
+    state = statevector(circuits["uccsd_h8_12"],
+                        gen.normal(size=92) * 0.1, device="cuda")
+    hr = torch.as_tensor(gen.normal(size=(N, N)), device="cuda")
+    gr = torch.as_tensor(gen.normal(size=(N,) * 4) * 0.1, device="cuda")
+    hr = (hr + hr.T) / 2
+    e_direct = float(rdm_energy(state, hr, gr))
+    e_hand = float(torch.sum(hr * one_rdm(state, N))
+                   + torch.sum(gr * two_rdm(state, N)))
+    if not abs(e_direct - e_hand) <= 1e-12 * max(1.0, abs(e_hand)):
+        failed.append(f"rdm_energy {e_direct!r} vs by hand {e_hand!r}")
+    emit("parity_full", problem="H2 6-31G -> 4 spin orbitals, f64; "
+         "statevectors at seeded theta, f64", runs=runs, statevectors=sv,
+         estimator_card_cpu=est, rdm_energy=[e_direct, e_hand],
+         tolerance=dict(energies=1e-8, statevectors=1e-12,
+                        rdm_energy=1e-12), gates_failed=failed)
+    if failed:
+        raise AssertionError("full-space parity failed: " + "; ".join(failed))
 
 
 def _n2_casscf(basis: str, n_act: int, kw: dict, route: str):
@@ -1668,6 +2005,7 @@ def main() -> int:
     del problem
     paths["casscf_h8_n28"], problem = phase_casscf()
     paths["casscf_h8_n32_compact"] = phase_compact(problem)
+    paths["vqe_full_h8_n12"] = phase_full(problem)
     del problem
     phase_parity()
     paths.update(phase_chem())

@@ -26,13 +26,15 @@ from .orbital_optimization import (FusedOptOrbAdaptVQE,  # noqa: E402
                                    FusedOptOrbMCVQE, FusedOptOrbResult,
                                    FusedOptOrbSACASSCF, FusedOptOrbSSVQE,
                                    FusedOptOrbVQD, FusedOptOrbVQE)
-from .sim import (UCC, UCCSD, HartreeFock, OccupationState,  # noqa: E402
-                  SectorCI)
+from .sim import (UCC, UCCSD, EfficientSU2, HartreeFock,  # noqa: E402
+                  OccupationState, QuantumCircuit, RealAmplitudes, SectorCI,
+                  TwoLocal)
 
 __version__ = "0.1.0"
 
 __all__ = ["FusedOptOrbAdaptVQE", "FusedOptOrbCASSCF",
            "FusedOptOrbEigensolverResult", "FusedOptOrbMCVQE",
            "FusedOptOrbResult", "FusedOptOrbSACASSCF", "FusedOptOrbSSVQE",
-           "FusedOptOrbVQD", "FusedOptOrbVQE", "HartreeFock",
-           "OccupationState", "SectorCI", "UCC", "UCCSD"]
+           "FusedOptOrbVQD", "FusedOptOrbVQE", "EfficientSU2",
+           "HartreeFock", "OccupationState", "QuantumCircuit",
+           "RealAmplitudes", "SectorCI", "TwoLocal", "UCC", "UCCSD"]

@@ -4,8 +4,10 @@ The port imports nothing of `esoo_tpu`; what crosses is plain NumPy, e.g.
 `np.asarray` of an `esoo_tpu` FusedOptOrbVQE's `_h_sp`, `_g_sp`, `_U0`,
 `_theta0`, of a FusedOptOrbCASSCF's `_v0` (FusedOptOrbSACASSCF: `_V0`,
 `_weights`), or of a SectorUCC's `_str_tabs._asdict()`; a whole
-`esoo_tpu.chem` problem crosses as its fields (`problem_from_numpy`).
-The parity tests feed both packages the same state this way.
+`esoo_tpu.chem` problem crosses as its fields (`problem_from_numpy`), a
+circuit as its gates (`circuit_from_gates`) and a Pauli operator as its
+masks and coefficients (`pauli_op_from_numpy`).  The parity tests feed
+both packages the same state this way.
 """
 
 from __future__ import annotations
@@ -97,3 +99,42 @@ def problem_from_numpy(fields: dict):
             v = np.array(v, dtype=np.float64)
         out[k] = v
     return ElectronicStructureProblem(**out)
+
+
+def circuit_from_gates(num_qubits: int, gates, num_parameters=None,
+                       **metadata):
+    """The port's QuantumCircuit with the given gates: each gate is any
+    object with `name`, `qubits`, `angle` and `data` (a Gate of either
+    package), read as plain data.  The parameter count is the one the
+    angles imply unless `num_parameters` says more; `metadata` sets
+    attributes such as `parameter_bounds` or `_encoding`."""
+    from .sim.circuit import Gate, QuantumCircuit
+    qc = QuantumCircuit(num_qubits)
+    for g in gates:
+        angle = None if g.angle is None else tuple(
+            x if isinstance(x, str) else (int(x) if i == 1 and
+                                          g.angle[0] == "param" else float(x))
+            for i, x in enumerate(g.angle))
+        data = g.data
+        if data is not None:
+            data = ((np.array(data[0], dtype=np.complex128),)
+                    if g.name == "init_sv" else tuple(int(d) for d in data))
+        qc.gates.append(Gate(str(g.name), tuple(int(q) for q in g.qubits),
+                             angle, data))
+        if angle is not None and angle[0] == "param":
+            qc._num_parameters = max(qc._num_parameters, angle[1] + 1)
+    if num_parameters is not None:
+        qc._num_parameters = max(qc._num_parameters, int(num_parameters))
+    for k, v in metadata.items():
+        setattr(qc, k, v)
+    return qc
+
+
+def pauli_op_from_numpy(xs, zs, coeffs, num_qubits: int):
+    """The port's SparsePauliOp from (x, z) bitmask arrays and complex
+    coefficients (`SparsePauliOp.mask_arrays()` of either package)."""
+    from .ops.pauli import SparsePauliOp
+    return SparsePauliOp(([int(x) for x in np.asarray(xs).ravel()],
+                          [int(z) for z in np.asarray(zs).ravel()]),
+                         np.asarray(coeffs, dtype=np.complex128),
+                         num_qubits=int(num_qubits))

@@ -14,11 +14,16 @@ device tensors, with the same stages and the same decisions:
         stop when |E - E_prev| < tol (keeping the U that produced E)
     re-solve at the final U, unconditionally
 
-The excited-state solvers run the same loop with k states in the
-particle-number sector (sim/sector.py SectorUCC): SSVQE and MCVQE push k
-initial states through one theta (one batched gate scan) and minimize
-their weighted energy sum; VQD deflates state by state; ADAPT regrows its
-ansatz from scratch each outer iteration.  What follows the loop differs
+The eigensolver stage simulates either the particle-number sector
+(sim/sector.py SectorUCC, `simulation='sector'`, what 'auto' picks for a
+UCC-family circuit) or the full 2^N statevector (sim/statevector.py,
+`simulation='full'`, and 'auto''s fallback for any other real-safe
+circuit), whose energy is the direct RDM contraction of sim/rdm.py.
+The excited-state solvers run the same loop with k states: SSVQE and
+MCVQE push k initial states through one theta (one batched gate scan)
+and minimize their weighted energy sum; VQD deflates state by state
+(with one circuit per state on the full path); ADAPT regrows its ansatz
+from scratch each outer iteration.  What follows the loop differs
 by solver, as in the JAX package: VQE re-solves at the final U, VQD
 reruns the deflation, ADAPT regrows, while SSVQE and MCVQE only evaluate
 the last theta's energies at the final U.
@@ -37,6 +42,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..sim.circuit import QuantumCircuit
+from ..sim.rdm import one_rdm, rdm_energy, two_rdm
+from ..sim.statevector import compile_circuit
 from ..solvers.lbfgs import lbfgs_minimize
 from ..utils.config import resolve_device
 from .checkpoint import load_checkpoint, save_checkpoint
@@ -118,10 +126,30 @@ def _inner_bb(vag_fn, U0, data, stepsize, tol, decay, maxiter,
     return U
 
 
-def _vqe_stage_fns(sector, vqe_maxiter: int, dtype: torch.dtype,
-                   ftol=None, stats: Optional[dict] = None):
-    """(run_vqe, extract_rdms) for the sector eigensolver stage."""
+def _vqe_stage_fns(sector, compiled, n_active: int, vqe_maxiter: int,
+                   dtype: torch.dtype, ftol=None,
+                   stats: Optional[dict] = None):
+    """(run_vqe, extract_rdms) for the eigensolver stage: in the sector
+    (`sector`), or on the full statevector of `compiled` when `sector` is
+    None."""
     gtol = _gtol(dtype)
+    N = 2 * n_active
+
+    if sector is None:
+        def vqe_energy(theta, h_so, g_so):
+            return rdm_energy(compiled.state_fn(theta, dtype), h_so, g_so)
+
+        def run_vqe(theta, h_act, g_act):
+            res = _lbfgs(vqe_energy, theta,
+                         expand_spin_tensors(h_act, g_act), vqe_maxiter,
+                         gtol, ftol, stats)
+            return res.x, res.fun
+
+        def extract_rdms(theta):
+            state = compiled.state_fn(theta, dtype)
+            return one_rdm(state, N), two_rdm(state, N)
+
+        return run_vqe, extract_rdms
 
     def run_vqe(theta, h_act, g_act):
         vals = _sector_values(sector, h_act, g_act)
@@ -211,11 +239,16 @@ def _optorb_loop(solve: Callable, extract_rdms: Callable, state, U0, h_sp,
 
 
 def _state_diagnostics(sector, v: torch.Tensor, tables: dict = None):
+    """_rdm_diagnostics of a sector state."""
+    return _rdm_diagnostics(*sector.rdms(v.reshape(sector.nB, sector.nA),
+                                         tables))
+
+
+def _rdm_diagnostics(gamma: torch.Tensor, Gamma: torch.Tensor):
     """(natural occupations, <S^2>, spin-summed spatial 1-RDM, spatial
-    spin density) of a sector state: the descending eigenvalues of the
-    spin-summed 1-RDM (sum = n_alpha + n_beta) and the total spin (the
-    JAX package's _rdm_diagnostics)."""
-    gamma, Gamma = sector.rdms(v.reshape(sector.nB, sector.nA), tables)
+    spin density) from spin-orbital RDMs: the descending eigenvalues of
+    the spin-summed 1-RDM (sum = n_alpha + n_beta) and the total spin
+    (the JAX package's _rdm_diagnostics)."""
     gamma_s, _ = spin_reduce_rdms(gamma, Gamma)
     n = gamma.shape[0] // 2
     return (torch.flip(torch.linalg.eigvalsh(gamma_s), dims=(0,)),
@@ -249,8 +282,14 @@ def _attach_vqe_diagnostics(result, solver, theta):
     if not solver.diagnostics:
         return result
     with torch.no_grad():
-        occ, s2, g1, sd = _state_diagnostics(
-            solver._sector, solver._sector.state_matrix(theta))
+        if solver._sector is None:
+            state = solver._compiled.state_fn(theta, solver.dtype)
+            N = solver.num_spin_orbitals
+            occ, s2, g1, sd = _rdm_diagnostics(one_rdm(state, N),
+                                               two_rdm(state, N))
+        else:
+            occ, s2, g1, sd = _state_diagnostics(
+                solver._sector, solver._sector.state_matrix(theta))
     result.natural_occupations = _numpy(occ)
     result.spin_squared = float(s2)
     result.one_rdm_spatial = _numpy(g1)
@@ -278,20 +317,41 @@ def _spatial_integrals(problem, integral_tensors, name: str):
     return spatial_blocks(h_so, g_so)
 
 
-def _check_sector_ansatz(ansatz) -> None:
-    """The fused solvers read occupation-basis amplitudes, which only the
-    Jordan-Wigner encoding keeps, and simulate UCC-family circuits only
-    (the full-space simulator is not ported yet)."""
+def _compile_ansatz(ansatz):
+    """The compiled circuit of a fused solver's ansatz.  The fused
+    solvers contract RDMs directly from occupation-basis amplitudes,
+    which only the Jordan-Wigner encoding keeps (a parity/BK-mapped
+    ansatz would give a silently wrong energy), and simulate real-safe
+    circuits only."""
+    if not isinstance(ansatz, QuantumCircuit):
+        raise TypeError(f"the ansatz must be a sim.circuit.QuantumCircuit; "
+                        f"got {type(ansatz).__name__}")
     enc = getattr(ansatz, "_encoding", "jw")
     if enc != "jw":
         raise ValueError(
             f"fused solvers require a Jordan-Wigner-encoded ansatz; "
             f"got encoding {enc!r}")
-    if getattr(ansatz, "_ucc_excitations", None) is None:
-        raise NotImplementedError(
-            "only UCC-family ansaetze (sim.ansatz.UCC/UCCSD) run here: "
-            "other circuits need the full-space simulator, not ported "
-            "yet")
+    compiled = compile_circuit(ansatz)
+    if not compiled.is_real:
+        raise ValueError("fused path requires a real-safe ansatz")
+    return compiled
+
+
+def _sector_or_full(simulation: str, make_sector: Callable):
+    """(made, simulation): what `make_sector()` builds (a SectorUCC, or
+    one with its projected initial states) for 'sector' and 'auto', which
+    resolves to the sector wherever the circuit permits, as in the JAX
+    package; or (None, 'full') for 'full', and for 'auto' when the
+    circuit or its initial states do not fit a sector (make_sector raises
+    ValueError)."""
+    if simulation == "full":
+        return None, "full"
+    try:
+        return make_sector(), "sector"
+    except ValueError:
+        if simulation == "sector":
+            raise
+        return None, "full"
 
 
 def _check_options(mesh, simulation: str, dispatch: str) -> None:
@@ -301,10 +361,6 @@ def _check_options(mesh, simulation: str, dispatch: str) -> None:
             "multi-GPU sharding, not ported yet")
     if simulation not in ("full", "sector", "auto"):
         raise ValueError("simulation must be 'full', 'sector' or 'auto'")
-    if simulation == "full":
-        raise NotImplementedError(
-            "simulation='full' needs the full-space simulator (the 2^N "
-            "statevector), not ported yet")
     # dispatch bounds the length of one compiled TPU program in the JAX
     # package; the eager loop has no programs to bound, so it is
     # validated and gives the dispatch='one' result
@@ -397,7 +453,7 @@ class FusedOptOrbVQE(_OuterLoopSolver):
         self.device = dev = resolve_device(device)
         self.diagnostics = bool(diagnostics)
         _check_options(mesh, simulation, dispatch)
-        _check_sector_ansatz(ansatz)
+        self._compiled = _compile_ansatz(ansatz)
 
         if resume_from is not None:
             ck = load_checkpoint(resume_from)
@@ -415,9 +471,9 @@ class FusedOptOrbVQE(_OuterLoopSolver):
 
         self.num_spin_orbitals = num_spin_orbitals
         self.ansatz = ansatz
-        self.simulation = "sector"
         from ..sim.sector import SectorUCC
-        self._sector = SectorUCC(ansatz, num_spin_orbitals)
+        self._sector, self.simulation = _sector_or_full(
+            simulation, lambda: SectorUCC(ansatz, num_spin_orbitals))
 
         self._U0 = torch.as_tensor(_initial_partial_unitary(
             initial_partial_unitary, h_sp.shape[0], num_spin_orbitals // 2),
@@ -453,8 +509,8 @@ class FusedOptOrbVQE(_OuterLoopSolver):
         """The loop re-solves at the final U (VQE's tail)."""
         stats = _vqe_stats()
         run_vqe, extract_rdms = _vqe_stage_fns(
-            self._sector, self.vqe_maxiter, self.dtype, ftol=self.vqe_ftol,
-            stats=stats)
+            self._sector, self._compiled, self.num_spin_orbitals // 2,
+            self.vqe_maxiter, self.dtype, ftol=self.vqe_ftol, stats=stats)
         E, theta, U, it, trace = self._loop(run_vqe, extract_rdms,
                                             self._theta0, stats)
         return _attach_vqe_diagnostics(FusedOptOrbResult(
@@ -496,24 +552,20 @@ def _gtol(dtype: torch.dtype) -> float:
 # -- the excited-state family -------------------------------------------------
 
 def _state_vector(state, num_qubits: int) -> np.ndarray:
-    """A real 2^N initial-state vector: an OccupationState (the stand-in
-    for an X-only circuit, like HartreeFock) or a NumPy vector (what
-    compile_circuit(st).state() gives in the JAX package)."""
+    """A real 2^N initial-state vector: a circuit's statevector (on the
+    host, at the dtype policy's precision, as compile_circuit(st).state()
+    in the JAX package) or a NumPy vector."""
     enc = getattr(state, "_encoding", "jw")
     if enc != "jw":
         raise ValueError(
             f"fused solvers require Jordan-Wigner-encoded initial states; "
             f"got encoding {enc!r}")
-    mask = getattr(state, "mask", None)
-    if mask is not None:
-        v = np.zeros(2 ** num_qubits)
-        v[int(mask)] = 1.0
-        return v
-    if not isinstance(state, np.ndarray):
-        raise NotImplementedError(
-            f"initial state of type {type(state).__name__}: circuits come "
-            "with the full-space simulator, not ported yet; pass "
-            "an OccupationState or a 2^N NumPy vector")
+    if isinstance(state, QuantumCircuit):
+        state = compile_circuit(state).state(device="cpu").numpy()
+    elif not isinstance(state, np.ndarray):
+        raise TypeError(
+            f"initial state of type {type(state).__name__}: pass a "
+            "sim.circuit.QuantumCircuit or a 2^N NumPy vector")
     if state.shape != (2 ** num_qubits,):
         raise ValueError(f"initial state vector has shape {state.shape}, "
                          f"expected ({2 ** num_qubits},)")
@@ -533,19 +585,49 @@ def _weighted_rdms(sector, weights: torch.Tensor, Vs: torch.Tensor,
     return gamma, Gamma
 
 
+def _weighted_full_rdms(weights: torch.Tensor, states: torch.Tensor,
+                        N: int):
+    """sum_i w_i (gamma_i, Gamma_i) of k full statevectors (k, 2^N)."""
+    return (torch.tensordot(weights, one_rdm(states, N), dims=1),
+            torch.tensordot(weights, two_rdm(states, N), dims=1))
+
+
 def _sector_values(sector, h_act, g_act) -> dict:
     return sector.build_values(*expand_spin_tensors(h_act, g_act))
 
 
-def _ssvqe_stage_fns(sector, init: torch.Tensor, weights: torch.Tensor,
-                     vqe_maxiter: int, dtype: torch.dtype, ftol=None,
+def _ssvqe_stage_fns(sector, compiled, n_active: int, init: torch.Tensor,
+                     weights: torch.Tensor, vqe_maxiter: int,
+                     dtype: torch.dtype, ftol=None,
                      stats: Optional[dict] = None):
     """(run_ssvqe, state_energies, batch_rdms) of the SSVQE stage: the k
-    initial string matrices `init` (k, nB, nA) go through one theta as one
-    batched gate scan.  run_ssvqe minimizes the weighted energy sum and
-    returns theta and the k energies (their weighted sum is the L-BFGS
-    minimum); state_energies only evaluates them."""
+    initial states `init` (string matrices (k, nB, nA) in the sector, or
+    (k, 2^N) statevectors through `compiled` when `sector` is None) go
+    through one theta as one batched gate scan.  run_ssvqe minimizes the
+    weighted energy sum and returns theta and the k energies (their
+    weighted sum is the L-BFGS minimum); state_energies only evaluates
+    them."""
     gtol = _gtol(dtype)
+
+    if sector is None:
+        def full_energies(theta, h_so, g_so):
+            return rdm_energy(compiled.apply_raw(init, theta), h_so, g_so)
+
+        def full_state_energies(theta, h_act, g_act):
+            return full_energies(theta, *expand_spin_tensors(h_act, g_act))
+
+        def run_full(theta, h_act, g_act):
+            hg = expand_spin_tensors(h_act, g_act)
+            res = _lbfgs(lambda th: weights @ full_energies(th, *hg), theta,
+                         (), vqe_maxiter, gtol, ftol, stats)
+            return res.x, full_energies(res.x, *hg)
+
+        def full_rdms(theta):
+            return _weighted_full_rdms(weights,
+                                       compiled.apply_raw(init, theta),
+                                       2 * n_active)
+
+        return run_full, full_state_energies, full_rdms
 
     def energies(theta, vals):
         return sector.quadform_values(sector.apply_matrix(init, theta), vals)
@@ -566,15 +648,56 @@ def _ssvqe_stage_fns(sector, init: torch.Tensor, weights: torch.Tensor,
     return run_ssvqe, state_energies, batch_rdms
 
 
-def _vqd_stage_fns(sector, init: torch.Tensor, betas: torch.Tensor,
-                   weights: torch.Tensor, vqe_maxiter: int,
-                   dtype: torch.dtype, ftol=None,
+def _vqd_stage_fns(sector, applies, n_active: int, init: torch.Tensor,
+                   betas: torch.Tensor, weights: torch.Tensor,
+                   vqe_maxiter: int, dtype: torch.dtype, ftol=None,
                    stats: Optional[dict] = None):
     """(run_vqd, batch_rdms) of the sequential-deflation stage: state j
     minimizes E_j + sum_{i<j} betas[i] <psi_i|psi_j>^2 against the states
-    already found in this call, then reports its deflation-free energy."""
+    already found in this call, then reports its deflation-free energy.
+    On the full path (`sector` None) state j is applies[j] = (apply, P),
+    its circuit applied to init[j] at the leading P entries of its theta
+    row (rows are end-padded to the widest circuit; the pad's gradient is
+    exactly zero, so L-BFGS never moves it)."""
     gtol = _gtol(dtype)
     k = init.shape[0]
+
+    if sector is None:
+        N = 2 * n_active
+
+        def state(j, theta):
+            apply, P = applies[j]
+            return apply(init[j], theta[:P])
+
+        def run_full(thetas, h_act, g_act):
+            h_so, g_so = expand_spin_tensors(h_act, g_act)
+            thetas = thetas.clone()
+            prev, es = [], []
+
+            def deflated(theta, j, P):
+                s = state(j, theta)
+                e = rdm_energy(s, h_so, g_so)
+                if j == 0:
+                    return e
+                ov = P @ s
+                return e + torch.sum(betas[:j] * ov * ov)
+
+            for j in range(k):
+                P = torch.stack(prev) if prev else None
+                res = _lbfgs(deflated, thetas[j], (j, P), vqe_maxiter, gtol,
+                             ftol, stats)
+                thetas[j] = res.x
+                s = state(j, res.x)
+                prev.append(s)
+                es.append(rdm_energy(s, h_so, g_so))
+            return thetas, torch.stack(es)
+
+        def full_rdms(thetas):
+            return _weighted_full_rdms(
+                weights, torch.stack([state(j, th)
+                                      for j, th in enumerate(thetas)]), N)
+
+        return run_full, full_rdms
 
     def run_vqd(thetas, h_act, g_act):
         vals = _sector_values(sector, h_act, g_act)
@@ -612,9 +735,10 @@ class FusedOptOrbSSVQE(_OuterLoopSolver):
     their energies; orbitals descend on the weight-combined RDMs.
 
     Keywords are esoo_tpu.orbital_optimization.FusedOptOrbSSVQE's plus
-    `device`.  Initial states are OccupationStates or real 2^N NumPy
-    vectors; the sector is inferred from the first state's dominant
-    determinant, and every state must lie in it."""
+    `device`.  Initial states are circuits or real 2^N NumPy vectors; the
+    sector is inferred from the first state's dominant determinant, and
+    with simulation='auto' states that do not all lie in it (or an ansatz
+    the sector cannot take) run on the full statevector."""
 
     _requires_orthogonal_inits = True   # VQD relaxes this
 
@@ -648,7 +772,7 @@ class FusedOptOrbSSVQE(_OuterLoopSolver):
         self.device = dev = resolve_device(device)
         self.diagnostics = bool(diagnostics)
         _check_options(mesh, simulation, dispatch)
-        _check_sector_ansatz(ansatz)
+        self._compiled = _compile_ansatz(ansatz)
         h_sp, g_sp = (_spatial_tensors if _spatial_tensors is not None
                       else _spatial_integrals(problem, integral_tensors,
                                               type(self).__name__))
@@ -675,21 +799,21 @@ class FusedOptOrbSSVQE(_OuterLoopSolver):
         lead = int(np.argmax(np.abs(V[0])))
         parts = (bin(lead & ((1 << nsp) - 1)).count("1"),
                  bin(lead >> nsp).count("1"))
-        try:
-            self._sector = SectorUCC(ansatz, N, num_particles=parts)
-            init = np.stack([self._sector.project_full(v) for v in V])
-        except ValueError as err:
-            if simulation == "sector":
-                raise
-            # 'auto' falls back to the full simulator in the JAX package
-            raise NotImplementedError(
-                f"these initial states or this ansatz need the full-space "
-                f"simulator, not ported yet: {err}") from err
-        self.simulation = "sector"
-        sec = self._sector
-        self._init = torch.as_tensor(
-            init[:, : sec.dim].reshape(self.k, sec.nB, sec.nA),
-            device=dev).to(dtype)
+
+        def make_sector():
+            sec = SectorUCC(ansatz, N, num_particles=parts)
+            return sec, np.stack([sec.project_full(v) for v in V])
+
+        found, self.simulation = _sector_or_full(simulation, make_sector)
+        if found is None:
+            self._sector = None
+            self._init = torch.as_tensor(V, device=dev).to(dtype)
+        else:
+            sec, init = found
+            self._sector = sec
+            self._init = torch.as_tensor(
+                init[:, : sec.dim].reshape(self.k, sec.nB, sec.nA),
+                device=dev).to(dtype)
         if weight_vector is None:
             weight_vector = [self.k - i for i in range(self.k)]
         self._weights = torch.as_tensor(
@@ -720,8 +844,9 @@ class FusedOptOrbSSVQE(_OuterLoopSolver):
         tail evaluates the last theta's energies at the final U; it does
         not optimize again."""
         run, state_energies, batch_rdms = _ssvqe_stage_fns(
-            self._sector, self._init, self._weights, self.vqe_maxiter,
-            self.dtype, ftol=self.vqe_ftol, stats=stats)
+            self._sector, self._compiled, self.num_spin_orbitals // 2,
+            self._init, self._weights, self.vqe_maxiter, self.dtype,
+            ftol=self.vqe_ftol, stats=stats)
         return run, batch_rdms, \
             lambda theta, h, g: (theta, state_energies(theta, h, g))
 
@@ -745,7 +870,15 @@ class FusedOptOrbSSVQE(_OuterLoopSolver):
         """The result with its transition RDMs and, when `diagnostics`,
         the per-state diagnostics; `mix` (k, k) re-expresses the
         eigenstates as mix[:, I]-weighted combinations of the raw states
-        (MCVQE's contracted basis)."""
+        (MCVQE's contracted basis).  A full-space run carries neither
+        (None, as in the JAX package: rerun with simulation='sector' for
+        them)."""
+        if self._sector is None:
+            return FusedOptOrbEigensolverResult(
+                eigenvalues=_numpy(es), optimal_point=_numpy(thetas),
+                optimal_partial_unitary=_numpy(U),
+                energy_convergence_list=[float(e) for e in trace],
+                outer_iterations=it, stage_stats=stats)
         states = self._eigenstates(thetas)
         t1 = _numpy(_transition_rdm1s(self._sector, states))
         if mix is not None:
@@ -816,11 +949,17 @@ class FusedOptOrbMCVQE(FusedOptOrbSSVQE):
                 batch.append((vecs[i] + vecs[j]) / np.sqrt(2))
                 batch.append((vecs[i] - vecs[j]) / np.sqrt(2))
         sec = self._sector
+        h_act = rotate_one_body(self._h_sp, U)
+        g_act = rotate_two_body(self._g_sp, U)
+        if sec is None:
+            V0 = torch.as_tensor(np.stack(batch),
+                                 device=self.device).to(self.dtype)
+            return _numpy(rdm_energy(self._compiled.apply_raw(V0, theta),
+                                     *expand_spin_tensors(h_act, g_act)))
         stack = np.stack([sec.project_full(v)[: sec.dim] for v in batch])
         V0 = torch.as_tensor(stack.reshape(-1, sec.nB, sec.nA),
                              device=self.device).to(self.dtype)
-        vals = _sector_values(sec, rotate_one_body(self._h_sp, U),
-                              rotate_two_body(self._g_sp, U))
+        vals = _sector_values(sec, h_act, g_act)
         return _numpy(sec.quadform_values(sec.apply_matrix(V0, theta), vals))
 
     def compute_energies(self) -> FusedOptOrbEigensolverResult:
@@ -844,24 +983,42 @@ class FusedOptOrbVQD(FusedOptOrbSSVQE):
     deflation over the k states (state j's penalty reads states < j), each
     state with its own theta row; orbitals descend on the weight-combined
     RDMs.  The default beta is the 1-norm of the U0-rotated integrals plus
-    10.  Per-state ansatz lists need the full-space simulator, not ported
-    yet, and raise."""
+    10.  `ansatz` may be a list of k per-state circuits (the reference
+    VQD's feature); they run on the full statevector (simulation 'auto'
+    or omitted resolves to 'full', 'sector' raises), with parameter rows
+    end-padded to the widest circuit (`optimal_point` row i holds ansatz
+    i's parameters in its leading slice)."""
 
     _requires_orthogonal_inits = False  # deflation separates the states
 
     def __init__(self, num_spin_orbitals: int, ansatz, initial_states,
                  betas=None, weight_vector=None, **kwargs):
+        ansatz_list = None
         if isinstance(ansatz, (list, tuple)):
-            if len(ansatz) != len(initial_states):
+            ansatz_list = list(ansatz)
+            if len(ansatz_list) != len(initial_states):
                 raise ValueError(
-                    f"need one ansatz per state: got {len(ansatz)} ansatze "
-                    f"for {len(initial_states)} initial states")
-            raise NotImplementedError(
-                "per-state ansatze run on the full-space simulator "
-                "(simulation='full'): the full-space simulator, not "
-                "ported yet")
+                    f"need one ansatz per state: got {len(ansatz_list)} "
+                    f"ansatze for {len(initial_states)} initial states")
+            if kwargs.get("simulation", "auto") == "sector":
+                raise ValueError(
+                    "per-state ansatze require simulation='full'")
+            # the sector takes one excitation table: 'auto' would
+            # simulate every state with ansatz_list[0]'s circuit
+            kwargs["simulation"] = "full"
+            user_point = kwargs.pop("initial_point", None)
+            ansatz = ansatz_list[0]
         super().__init__(num_spin_orbitals, ansatz, initial_states,
                          weight_vector=weight_vector, **kwargs)
+        self._applies = [(self._compiled.apply_raw,
+                          ansatz.num_parameters)] * self.k
+        if ansatz_list is not None:
+            self._applies = [(_compile_ansatz(a).apply_raw, a.num_parameters)
+                             for a in ansatz_list]
+            self._theta0 = torch.as_tensor(
+                _per_state_points(user_point, ansatz_list),
+                device=self.device).to(self.dtype)
+            self._ansatz_list = ansatz_list
         if betas is None:
             # deflation works when beta exceeds the energy gap: a bound
             # from the integrals at the starting partial unitary
@@ -881,8 +1038,9 @@ class FusedOptOrbVQD(FusedOptOrbSSVQE):
     def _stage(self, stats: dict):
         """VQD's tail reruns the deflation at the final U."""
         run, batch_rdms = _vqd_stage_fns(
-            self._sector, self._init, self._betas, self._weights,
-            self.vqe_maxiter, self.dtype, ftol=self.vqe_ftol, stats=stats)
+            self._sector, self._applies, self.num_spin_orbitals // 2,
+            self._init, self._betas, self._weights, self.vqe_maxiter,
+            self.dtype, ftol=self.vqe_ftol, stats=stats)
         return run, batch_rdms, None
 
     def _theta_start(self) -> torch.Tensor:
@@ -894,10 +1052,40 @@ class FusedOptOrbVQD(FusedOptOrbSSVQE):
                             for v, th in zip(self._init, thetas)])
 
 
-def _adapt_stage_fns(sector, R: int, P: int, vqe_maxiter: int,
-                     dtype: torch.dtype, grad_tol: torch.Tensor,
-                     eig_tol: torch.Tensor, ftol=None,
-                     stats: Optional[dict] = None):
+def _per_state_points(user_point, ansatz_list) -> np.ndarray:
+    """(k, max P) starting thetas of per-state VQD circuits: zeros, or the
+    user's vector(s) in each row's leading slice."""
+    k = len(ansatz_list)
+    theta0 = np.zeros((k, max(a.num_parameters for a in ansatz_list)))
+    if user_point is None:
+        return theta0
+    pts = (user_point if isinstance(user_point[0], (list, tuple, np.ndarray))
+           else [user_point] * k)
+    if len(pts) != k:
+        raise ValueError(f"initial_point must provide one vector per state: "
+                         f"got {len(pts)} for k={k}")
+    for i, (p, a) in enumerate(zip(pts, ansatz_list)):
+        p = np.asarray(p, dtype=np.float64)
+        if p.shape[0] != a.num_parameters:
+            raise ValueError(f"initial point {i} has {p.shape[0]} values "
+                             f"for a {a.num_parameters}-parameter ansatz")
+        theta0[i, : p.shape[0]] = p
+    return theta0
+
+
+def _append_group(circuit: QuantumCircuit, group) -> QuantumCircuit:
+    """Append one excitation rotation group with a fresh parameter (the
+    port's copy of esoo_tpu/solvers/adapt_vqe.py::_append_group)."""
+    theta = circuit.parameter()
+    for x, z, w in group:
+        circuit.pauli_rot(theta * (-2.0 * w), x, z)
+    return circuit
+
+
+def _adapt_stage_fns(sector, compiled, n_active: int, R: int, P: int,
+                     vqe_maxiter: int, dtype: torch.dtype,
+                     grad_tol: torch.Tensor, eig_tol: torch.Tensor,
+                     ftol=None, stats: Optional[dict] = None):
     """(run_adapt, extract_rdms) of the ADAPT stage: growth by masking
     over R slots of the P-excitation pool (theta has R*P entries,
     unselected ones pinned to zero).  Each growth step screens slot r's
@@ -906,12 +1094,18 @@ def _adapt_stage_fns(sector, R: int, P: int, vqe_maxiter: int,
     the gradient threshold, on an immediate repeat selection, or on an
     energy gain below the eigenvalue threshold."""
     gtol = _gtol(dtype)
+    N = 2 * n_active
+
+    def make_energy(h_act, g_act):
+        if sector is None:
+            h_so, g_so = expand_spin_tensors(h_act, g_act)
+            return lambda theta: rdm_energy(compiled.state_fn(theta, dtype),
+                                            h_so, g_so)
+        vals = _sector_values(sector, h_act, g_act)
+        return lambda theta: sector.energy_values(theta, vals)
 
     def run_adapt(h_act, g_act):
-        vals = _sector_values(sector, h_act, g_act)
-
-        def energy(theta):
-            return sector.energy_values(theta, vals)
+        energy = make_energy(h_act, g_act)
 
         def masked(theta, mask):
             return energy(theta * mask)
@@ -940,6 +1134,9 @@ def _adapt_stage_fns(sector, R: int, P: int, vqe_maxiter: int,
         return theta, mask, E
 
     def extract_rdms(theta):
+        if sector is None:
+            state = compiled.state_fn(theta, dtype)
+            return one_rdm(state, N), two_rdm(state, N)
         return sector.rdms(sector.state_matrix(theta))
 
     return run_adapt, extract_rdms
@@ -964,15 +1161,27 @@ class FusedOptOrbAdaptVQE(FusedOptOrbVQE):
                              "FusedOptOrbAdaptVQE (the ADAPT growth loop "
                              "is one program; use FusedOptOrbVQE for "
                              "chunked eigensolver dispatches)")
-        excs = getattr(ansatz, "_ucc_excitations", None)
-        if excs is None:
+        pool = getattr(ansatz, "_ucc_pool", None)
+        if pool is None:
             raise ValueError(
                 "FusedOptOrbAdaptVQE requires an ansatz built by "
                 "sim.ansatz.UCC/UCCSD (carrying its excitation pool)")
-        self._P = len(excs)
+        initial = getattr(ansatz, "_ucc_initial_state", None)
+        self._P = len(pool)
         self._R = min(max_adapt_iterations or self._P, self._P)
-        padded = dataclasses.replace(
-            ansatz, _ucc_excitations=tuple(excs) * self._R)
+        padded = (initial.copy() if initial is not None
+                  else QuantumCircuit(num_spin_orbitals))
+        if padded.num_parameters:
+            raise ValueError("AdaptVQE initial state must be parameter-free")
+        for _ in range(self._R):
+            for group in pool:
+                _append_group(padded, group)
+        # the padded circuit is itself UCC-family (pool groups repeated R
+        # times, parameter k <-> excitation k): the sector can take it
+        excs = getattr(ansatz, "_ucc_excitations", None)
+        if excs is not None and len(excs) == self._P:
+            padded._ucc_excitations = list(excs) * self._R
+            padded._ucc_initial_state = initial
         super().__init__(num_spin_orbitals, padded, **kwargs)
         self.gradient_threshold = gradient_threshold
         self.eigenvalue_threshold = eigenvalue_threshold
@@ -983,8 +1192,9 @@ class FusedOptOrbAdaptVQE(FusedOptOrbVQE):
                       for t in (self.gradient_threshold,
                                 self.eigenvalue_threshold))
         run_adapt, extract_rdms = _adapt_stage_fns(
-            self._sector, self._R, self._P, self.vqe_maxiter, self.dtype,
-            *thresholds, ftol=self.vqe_ftol, stats=stats)
+            self._sector, self._compiled, self.num_spin_orbitals // 2,
+            self._R, self._P, self.vqe_maxiter, self.dtype, *thresholds,
+            ftol=self.vqe_ftol, stats=stats)
         masks = []
 
         def solve(_, h_act, g_act):

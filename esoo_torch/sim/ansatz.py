@@ -1,24 +1,41 @@
-"""UCC ansatz descriptors for the particle-number-sector simulator.
+"""Ansatz circuit library (host).
 
-The port has no circuit objects yet (the full-space simulator is a later
-slice).  What the sector simulator reads from a UCC circuit of the JAX
-package — its excitation list, its Hartree-Fock occupation and its
-encoding — is carried here by two small descriptors:
+The port's copy of esoo_tpu/sim/ansatz.py: the qiskit / qiskit-nature
+circuit pieces the reference relies on, built as `sim.circuit`
+circuits:
+  - HartreeFock initial state (and `OccupationState`, any X-only
+    occupation preparation)
+  - UCCSD / UCC (excitation-based chemistry ansatz; generators mapped by JW
+    or a linear mapper and implemented as exact products of commuting
+    Pauli rotations)
+  - RealAmplitudes / EfficientSU2 / TwoLocal hardware-efficient circuits
 
-  * `HartreeFock(n, (na, nb))`  -> `OccupationState` with the HF bitmask;
-  * `UCCSD(n, (na, nb), initial_state=...)` -> `UCCAnsatz` with
-    `_ucc_excitations`, `_ucc_initial_state`, `num_parameters` and
-    `_encoding = 'jw'`, the attributes `sim.sector.SectorUCC` consumes.
-
-`hartree_fock_bitmask` and `generate_excitations` are copies of
-esoo_tpu/sim/ansatz.py: the excitation order defines the parameter order.
+UCCSD exactness note: the JW image of a single anti-Hermitian excitation
+generator T - T^dagger is i * sum_k w_k P_k with all P_k mutually commuting,
+so exp(theta (T - T+)) equals the *product* of the individual Pauli
+rotations — no Trotter error within one excitation (same construction qiskit
+uses).  Ordering between excitations matches the enumeration order below,
+and defines the parameter order the sector simulator (sim/sector.py)
+reads from `_ucc_excitations`.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import itertools
+import math
 from typing import Optional, Tuple
+
+from ..ops.fermion import FermionicOp
+from ..ops.jw import JordanWignerMapper
+from .circuit import QuantumCircuit
+
+
+def _encoding_of(mapper) -> str:
+    """Encoding tag for circuits: 'jw' iff amplitudes are in the occupation
+    basis (the assumption behind every direct-RDM / sector fast path)."""
+    if mapper is None or isinstance(mapper, JordanWignerMapper):
+        return "jw"
+    return type(mapper).__name__.lower()
 
 
 def hartree_fock_bitmask(num_spatial_orbitals: int,
@@ -34,13 +51,46 @@ def hartree_fock_bitmask(num_spatial_orbitals: int,
     return mask
 
 
+def HartreeFock(num_spatial_orbitals: int, num_particles: Tuple[int, int],
+                qubit_mapper=None) -> QuantumCircuit:
+    """X-gate preparation of the HF determinant (cf. qiskit-nature HartreeFock).
+
+    For linear-encoding mappers (parity / Bravyi-Kitaev, ops/mappers.py) the
+    occupation bitmask is re-encoded, matching qiskit-nature's mapper-aware
+    HartreeFock behavior."""
+    nq = 2 * num_spatial_orbitals
+    qc = QuantumCircuit(nq)
+    mask = hartree_fock_bitmask(num_spatial_orbitals, num_particles)
+    if qubit_mapper is not None and hasattr(qubit_mapper, "encode_mask"):
+        mask = qubit_mapper.encode_mask(mask, nq)
+    for q in range(nq):
+        if (mask >> q) & 1:
+            qc.x(q)
+    qc._encoding = _encoding_of(qubit_mapper)
+    return qc
+
+
+def OccupationState(num_qubits: int, mask: int) -> QuantumCircuit:
+    """X-gate preparation of the occupation-basis state |mask> (the form
+    of an initial state the sector simulator reads; JW encoding)."""
+    qc = QuantumCircuit(num_qubits)
+    for q in range(num_qubits):
+        if (int(mask) >> q) & 1:
+            qc.x(q)
+    qc._encoding = "jw"
+    return qc
+
+
 def generate_excitations(num_spatial_orbitals: int,
                          num_particles: Tuple[int, int],
                          excitations: str = "sd",
                          generalized: bool = False):
-    """Spin-conserving excitation list: [(occ_tuple, virt_tuple), ...] in
-    spin-orbital indices (alpha block first).  Singles preserve spin;
-    doubles preserve total Sz."""
+    """Spin-conserving excitation list.
+
+    Returns list of (occ_tuple, virt_tuple) in spin-orbital indices
+    (alpha block first).  Mirrors qiskit-nature's default UCC behavior:
+    singles preserve spin; doubles preserve total Sz.
+    """
     n = num_spatial_orbitals
     na, nb = num_particles
     occ_a = list(range(na))
@@ -77,69 +127,134 @@ def generate_excitations(num_spatial_orbitals: int,
     return out
 
 
-@dataclasses.dataclass(frozen=True)
-class OccupationState:
-    """An occupation-basis (X-gates-only) preparation: its bitmask."""
-    num_qubits: int
-    mask: int
-    _encoding: str = "jw"
-
-
-def HartreeFock(num_spatial_orbitals: int,
-                num_particles: Tuple[int, int],
-                qubit_mapper=None) -> OccupationState:
-    """The Hartree-Fock determinant as an occupation state."""
-    _check_mapper(qubit_mapper)
-    return OccupationState(
-        2 * num_spatial_orbitals,
-        hartree_fock_bitmask(num_spatial_orbitals, num_particles))
-
-
-@dataclasses.dataclass(frozen=True)
-class UCCAnsatz:
-    """prod_k exp(theta_k (T_k - T_k^+)) over `_ucc_excitations`, applied
-    to `_ucc_initial_state`: the data the sector simulator needs."""
-    num_qubits: int
-    _ucc_excitations: tuple
-    _ucc_initial_state: Optional[OccupationState] = None
-    _encoding: str = "jw"
-
-    @property
-    def num_parameters(self) -> int:
-        return len(self._ucc_excitations)
-
-
-def _check_mapper(qubit_mapper) -> None:
-    if qubit_mapper is not None:
-        raise NotImplementedError(
-            "only the Jordan-Wigner encoding (qubit_mapper=None) is ported; "
-            "qubit mappers come with the full-space simulator, not "
-            "ported yet")
-
-
 def UCC(num_spatial_orbitals: int,
         num_particles: Tuple[int, int],
         excitations: str = "sd",
-        qubit_mapper=None,
-        initial_state: Optional[OccupationState] = None,
+        qubit_mapper: Optional[JordanWignerMapper] = None,
+        initial_state: Optional[QuantumCircuit] = None,
         reps: int = 1,
-        generalized: bool = False) -> UCCAnsatz:
-    """Unitary coupled-cluster ansatz descriptor (parameter k <->
-    excitation k of the `reps`-fold repeated list); the signature of
-    esoo_tpu.sim.UCC."""
-    _check_mapper(qubit_mapper)
+        generalized: bool = False) -> QuantumCircuit:
+    """Unitary coupled-cluster ansatz: prod_k exp(theta_k (T_k - T_k+))."""
+    nq = 2 * num_spatial_orbitals
+    mapper = qubit_mapper if qubit_mapper is not None \
+        else JordanWignerMapper()
+    qc = QuantumCircuit(nq)
+    if initial_state is not None:
+        qc = initial_state.copy()
+        if qc.num_parameters:
+            raise ValueError("initial_state must be parameter free")
+
     excs = generate_excitations(num_spatial_orbitals, num_particles,
                                 excitations, generalized)
-    return UCCAnsatz(2 * num_spatial_orbitals, tuple(excs) * reps,
-                     initial_state)
+    pool = []          # rotation groups, one per (rep, excitation)
+    for _ in range(reps):
+        for occ, vir in excs:
+            theta = qc.parameter()
+            group = excitation_rotation_group(occ, vir, nq, mapper)
+            pool.append(group)
+            for x, z, w in group:
+                # exp(i theta w P) == exp(-i (-2 w theta)/2 P)
+                qc.pauli_rot(theta * (-2.0 * w), x, z)
+    # metadata consumed by AdaptVQE (operator pool + excitation labels)
+    qc._ucc_pool = pool
+    qc._ucc_excitations = excs * reps
+    qc._ucc_initial_state = initial_state
+    # amplitudes are occupation-basis only under JW; direct-RDM/sector
+    # consumers check this tag (a parity/BK-mapped UCC state must go
+    # through per-Pauli measurement, cf. base.py rdm_measurement guard)
+    qc._encoding = _encoding_of(mapper)
+    if initial_state is not None:
+        init_enc = getattr(initial_state, "_encoding", "jw")
+        if init_enc != qc._encoding:
+            raise ValueError(
+                f"initial_state encoding {init_enc!r} does not match the "
+                f"UCC mapper encoding {qc._encoding!r}")
+    return qc
+
+
+def excitation_rotation_group(occ, vir, num_qubits: int,
+                              mapper: Optional[JordanWignerMapper] = None):
+    """JW image of T - T+ for one excitation as [(x, z, w), ...], w real.
+
+    exp(theta (T - T+)) = prod_k exp(i theta w_k P_k) exactly (commuting set).
+    """
+    mapper = mapper or JordanWignerMapper()
+    ops = " ".join(f"+_{a}" for a in vir) + " " + \
+          " ".join(f"-_{i}" for i in reversed(occ))
+    T = FermionicOp({ops: 1.0}, num_qubits)
+    gen = T - T.adjoint()
+    pauli = mapper.map(gen)      # = i * sum_k w_k P_k with real w_k
+    group = []
+    for x, z, c in zip(pauli.xs, pauli.zs, pauli.coeffs):
+        if abs(c.real) > 1e-12:
+            # every linear encoding (JW/parity/BK) keeps the image of an
+            # anti-Hermitian generator purely imaginary; a real residue
+            # means the supplied mapper is inconsistent
+            raise ValueError(
+                "mapper produced a non-imaginary excitation-generator "
+                f"coefficient {c}; cannot build exact rotation product")
+        w = c.imag
+        if abs(w) > 1e-14:
+            group.append((x, z, w))
+    return group
 
 
 def UCCSD(num_spatial_orbitals: int,
           num_particles: Tuple[int, int],
           qubit_mapper=None,
-          initial_state: Optional[OccupationState] = None,
+          initial_state: Optional[QuantumCircuit] = None,
           reps: int = 1,
-          generalized: bool = False) -> UCCAnsatz:
-    """UCC with singles and doubles."""
+          generalized: bool = False) -> QuantumCircuit:
     return UCC(num_spatial_orbitals, num_particles, "sd", qubit_mapper,
                initial_state, reps, generalized)
+
+
+def _entangler_pairs(num_qubits: int, entanglement: str):
+    if entanglement == "linear":
+        return [(i, i + 1) for i in range(num_qubits - 1)]
+    if entanglement == "reverse_linear":
+        return [(i, i + 1) for i in range(num_qubits - 2, -1, -1)]
+    if entanglement == "circular":
+        pairs = [(num_qubits - 1, 0)] if num_qubits > 2 else []
+        return pairs + [(i, i + 1) for i in range(num_qubits - 1)]
+    if entanglement == "full":
+        return list(itertools.combinations(range(num_qubits), 2))
+    raise ValueError(f"unknown entanglement {entanglement!r}")
+
+
+def TwoLocal(num_qubits: int,
+             rotation_blocks="ry",
+             entanglement_blocks="cx",
+             entanglement: str = "full",
+             reps: int = 3,
+             skip_final_rotation_layer: bool = False) -> QuantumCircuit:
+    """Layered rotation + entanglement circuit (cf. qiskit TwoLocal)."""
+    if isinstance(rotation_blocks, str):
+        rotation_blocks = [rotation_blocks]
+    qc = QuantumCircuit(num_qubits)
+
+    def rotation_layer():
+        for name in rotation_blocks:
+            for q in range(num_qubits):
+                getattr(qc, name)(qc.parameter(), q)
+
+    pairs = _entangler_pairs(num_qubits, entanglement)
+    for _ in range(reps):
+        rotation_layer()
+        for (a, b) in pairs:
+            getattr(qc, entanglement_blocks)(a, b)
+    if not skip_final_rotation_layer:
+        rotation_layer()
+    # rotation angles are 2*pi-periodic (qiskit TwoLocal exposes the same)
+    qc.parameter_bounds = [(-2 * math.pi, 2 * math.pi)] * qc.num_parameters
+    return qc
+
+
+def RealAmplitudes(num_qubits: int, reps: int = 3,
+                   entanglement: str = "reverse_linear") -> QuantumCircuit:
+    return TwoLocal(num_qubits, "ry", "cx", entanglement, reps)
+
+
+def EfficientSU2(num_qubits: int, reps: int = 3,
+                 entanglement: str = "reverse_linear") -> QuantumCircuit:
+    return TwoLocal(num_qubits, ["ry", "rz"], "cx", entanglement, reps)

@@ -45,16 +45,20 @@ def _apply_ladder_chain(dets: np.ndarray, occ: Sequence[int],
 
 
 def _initial_mask_from_circuit(circ) -> int:
-    """Occupation bitmask of an occupation-basis initial state (the
-    descriptor of sim.ansatz.HartreeFock)."""
+    """Occupation bitmask of an X-gates-only preparation circuit (the
+    HartreeFock and OccupationState circuits of sim.ansatz)."""
+    mask = 0
     if circ is None:
-        return 0
-    mask = getattr(circ, "mask", None)
-    if mask is None:
-        raise ValueError(
-            "sector simulation requires an occupation-basis initial state "
-            f"(an OccupationState); found {type(circ).__name__}")
-    return int(mask)
+        return mask
+    for gate in circ.gates:
+        if gate.name == "barrier":
+            continue
+        if gate.name != "x":
+            raise ValueError(
+                "sector simulation requires an occupation-basis initial "
+                f"state (X gates only); found '{gate.name}'")
+        mask ^= 1 << gate.qubits[0]
+    return mask
 
 
 def _device_rdm_maps(cache: dict, n: int, device, q_pad=None) -> tuple:

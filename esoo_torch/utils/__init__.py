@@ -1,3 +1,5 @@
-from .config import resolve_device
+from .config import (complex_dtype, precision_mode, real_dtype,
+                     resolve_device, set_precision)
 
-__all__ = ["resolve_device"]
+__all__ = ["complex_dtype", "precision_mode", "real_dtype",
+           "resolve_device", "set_precision"]

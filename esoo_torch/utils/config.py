@@ -1,12 +1,16 @@
-"""Device policy.
+"""Device and dtype policy.
 
 Entry points take `device=` (default "cuda") and `resolve_device` raises
-instead of falling back to the CPU.  The JAX package's dtype policy
-(esoo_tpu/utils/config.py precision_mode) has no reader in this package:
-its only reader there is the full-space simulator, not ported yet.
+instead of falling back to the CPU.  The dtype policy is the JAX
+package's (esoo_tpu/utils/config.py): float64/complex128 by default, with
+an opt-in 'fast' mode of float32/complex64.  Its only reader is the
+full-space statevector (sim/statevector.py), whose state dtype it sets
+where the caller gives none.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -20,3 +24,52 @@ def resolve_device(device) -> torch.device:
             f"device={str(device)!r} requested but torch.cuda.is_available() "
             "is False; pass device='cpu' to run on the host")
     return dev
+
+
+@dataclasses.dataclass
+class Precision:
+    real_dtype: torch.dtype = torch.float64
+    complex_dtype: torch.dtype = torch.complex128
+
+
+_MODES = {"high": Precision(torch.float64, torch.complex128),
+          "fast": Precision(torch.float32, torch.complex64)}
+_precision = _MODES["high"]
+
+
+def set_precision(mode: str = "high"):
+    """mode: 'high' (f64/c128) or 'fast' (f32/c64)."""
+    global _precision
+    if mode not in _MODES:
+        raise ValueError(f"unknown precision mode {mode!r}")
+    _precision = _MODES[mode]
+
+
+def real_dtype() -> torch.dtype:
+    return _precision.real_dtype
+
+
+def complex_dtype() -> torch.dtype:
+    return _precision.complex_dtype
+
+
+class precision_mode:
+    """Context manager: temporarily switch the dtype policy.
+
+    with precision_mode('fast'):   # f32/c64 statevectors
+        ...
+    """
+
+    def __init__(self, mode: str):
+        self.mode = mode
+
+    def __enter__(self):
+        global _precision
+        self._saved = _precision
+        set_precision(self.mode)
+        return self
+
+    def __exit__(self, *exc):
+        global _precision
+        _precision = self._saved
+        return False

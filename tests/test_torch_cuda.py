@@ -376,3 +376,67 @@ def test_ssvqe_h2_on_the_card_matches_the_cpu(card):
     np.testing.assert_allclose(runs[0], runs[1], rtol=0, atol=1e-8)
     np.testing.assert_allclose(runs[0], [-1.85403538, -1.37044354], rtol=0,
                                atol=1.5e-3)
+
+
+def test_one_pass_transform_at_the_full_space_shape(card):
+    """The H8 -> 12 full-space path's transform (m=112, n=6, float32):
+    the one-pass kernel with a 4-slab ring, one block an SM."""
+    m, n = 112, 6
+    assert gemm._transform_plan(m, n, 4) == ("fused", 4)
+    gen = torch.Generator(device=card).manual_seed(6)
+    g = torch.randn((m,) * 4, dtype=torch.float32, device=card,
+                    generator=gen)
+    u = torch.as_tensor(np.linalg.qr(np.random.default_rng(6).normal(
+        size=(m, n)))[0], device=card).float()
+    gemm.reset_launch_counts()
+    out = gemm.rotate_two_body_cuda(g, u)
+    torch.cuda.synchronize()
+    assert gemm.route_launch_counts() == {"fused": 2, "chain": 0}
+    _close(out, gemm.rotate_two_body_plain(g, u))
+
+
+@pytest.mark.parametrize("name", ["real_amplitudes", "efficient_su2",
+                                  "uccsd_h8_12"])
+def test_full_space_statevector_and_gradient_match_the_cpu(card, name):
+    """The statevector and d rdm_energy / d theta of the full-space
+    simulator on the card against its CPU run, float64 (1e-12, 1e-10)."""
+    import esoo_torch as T
+    from esoo_torch.orbital_optimization.kernels import expand_spin_tensors
+    from esoo_torch.sim import compile_circuit, rdm_energy
+    qc = {"real_amplitudes": lambda: T.RealAmplitudes(4),
+          "efficient_su2": lambda: T.EfficientSU2(4),
+          "uccsd_h8_12": lambda: T.UCCSD(
+              6, (4, 4), initial_state=T.HartreeFock(6, (4, 4)))}[name]()
+    rng = np.random.default_rng(12)
+    theta = rng.normal(size=qc.num_parameters) * 0.1
+    n = qc.num_qubits // 2
+    h = rng.normal(size=(n, n))
+    h_so, g_so = expand_spin_tensors(torch.as_tensor((h + h.T) / 2),
+                                     torch.as_tensor(rng.normal(
+                                         size=(n,) * 4) * 0.1))
+    out = []
+    for dev in (card, torch.device("cpu")):
+        t = torch.as_tensor(theta, device=dev).requires_grad_(True)
+        state = compile_circuit(qc).state_fn(t)
+        rdm_energy(state, h_so.to(dev), g_so.to(dev)).backward()
+        out.append((state.detach().cpu(), t.grad.cpu()))
+    assert float((out[0][0] - out[1][0]).abs().max()) <= 1e-12
+    assert float((out[0][1] - out[1][1]).abs().max()) <= 1e-10
+
+
+def test_full_space_h2_on_the_card_matches_the_cpu(card):
+    from esoo_torch import FusedOptOrbVQE, HartreeFock, UCCSD
+    from esoo_torch.chem import MoleculeDriver
+    p = MoleculeDriver(atom="H 0 0 0; H 0 0 0.735", basis="6-31g").run()
+    runs = []
+    for device in ("cuda", "cpu"):
+        gemm.reset_launch_counts()
+        solver = FusedOptOrbVQE(
+            4, UCCSD(2, (1, 1), initial_state=HartreeFock(2, (1, 1))),
+            problem=p, simulation="full", device=device)
+        assert solver.simulation == "full"
+        runs.append(solver.compute_minimum_energy().eigenvalue)
+        if device == "cuda":
+            assert gemm.launch_counts()["gemm.rotate_two_body_cuda"] > 0
+    assert abs(runs[0] - runs[1]) <= 1e-8
+    assert abs(runs[0] + 1.8661038079694765) <= 5e-4

@@ -38,6 +38,7 @@ import esoo_torch.initializations as TI
 from esoo_torch import (FusedOptOrbAdaptVQE, FusedOptOrbMCVQE,
                         FusedOptOrbSSVQE, FusedOptOrbVQD, HartreeFock,
                         OccupationState, UCCSD)
+from esoo_torch.ops import BravyiKitaevMapper, ParityMapper
 from esoo_torch.sim.sector import SectorUCC
 
 jax.config.update("jax_enable_x64", True)
@@ -359,22 +360,26 @@ def test_error_paths(h2_631g, monkeypatch):
     with pytest.raises(ValueError, match="one ansatz per state"):
         FusedOptOrbVQD(4, [ansatz], initial_states=[hf, hf],
                        problem=h2_631g, device="cpu")
-    with pytest.raises(NotImplementedError, match="full-space simulator"):
+    # per-state ansatz lists run on the full statevector (the sector
+    # compiles one excitation table)
+    assert FusedOptOrbVQD(4, [ansatz, ansatz], initial_states=[hf, hf],
+                          problem=h2_631g,
+                          device="cpu").simulation == "full"
+    with pytest.raises(ValueError, match="simulation='full'"):
         FusedOptOrbVQD(4, [ansatz, ansatz], initial_states=[hf, hf],
-                       problem=h2_631g, device="cpu")
-    # a determinant of another (na, nb) sector
+                       problem=h2_631g, simulation="sector", device="cpu")
+    # a determinant of another (na, nb) sector: 'auto' falls back to the
+    # full statevector, as in the JAX package
     outside = [hf, OccupationState(4, 0b0111)]
     with pytest.raises(ValueError, match="outside"):
         ssvqe(initial_states=outside, simulation="sector")
-    with pytest.raises(NotImplementedError, match="full-space simulator"):
-        ssvqe(initial_states=outside)
-    import dataclasses
+    assert ssvqe(initial_states=outside).simulation == "full"
     with pytest.raises(ValueError, match="Jordan-Wigner"):
-        ssvqe(ansatz=dataclasses.replace(ansatz, _encoding="parity"))
+        ssvqe(ansatz=UCCSD(2, (1, 1), reps=2, qubit_mapper=ParityMapper()))
     with pytest.raises(ValueError, match="Jordan-Wigner"):
-        ssvqe(initial_states=[dataclasses.replace(hf, _encoding="bk")])
-    with pytest.raises(NotImplementedError, match="full-space simulator"):
-        ssvqe(simulation="full")
+        ssvqe(initial_states=[HartreeFock(2, (1, 1),
+                                          qubit_mapper=BravyiKitaevMapper())])
+    assert ssvqe(simulation="full").simulation == "full"
     with pytest.raises(NotImplementedError, match="sharding"):
         ssvqe(mesh=object())
     with pytest.raises(ValueError, match="dispatch"):

@@ -173,9 +173,9 @@ def test_float32_run_on_carried_tensors(h2_631g):
 def test_options_outside_the_slice_raise(h2_631g):
     with pytest.raises(NotImplementedError):
         _port(h2_631g, mesh=object())
-    with pytest.raises(NotImplementedError):
-        _port(h2_631g, simulation="full")
-    with pytest.raises(NotImplementedError):
+    # the full-space simulator is ported: simulation='full' is taken
+    assert _port(h2_631g, simulation="full").simulation == "full"
+    with pytest.raises(TypeError):
         FusedOptOrbVQE(4, object(), problem=h2_631g, device="cpu")
     with pytest.raises(ValueError):
         _port(h2_631g, vqe_chunk=2)
@@ -198,18 +198,24 @@ def test_cuda_without_a_card_raises(h2_631g, monkeypatch):
 
 def test_port_imports_neither_jax_nor_esoo_tpu():
     """Import every module of esoo_torch in a fresh interpreter and check
-    that neither jax nor esoo_tpu was loaded."""
+    that neither jax nor esoo_tpu was loaded; the full-space simulator and
+    the operator algebra are among them."""
     code = (
         "import pkgutil, sys, importlib\n"
-        "import esoo_torch\n"
+        "import esoo_torch, esoo_torch.sim, esoo_torch.ops\n"
+        "import esoo_torch.sim.statevector\n"
         "names = [m.name for m in pkgutil.walk_packages(esoo_torch.__path__,"
         " 'esoo_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
+        "want = {'esoo_torch.' + n for n in ('sim.circuit', 'sim.ansatz',"
+        " 'sim.statevector', 'sim.rdm', 'sim.estimator', 'ops.pauli',"
+        " 'ops.fermion', 'ops.jw', 'ops.mappers', 'ops.hamiltonian')}\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or"
         " m.startswith(('jax.', 'jaxlib', 'esoo_tpu')))\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 15 else 0)\n")
+        "print(len(names), bad, sorted(want - set(names)))\n"
+        "sys.exit(1 if bad or want - set(names) or len(names) < 25"
+        " else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr

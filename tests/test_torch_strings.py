@@ -18,6 +18,7 @@ from esoo_tpu.sim.sector import SectorUCC as JSector
 from esoo_torch.convert import string_tables_from_numpy
 from esoo_torch.initializations.ci import enumerate_determinants
 from esoo_torch.sim import HartreeFock, UCCSD, ansatz as TA
+from esoo_torch.ops import ParityMapper
 from esoo_torch.sim import strings as TS
 from esoo_torch.sim.sector import SectorUCC
 
@@ -216,5 +217,11 @@ def test_sector_rejects_what_is_not_ported():
         SectorUCC(ansatz, 4, kernel="pairs")
     with pytest.raises(ValueError):
         SectorUCC(object(), 4)
-    with pytest.raises(NotImplementedError):
-        UCCSD(2, (1, 1), qubit_mapper="parity")
+    # a parity-mapped circuit is built, and the sector refuses it (its
+    # amplitudes are not in the occupation basis)
+    parity = UCCSD(2, (1, 1), qubit_mapper=ParityMapper(),
+                   initial_state=HartreeFock(2, (1, 1),
+                                             qubit_mapper=ParityMapper()))
+    assert parity._encoding == "paritymapper"
+    with pytest.raises(ValueError, match="Jordan-Wigner"):
+        SectorUCC(parity, 4)

@@ -63,7 +63,8 @@ def _assert_close(out, ref):
 
 
 @pytest.mark.parametrize("blocks", [1, 5, H100_BLOCKS])
-@pytest.mark.parametrize("m,n", [(9, 3), (8, 4), (4, 2), (12, 8), (7, 1)])
+@pytest.mark.parametrize("m,n", [(9, 3), (8, 4), (4, 2), (12, 8), (7, 1),
+                                 (14, 6)])
 def test_block_decomposition_matches_jax(m, n, blocks):
     g, u = _inputs(m, n, seed=10 * m + n)
     out = _emulate(torch.as_tensor(g), torch.as_tensor(u), blocks)
@@ -118,6 +119,24 @@ def test_plan_at_the_headline_shape(itemsize, stages, slab):
     assert smem <= gemm._SMEM_TWO_BLOCKS
     assert gemm._transform_smem(m, n, itemsize, stages + 1) > \
         gemm._SMEM_TWO_BLOCKS
+
+
+@pytest.mark.parametrize("itemsize,plan", [(4, ("fused", 4)),
+                                           (8, ("chain", 0))])
+def test_plan_at_the_full_space_shape(itemsize, plan):
+    """m = 112, n = 6 (the H8 -> 12 full-space path): float32 takes the
+    one-pass kernel with a 4-slab ring of 112 x 112 slabs, one block an
+    SM (222,720 bytes of the 227 KB); float64 fits no 2-slab ring and
+    takes the chain."""
+    m, n = 112, 6
+    assert gemm._transform_plan(m, n, itemsize) == plan
+    smem = gemm._transform_smem(m, n, itemsize, 4)
+    assert smem == itemsize * (4 * m * m + m * 8 + 256 * 16 + 8 ** 3)
+    if itemsize == 4:
+        assert gemm._SMEM_TWO_BLOCKS < smem <= gemm._SMEM_LIMIT
+        assert gemm._transform_smem(m, n, 4, 5) > gemm._SMEM_LIMIT
+    else:
+        assert gemm._transform_smem(m, n, 8, 2) > gemm._SMEM_LIMIT
 
 
 @pytest.mark.parametrize("itemsize,stride", [(4, 84), (8, 82)])
