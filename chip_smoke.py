@@ -78,6 +78,24 @@ Phases, one JSON line each:
             and the H8 -> 12 UCCSD circuit against the CPU's (1e-12);
             the Estimator on H2 STO-3G; rdm_energy against the hand
             contraction of one_rdm and two_rdm;
+  optorb    the reference library's own class-based API, float64: (a)
+            examples/H4_OptOrbVQE.py's configuration on the main path's
+            H4 cc-pVTZ problem (m=56 -> 8; OptOrbVQE over VQE(Estimator(),
+            UCCSD from HF, L_BFGS_B()), zero start,
+            PartialUnitaryProjectionOptimizer(1e-3, 1e-5, 10000), maxiter
+            20) with the launch counts zeroed before and read after;
+            gates: E within 1e-5 of the JAX package's class-path energy
+            JAX_H4_OPTORB_F64 and within 1e-4 of -4.0408844, two one-pass
+            transform launches per rotated Hamiltonian; E, the outer
+            trace, the solve's wall, result.metrics, the cost-function
+            evaluations per outer iteration, BB iterations, peak memory,
+            one cost-function evaluation's wall and device ms; (b) on H2
+            6-31G -> 4 OptOrbVQE (direct and per-Pauli RDMs),
+            OptOrbAdaptVQE, OptOrbSSVQE, OptOrbMCVQE and OptOrbVQD, each
+            within 1.5e-3 of the BASELINE.md anchors and 1e-8 of the
+            port's CPU run; (c) the reference README's H2 cc-pVTZ -> 4
+            OptOrbVQE within 1e-6 of the JAX package's energy, printed
+            beside the published one;
   chem      the chemistry past hydrogen, two more main paths, each RHF
             with the two N 1s cores frozen (active_space()) and
             FusedOptOrbCASSCF at f32, the launch counts zeroed before the
@@ -198,6 +216,22 @@ BENCH_R02_H8_12 = -10.1839046
 # JAX package's float64 energy on the CPU (tests/test_torch_full.py holds
 # the port's CPU run to it at 1e-8)
 H2_FALLBACK_JAX_F64 = -1.846778352577036
+
+# the class-based path (the `optorb` phase): examples/H4_OptOrbVQE.py's
+# configuration through the reference API (OptOrbVQE over VQE(Estimator(),
+# UCCSD(4, (2, 2)) from HF, L_BFGS_B()) with a zero start,
+# PartialUnitaryProjectionOptimizer(1e-3, 1e-5, 10000), maxiter 20,
+# wavefuntion_real and spin_conserving, float64) on H4 cc-pVTZ m=56 -> 8,
+# and the reference README's H2 cc-pVTZ -> 4: the JAX package's class-path
+# energies at those settings on the CPU (tests/test_torch_optorb.py's slow
+# case recomputes both)
+JAX_H4_OPTORB_F64 = -4.040882305949296
+H4_OPTORB_TOL = 1e-5
+JAX_H2_TZ_OPTORB_F64 = -1.8711467207110213
+H2_TZ_OPTORB_TOL = 1e-6
+# the reference README's published H2 cc-pVTZ OptOrbVQE energy
+# (BASELINE.md, bench.py:71): printed beside E, not gated
+PUBLISHED_H2_TZ = -1.8712471686505392
 
 # the narrow K1 kernel's check shapes (M, K, N), x^T y with x (K, M): N
 # from 1 to 16; M ragged against a tile and not a multiple of 4; K of one
@@ -951,6 +985,22 @@ def phase_main_path():
     return launches, problem
 
 
+def busy_share(fn) -> tuple:
+    """(wall seconds, device-busy seconds) of one call of `fn`, the device
+    time summed over the kernels and copies torch.profiler records (CUDA
+    activity only, so the host's own profiling adds little to the
+    wall)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall, sum(t for _, t in _device_events(prof)) / 1e6
+
+
 def phase_profile(problem) -> None:
     """Device busy share and time by kernel over one warm main-path run."""
     import torch
@@ -1347,7 +1397,6 @@ def phase_full(problem) -> dict:
     evaluation's wall, device time and launches at the final state, and
     the card's busy share over a one-outer-iteration solve."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from esoo_torch.ops import gemm
     from esoo_torch.orbital_optimization import kernels as K
     from esoo_torch.orbital_optimization.stiefel import value_and_grad
@@ -1399,13 +1448,7 @@ def phase_full(problem) -> dict:
     # the card's busy share over a one-outer-iteration solve (a whole
     # solve would hold a million profiler events)
     window = _full_solver(problem, "full", f32, dev, maxiter=1)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        window.compute_minimum_energy()
-        torch.cuda.synchronize()
-        window_s = time.perf_counter() - t0
-    busy_s = sum(t for _, t in _device_events(prof)) / 1e6
+    window_s, busy_s = busy_share(window.compute_minimum_energy)
 
     solves = r.outer_iterations + 1            # the loop's and the tail's
     failed = []
@@ -1868,6 +1911,197 @@ def _parity_full(problem) -> None:
         raise AssertionError("full-space parity failed: " + "; ".join(failed))
 
 
+def _class_optorbvqe(problem, n_act: int, device: str, **kw):
+    """OptOrbVQE through the class API at examples/H4_OptOrbVQE.py's
+    settings (float64, the dtype policy's default)."""
+    import numpy as np
+
+    import esoo_torch as T
+    parts = problem.num_particles
+    ansatz = T.UCCSD(n_act, parts,
+                     initial_state=T.HartreeFock(n_act, parts))
+    vqe = T.VQE(T.Estimator(device=device), ansatz, T.L_BFGS_B(),
+                initial_point=np.zeros(ansatz.num_parameters), device=device)
+    return T.OptOrbVQE(
+        num_spin_orbitals=2 * n_act, ground_state_solver=vqe,
+        partial_unitary_optimizer=T.PartialUnitaryProjectionOptimizer(
+            1e-3, 1e-5, 10000, device=device),
+        problem=problem, maxiter=20, wavefuntion_real=True,
+        spin_conserving=True, device=device, **kw)
+
+
+def _class_h2_runs(h2, device: str) -> dict:
+    """The class-based family on H2 6-31G -> 4 at float64 on `device`:
+    the reference's tests/test_opt_orb*.py drives."""
+    import numpy as np
+
+    import esoo_torch as T
+    dk = {"device": device}
+
+    def pupo():
+        return T.PartialUnitaryProjectionOptimizer(1e-3, 1e-5, 10000, **dk)
+
+    def vqe(ansatz, **kw):
+        return T.VQE(T.Estimator(**dk), ansatz, T.L_BFGS_B(), **dk, **kw)
+
+    def hf_uccsd(**kw):
+        return T.UCCSD(2, (1, 1), initial_state=T.HartreeFock(2, (1, 1)),
+                       **kw)
+
+    def zeros(a):
+        return np.zeros(a.num_parameters)
+
+    init1 = T.QuantumCircuit(4)
+    init1.x(1)
+    init1.x(2)
+    common = dict(num_spin_orbitals=4, problem=h2, maxiter=20, **dk)
+    out = {}
+    for rdm in ("direct", "pauli"):
+        a = hf_uccsd()
+        out[f"vqe_{rdm}"] = [T.OptOrbVQE(
+            ground_state_solver=vqe(a, initial_point=zeros(a)),
+            partial_unitary_optimizer=pupo(), rdm_measurement=rdm,
+            spin_conserving=True, wavefuntion_real=True,
+            **common).compute_minimum_energy().eigenvalue]
+    out["adapt"] = [T.OptOrbAdaptVQE(
+        ground_state_solver=T.AdaptVQE(vqe(hf_uccsd())),
+        partial_unitary_optimizer=pupo(),
+        **common).compute_minimum_energy().eigenvalue]
+    a = T.UCCSD(2, (1, 1), reps=2)
+    out["ssvqe"] = list(T.OptOrbSSVQE(
+        excited_states_solver=T.SSVQE(
+            k=2, ansatz=a, optimizer=T.L_BFGS_B(),
+            initial_states=[T.HartreeFock(2, (1, 1)), init1],
+            weight_vector=[2, 1], initial_point=zeros(a), **dk),
+        partial_unitary_optimizer=pupo(), **common).compute_energies(
+    ).eigenvalues)
+    out["mcvqe"] = list(T.OptOrbMCVQE(
+        excited_states_solver=T.MCVQE(
+            k=2, ansatz=a, optimizer=T.L_BFGS_B(), num_particles=(1, 1),
+            excitations="s", initial_point=zeros(a), **dk),
+        partial_unitary_optimizer=pupo(), **common).compute_energies(
+    ).eigenvalues)
+    ansatze = [T.UCCSD(2, (1, 1), initial_state=st, reps=2)
+               for st in (T.HartreeFock(2, (1, 1)), init1)]
+    out["vqd"] = list(T.OptOrbVQD(
+        excited_states_solver=T.VQD(
+            T.Estimator(**dk), T.ComputeUncompute(T.Sampler(**dk)), ansatze,
+            T.L_BFGS_B(), k=2, betas=[2, 2],
+            initial_point=[zeros(x) for x in ansatze], **dk),
+        partial_unitary_optimizer=pupo(), **common).compute_energies(
+    ).eigenvalues)
+    return {k: [float(e) for e in v] for k, v in out.items()}
+
+
+def phase_optorb(h4) -> dict:
+    """The class-based API on the card: (a) examples/H4_OptOrbVQE.py's
+    configuration on the main path's H4 cc-pVTZ problem (m=56 -> 8,
+    float64) with the launch counts zeroed before and read after; (b) the
+    class-based family on H2 6-31G -> 4 against the BASELINE.md anchors
+    and the port's CPU runs; (c) the reference README's H2 cc-pVTZ -> 4."""
+    import numpy as np
+    import torch
+
+    from esoo_torch.chem import MoleculeDriver
+    from esoo_torch.ops import gemm
+    from esoo_torch.solvers.energy import make_evaluators
+
+    failed = []
+    evals = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    solver = _class_optorbvqe(
+        h4, 4, "cuda",
+        outer_loop_callback=lambda it, res, orb: evals.append(
+            res.cost_function_evals))
+    gemm.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = solver.compute_minimum_energy()
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = gemm.launch_counts()
+    routes = gemm.route_launch_counts()
+    peak_mb = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 20
+    rebuilds = len(r.metrics["hamiltonian_time"])
+    E = float(r.eigenvalue)
+    if not abs(E - JAX_H4_OPTORB_F64) <= H4_OPTORB_TOL:
+        failed.append(f"E {E!r} not within {H4_OPTORB_TOL} of the JAX "
+                      f"package's {JAX_H4_OPTORB_F64}")
+    if not abs(E - H4_REFERENCE) <= H4_TOL:
+        failed.append(f"E {E!r} not within {H4_TOL} of {H4_REFERENCE}")
+    if not (launches["gemm.rotate_two_body_cuda"] > 0 and routes["chain"] == 0
+            and routes["fused"] == 2 * rebuilds):
+        failed.append(f"launches {launches}, routes {routes}: two one-pass "
+                      f"launches per rotated Hamiltonian ({rebuilds})")
+
+    # one cost-function evaluation at the final Hamiltonian and optimum:
+    # the sector gate scan and sigma, forward and backward, and the
+    # gradient's copy to the host for SciPy
+    _, vag = make_evaluators(solver.ground_state_solver_list[0].ansatz,
+                             solver._hamiltonian, "cuda")
+    theta = np.asarray(r.optimal_point)
+    vag(theta)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        vag(theta)
+    eval_wall_ms = (time.perf_counter() - t0) / 20 * 1e3
+    eval_ms, eval_events = device_profile(lambda: vag(theta))
+    # the card's busy share over one more (warm) solve
+    warm = _class_optorbvqe(h4, 4, "cuda")
+    warm_s, busy_s = busy_share(warm.compute_minimum_energy)
+    emit("optorb", problem="H4 cc-pVTZ m=56 -> 8 spin orbitals, OptOrbVQE "
+         "through the class API (examples/H4_OptOrbVQE.py: UCCSD from HF, "
+         "26 parameters, zero start, L_BFGS_B, PUPO(1e-3, 1e-5, 10000), "
+         "maxiter 20), f64", energy=E, jax_f64=JAX_H4_OPTORB_F64,
+         tolerance=[H4_OPTORB_TOL, H4_TOL], reference=H4_REFERENCE,
+         outer_trace=r.energy_convergence_list, solve_s=solve_s,
+         metrics=r.metrics, cost_function_evals=evals,
+         cost_function_evals_total=sum(evals),
+         bb_iterations=r.orbital_rotation_iterations,
+         peak_mb=peak_mb, launches=launches,
+         transform_route_launches=routes, hamiltonian_rebuilds=rebuilds,
+         cost_function_evaluation_wall_ms=eval_wall_ms,
+         cost_function_evaluation_device_ms=eval_ms,
+         cost_function_evaluation_device_events=eval_events,
+         warm_solve_s=warm_s, warm_device_busy_s=busy_s,
+         warm_device_busy_share=busy_s / warm_s, gates_failed=failed)
+    if failed:
+        raise AssertionError("optorb H4 gates failed: " + "; ".join(failed))
+
+    h2 = MoleculeDriver(atom=H2_GEOM, basis="6-31g").run()
+    anchors = {"vqe_direct": (H2_REFERENCE,), "vqe_pauli": (H2_REFERENCE,),
+               **H2_EXCITED_ANCHORS}
+    t0 = time.perf_counter()
+    card = _class_h2_runs(h2, "cuda")
+    card_s = time.perf_counter() - t0
+    cpu = _class_h2_runs(h2, "cpu")
+    for name, es in card.items():
+        if not (max(abs(a - b) for a, b in zip(es, cpu[name])) <= 1e-8
+                and all(abs(a - b) <= H2_ANCHOR_TOL
+                        for a, b in zip(es, anchors[name]))):
+            failed.append(f"{name}: card {es}, CPU {cpu[name]}, anchors "
+                          f"{anchors[name]}")
+    h2tz = MoleculeDriver(atom=H2_GEOM, basis="cc-pvtz").run()
+    t0 = time.perf_counter()
+    e_tz = float(_class_optorbvqe(h2tz, 2, "cuda").compute_minimum_energy()
+                 .eigenvalue)
+    tz_s = time.perf_counter() - t0
+    if not abs(e_tz - JAX_H2_TZ_OPTORB_F64) <= H2_TZ_OPTORB_TOL:
+        failed.append(f"H2 cc-pVTZ E {e_tz!r} not within {H2_TZ_OPTORB_TOL}"
+                      f" of the JAX package's {JAX_H2_TZ_OPTORB_F64}")
+    emit("optorb_h2", problem="H2 6-31G -> 4 (the class-based family) and "
+         "H2 cc-pVTZ -> 4 (OptOrbVQE), f64", card=card, cpu=cpu,
+         anchors=anchors, tolerance=[1e-8, H2_ANCHOR_TOL], card_s=card_s,
+         h2_cc_pvtz=e_tz, h2_cc_pvtz_jax_f64=JAX_H2_TZ_OPTORB_F64,
+         h2_cc_pvtz_published=PUBLISHED_H2_TZ, h2_cc_pvtz_s=tz_s,
+         gates_failed=failed)
+    if failed:
+        raise AssertionError("optorb H2 gates failed: " + "; ".join(failed))
+    return launches
+
+
 def _n2_casscf(basis: str, n_act: int, kw: dict, route: str):
     """N2 at `basis` (RHF, the automatic frozen core) and
     FusedOptOrbCASSCF(2 n_act) on it at float32, with the launch counts
@@ -2002,18 +2236,20 @@ def main() -> int:
     paths["vqe_h4"], problem = phase_main_path()
     phase_profile(problem)
     paths["ssvqe_h4"] = phase_excited(problem)
-    del problem
+    h4 = problem
     paths["casscf_h8_n28"], problem = phase_casscf()
     paths["casscf_h8_n32_compact"] = phase_compact(problem)
     paths["vqe_full_h8_n12"] = phase_full(problem)
     del problem
     phase_parity()
+    paths["optorbvqe_h4"] = phase_optorb(h4)
+    del h4
     paths.update(phase_chem())
 
     table = []
     # K2's source is the one-pass kernel for n <= 8 (the VQE and SSVQE
     # paths'); n > 8 keeps the four-launch chain of gemm.cu
-    sources = {"gemm.matmul": ("esoo_tpu/ops/pallas_kernels.py:80",
+    sources = {"gemm.matmul": ("esoo_tpu/ops/pallas_kernels.py:58",
                                "esoo_torch/csrc/gemm.cu", {}),
                "gemm.rotate_two_body_cuda": (
                    "esoo_tpu/ops/pallas_kernels.py:108",

@@ -20,21 +20,31 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-from .orbital_optimization import (FusedOptOrbAdaptVQE,  # noqa: E402
-                                   FusedOptOrbCASSCF,
-                                   FusedOptOrbEigensolverResult,
-                                   FusedOptOrbMCVQE, FusedOptOrbResult,
-                                   FusedOptOrbSACASSCF, FusedOptOrbSSVQE,
-                                   FusedOptOrbVQD, FusedOptOrbVQE)
-from .sim import (UCC, UCCSD, EfficientSU2, HartreeFock,  # noqa: E402
-                  OccupationState, QuantumCircuit, RealAmplitudes, SectorCI,
-                  TwoLocal)
+from .orbital_optimization import (  # noqa: E402
+    FusedOptOrbAdaptVQE, FusedOptOrbCASSCF, FusedOptOrbEigensolverResult,
+    FusedOptOrbMCVQE, FusedOptOrbResult, FusedOptOrbSACASSCF,
+    FusedOptOrbSSVQE, FusedOptOrbVQD, FusedOptOrbVQE, OptOrbAdaptVQE,
+    OptOrbMCVQE, OptOrbSSVQE, OptOrbVQD, OptOrbVQE,
+    PartialUnitaryProjectionOptimizer)
+from .sim import (UCC, UCCSD, ComputeUncompute,  # noqa: E402
+                  EfficientSU2, Estimator, HartreeFock, OccupationState,
+                  QuantumCircuit, RealAmplitudes, Sampler, SectorCI, TwoLocal)
+from .solvers import (ADAM, CG, COBYLA, L_BFGS_B,  # noqa: E402
+                      MCVQE, NELDER_MEAD, POWELL, SLSQP, SPSA, SSVQE, VQD,
+                      VQE, AdaptVQE, AlgorithmError, DeviceLBFGS,
+                      GradientDescent, Minimizer, Optimizer, OptimizerResult)
 
 __version__ = "0.1.0"
 
-__all__ = ["FusedOptOrbAdaptVQE", "FusedOptOrbCASSCF",
+__all__ = ["ADAM", "AdaptVQE", "AlgorithmError", "CG", "COBYLA",
+           "ComputeUncompute", "DeviceLBFGS", "EfficientSU2", "Estimator",
+           "FusedOptOrbAdaptVQE", "FusedOptOrbCASSCF",
            "FusedOptOrbEigensolverResult", "FusedOptOrbMCVQE",
            "FusedOptOrbResult", "FusedOptOrbSACASSCF", "FusedOptOrbSSVQE",
-           "FusedOptOrbVQD", "FusedOptOrbVQE", "EfficientSU2",
-           "HartreeFock", "OccupationState", "QuantumCircuit",
-           "RealAmplitudes", "SectorCI", "TwoLocal", "UCC", "UCCSD"]
+           "FusedOptOrbVQD", "FusedOptOrbVQE", "GradientDescent",
+           "HartreeFock", "L_BFGS_B", "MCVQE", "Minimizer", "NELDER_MEAD",
+           "OccupationState", "OptOrbAdaptVQE", "OptOrbMCVQE", "OptOrbSSVQE",
+           "OptOrbVQD", "OptOrbVQE", "Optimizer", "OptimizerResult",
+           "PartialUnitaryProjectionOptimizer", "POWELL", "QuantumCircuit",
+           "RealAmplitudes", "SLSQP", "SPSA", "SSVQE", "Sampler", "SectorCI",
+           "TwoLocal", "UCC", "UCCSD", "VQD", "VQE"]

@@ -6,8 +6,12 @@ The port imports nothing of `esoo_tpu`; what crosses is plain NumPy, e.g.
 `_weights`), or of a SectorUCC's `_str_tabs._asdict()`; a whole
 `esoo_tpu.chem` problem crosses as its fields (`problem_from_numpy`), a
 circuit as its gates (`circuit_from_gates`) and a Pauli operator as its
-masks and coefficients (`pauli_op_from_numpy`).  The parity tests feed
-both packages the same state this way.
+masks and coefficients (`pauli_op_from_numpy`).  The class-based solvers
+take the rest as the JAX package's own NumPy arrays: an initial point
+(`VQE(initial_point=...)`), a partial unitary
+(`initial_partial_unitary=`) and a checkpoint (`resume_from=`, the same
+.npz layout in both packages).  The parity tests feed both packages the
+same state this way.
 """
 
 from __future__ import annotations

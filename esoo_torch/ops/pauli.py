@@ -59,11 +59,14 @@ def pauli_mul(x1: int, z1: int, x2: int, z2: int) -> Tuple[int, int, complex]:
 class SparsePauliOp:
     """Weighted sum of Pauli strings over `num_qubits` qubits."""
 
-    __slots__ = ("num_qubits", "xs", "zs", "coeffs", "fermionic")
+    __slots__ = ("num_qubits", "xs", "zs", "coeffs", "fermionic",
+                 "_fermionic_tensors")
 
     def __init__(self, data, coeffs=None, num_qubits: int | None = None):
         """Accepts a label, list of labels, or (xs, zs) mask arrays."""
         self.fermionic = None  # optional (h, g) active-space tensors fast path
+        # the same (h, g) as device tensors, when an OptOrb solver made them
+        self._fermionic_tensors = None
         if isinstance(data, str):
             data = [data]
             if coeffs is None:

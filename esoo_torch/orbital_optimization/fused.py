@@ -300,7 +300,10 @@ def _attach_vqe_diagnostics(result, solver, theta):
 def _spatial_integrals(problem, integral_tensors, name: str):
     """Spatial (h, g) as NumPy arrays: from spin-orbital
     `integral_tensors` (spin-block structured), or from a problem's
-    spatial_integral_tensors() or integral_tensors()."""
+    spatial_integral_tensors() or integral_tensors() (a qiskit-nature
+    problem is adapted first, interop.py)."""
+    from ..interop import adapt
+    problem, _ = adapt(problem)
     if integral_tensors is not None:
         h_so, g_so = (np.asarray(a, dtype=np.float64)
                       for a in integral_tensors)

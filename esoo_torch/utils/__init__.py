@@ -1,5 +1,5 @@
-from .config import (complex_dtype, precision_mode, real_dtype,
-                     resolve_device, set_precision)
+from .config import (check_same_device, complex_dtype, precision_mode,
+                     real_dtype, resolve_device, same_device, set_precision)
 
-__all__ = ["complex_dtype", "precision_mode", "real_dtype",
-           "resolve_device", "set_precision"]
+__all__ = ["check_same_device", "complex_dtype", "precision_mode",
+           "real_dtype", "resolve_device", "same_device", "set_precision"]

@@ -33,6 +33,7 @@ from esoo_torch.convert import tensors_from_numpy
 from esoo_torch.orbital_optimization import casscf as TC
 from esoo_torch.sim import strings as TS
 from esoo_torch.solvers import davidson as TD
+from test_torch_engine import same_eri_engine  # noqa: F401
 
 jax.config.update("jax_enable_x64", True)
 

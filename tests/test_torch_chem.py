@@ -22,6 +22,7 @@ from esoo_torch.chem.integrals import IntegralEngine as TEngine
 from esoo_torch.convert import problem_from_numpy
 from esoo_tpu.chem import basis as JB, gbs as JG
 from esoo_tpu.chem.integrals import IntegralEngine as JEngine
+from test_torch_engine import same_eri_engine  # noqa: F401
 
 H2O_GEOM = ("O 0 0 0.1173; H 0 0.7572 -0.4692; H 0 -0.7572 -0.4692")
 H2S_GEOM = "S 0 0 0; H 0 0.9617 0.9269; H 0 -0.9617 0.9269"

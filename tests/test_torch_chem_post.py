@@ -19,6 +19,7 @@ import esoo_tpu.chem as JC
 from esoo_torch import FusedOptOrbCASSCF, FusedOptOrbSACASSCF
 from esoo_torch.chem import geometry as TGEO, properties as TP
 from esoo_tpu.chem import geometry as JGEO, properties as JP
+from test_torch_engine import same_eri_engine  # noqa: F401
 
 H2O_GEOM = "O 0 0 0.1173; H 0 0.7572 -0.4692; H 0 -0.7572 -0.4692"
 LIH_GEOM = "Li 0 0 0; H 0 0 1.5949"

@@ -440,3 +440,47 @@ def test_full_space_h2_on_the_card_matches_the_cpu(card):
             assert gemm.launch_counts()["gemm.rotate_two_body_cuda"] > 0
     assert abs(runs[0] - runs[1]) <= 1e-8
     assert abs(runs[0] + 1.8661038079694765) <= 5e-4
+
+
+def _class_optorb(kind, problem, device):
+    """The reference's H2 6-31G -> 4 class-path drive on `device`."""
+    import esoo_torch as T
+    dk = {"device": device}
+    pupo = T.PartialUnitaryProjectionOptimizer(1e-3, 1e-5, 10000, **dk)
+    if kind == "vqe":
+        ansatz = T.UCCSD(2, (1, 1), initial_state=T.HartreeFock(2, (1, 1)))
+        vqe = T.VQE(T.Estimator(**dk), ansatz, T.L_BFGS_B(),
+                    initial_point=np.zeros(ansatz.num_parameters), **dk)
+        return T.OptOrbVQE(num_spin_orbitals=4, ground_state_solver=vqe,
+                           partial_unitary_optimizer=pupo, problem=problem,
+                           maxiter=20, **dk).compute_minimum_energy()
+    ansatz = T.UCCSD(2, (1, 1), reps=2)
+    init1 = T.QuantumCircuit(4)
+    init1.x(1)
+    init1.x(2)
+    ss = T.SSVQE(k=2, ansatz=ansatz, optimizer=T.L_BFGS_B(),
+                 initial_states=[T.HartreeFock(2, (1, 1)), init1],
+                 weight_vector=[2, 1],
+                 initial_point=np.zeros(ansatz.num_parameters), **dk)
+    return T.OptOrbSSVQE(num_spin_orbitals=4, excited_states_solver=ss,
+                         partial_unitary_optimizer=pupo, problem=problem,
+                         maxiter=20, **dk).compute_energies()
+
+
+@pytest.mark.parametrize("kind", ["vqe", "ssvqe"])
+def test_class_optorb_h2_on_the_card_matches_the_cpu(card, kind):
+    """OptOrbVQE / OptOrbSSVQE through the class API: card against CPU
+    within 1e-8, the transform's launches all one-pass, two per rotated
+    Hamiltonian (`metrics["hamiltonian_time"]` has one entry per
+    rebuild)."""
+    from esoo_torch.chem import MoleculeDriver
+    p = MoleculeDriver(atom="H 0 0 0; H 0 0 0.735", basis="6-31g").run()
+    gemm.reset_launch_counts()
+    r_gpu = _class_optorb(kind, p, "cuda")
+    routes = gemm.route_launch_counts()
+    r_cpu = _class_optorb(kind, p, "cpu")
+    key = "eigenvalue" if kind == "vqe" else "eigenvalues"
+    np.testing.assert_allclose(getattr(r_gpu, key), getattr(r_cpu, key),
+                               rtol=0, atol=1e-8)
+    assert routes["chain"] == 0
+    assert routes["fused"] == 2 * len(r_gpu.metrics["hamiltonian_time"]) > 0

@@ -40,6 +40,7 @@ from esoo_torch import (FusedOptOrbAdaptVQE, FusedOptOrbMCVQE,
                         OccupationState, UCCSD)
 from esoo_torch.ops import BravyiKitaevMapper, ParityMapper
 from esoo_torch.sim.sector import SectorUCC
+from test_torch_engine import same_eri_engine  # noqa: F401
 
 jax.config.update("jax_enable_x64", True)
 

@@ -20,6 +20,7 @@ from esoo_tpu.orbital_optimization import (
 import esoo_torch as T
 import esoo_torch.ops as TO
 import esoo_torch.sim as TS
+from test_torch_engine import same_eri_engine  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 E_TOL = 1e-8

@@ -19,6 +19,7 @@ from esoo_torch import FusedOptOrbVQE, HartreeFock, UCCSD
 from esoo_torch.chem import MoleculeDriver
 from esoo_torch.convert import tensors_from_numpy
 from esoo_torch.utils import resolve_device
+from test_torch_engine import same_eri_engine  # noqa: F401
 
 REFERENCE = -1.8661038079694765     # tests/test_optorb_e2e.py (decimal 3)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -198,8 +199,8 @@ def test_cuda_without_a_card_raises(h2_631g, monkeypatch):
 
 def test_port_imports_neither_jax_nor_esoo_tpu():
     """Import every module of esoo_torch in a fresh interpreter and check
-    that neither jax nor esoo_tpu was loaded; the full-space simulator and
-    the operator algebra are among them."""
+    that neither jax nor esoo_tpu was loaded; the full-space simulator,
+    the operator algebra and the class-based solvers are among them."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import esoo_torch, esoo_torch.sim, esoo_torch.ops\n"
@@ -210,7 +211,18 @@ def test_port_imports_neither_jax_nor_esoo_tpu():
         "    importlib.import_module(n)\n"
         "want = {'esoo_torch.' + n for n in ('sim.circuit', 'sim.ansatz',"
         " 'sim.statevector', 'sim.rdm', 'sim.estimator', 'ops.pauli',"
-        " 'ops.fermion', 'ops.jw', 'ops.mappers', 'ops.hamiltonian')}\n"
+        " 'ops.fermion', 'ops.jw', 'ops.mappers', 'ops.hamiltonian',"
+        " 'interop', 'utils.debug', 'solvers.optimizers', 'solvers.energy',"
+        " 'solvers.vqe', 'solvers.ssvqe', 'solvers.mcvqe', 'solvers.vqd',"
+        " 'solvers.adapt_vqe', 'orbital_optimization.stiefel',"
+        " 'orbital_optimization.base',"
+        " 'orbital_optimization.minimum_eigensolver',"
+        " 'orbital_optimization.eigensolver',"
+        " 'orbital_optimization.opt_orb_vqe',"
+        " 'orbital_optimization.opt_orb_ssvqe',"
+        " 'orbital_optimization.opt_orb_mcvqe',"
+        " 'orbital_optimization.opt_orb_vqd',"
+        " 'orbital_optimization.opt_orb_adapt_vqe')}\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or"
         " m.startswith(('jax.', 'jaxlib', 'esoo_tpu')))\n"
         "print(len(names), bad, sorted(want - set(names)))\n"

@@ -22,6 +22,7 @@ from esoo_torch.ops import gemm
 from esoo_tpu.orbital_optimization import FusedOptOrbCASSCF as JCASSCF
 from esoo_tpu.orbital_optimization import kernels as JK
 from test_torch_transform import H100_BLOCKS, _emulate
+from test_torch_engine import same_eri_engine  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

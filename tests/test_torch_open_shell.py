@@ -20,6 +20,7 @@ from esoo_torch import FusedOptOrbCASSCF, FusedOptOrbVQE, HartreeFock, UCCSD
 from esoo_tpu.orbital_optimization import (FusedOptOrbCASSCF as JCASSCF,
                                            FusedOptOrbVQE as JVQE)
 from esoo_tpu.sim import HartreeFock as JHF, UCCSD as JUCCSD
+from test_torch_engine import same_eri_engine  # noqa: F401
 
 H3_GEOM = "H 0 0 0; H 0 0 0.9; H 0 0 1.8"
 

@@ -17,6 +17,7 @@ from esoo_tpu.ops import mappers as JM, pauli as JP
 import esoo_torch.ops as T
 from esoo_torch.convert import pauli_op_from_numpy
 from esoo_torch.ops import mappers as TM, pauli as TP
+from test_torch_engine import same_eri_engine  # noqa: F401
 
 COEFF_TOL = 1e-14
 H_TOL = 1e-12

@@ -31,6 +31,7 @@ from esoo_torch.ops import ActiveSpaceHamiltonianBuilder, SparsePauliOp
 from esoo_torch.orbital_optimization.kernels import expand_spin_tensors
 from esoo_torch.sim import rdm as TR
 from esoo_torch.utils import precision_mode
+from test_torch_engine import same_eri_engine  # noqa: F401
 
 TV = importlib.import_module("esoo_torch.sim.statevector")
 JV = sys.modules["esoo_tpu.sim.statevector"]

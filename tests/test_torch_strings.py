@@ -21,6 +21,7 @@ from esoo_torch.sim import HartreeFock, UCCSD, ansatz as TA
 from esoo_torch.ops import ParityMapper
 from esoo_torch.sim import strings as TS
 from esoo_torch.sim.sector import SectorUCC
+from test_torch_engine import same_eri_engine  # noqa: F401
 
 jax.config.update("jax_enable_x64", True)
 
