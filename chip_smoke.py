@@ -19,7 +19,10 @@ Phases, one JSON line each:
             and K1's stage 1 also at the N2 paths' (26, 8) and (58, 10);
             the one-pass transform at the full path's (112, 6) beside its
             bound, its plain version, the tensordot chain and the K1
-            chain;
+            chain; a mesh shard's partial transform (four K1 launches) at
+            the mesh phase's shard shapes, (112, 112, 112, 28) with n =
+            14 and (56, 56, 56, 14) with n = 4, beside its bound, its
+            plain version and the torch.matmul chain;
   main path FusedOptOrbVQE on H4 cc-pVTZ (m=56 -> 8 spin orbitals,
             UCCSD, f32) with the launch counts zeroed before and read
             after; energy gates against the reference values; per-step
@@ -114,7 +117,30 @@ Phases, one JSON line each:
             its f shells); both with the CASSCF gates of the
             casscf phase (E at or below the first outer energy, the final
             Davidson exit and residual, the float64 witness); `chem_s`
-            (host integrals, SCF, active space), `solve_s`, `eri_engine`.
+            (host integrals, SCF, active space), `solve_s`, `eri_engine`;
+  pairs     the pairwise sector kernels (SectorUCC kernel 'pairs'): (a)
+            FusedOptOrbVQE on H8 cc-pVTZ -> 12 as in the full phase, but
+            on the sector with ESOO_SECTOR_KERNEL=pairs, the launch
+            counts zeroed before and read after; gates: E within 5e-4 of
+            JAX_H8_12_FULL_F64 and of the string kernel's solve, the
+            one-pass transform only; one L-BFGS evaluation on each kernel
+            and the busy share; (b) `pairs_oracle`: H8 cc-pVTZ -> 16 (4,900
+            determinants, 360 parameters) at f64, pairs against strings
+            (state, energy, gradient, RDMs; 1e-10 relative) and the dense
+            Hamiltonian's lowest eigenvalue against SectorCI's Davidson
+            (1e-8); the structure scan cold and from its disk cache;
+  mesh      the orbital mesh over g: (a) FusedOptOrbCASSCF on H8 cc-pVTZ
+            -> 28 as in the casscf phase on a 4-shard mesh (four logical
+            shards on one card, or four cards), the launch counts zeroed
+            before and read after; gates: the casscf phase's (16 K1
+            launches a rotation on the shard route), the first outer
+            energy within 1e-5 of the unsharded one, and the sharded
+            rotation, BB energy and gradient at the unsharded optimum
+            against the unsharded ones; (b) `mesh_h4`: FusedOptOrbVQE and
+            the class-based OptOrbVQE on H4 cc-pVTZ -> 8 at f64 on the
+            mesh, each within 1e-6 of its unsharded run.
+`python3 chip_smoke.py --mesh-only` runs device, casscf, the optorb
+phase's H4 class solve and mesh alone (for a four-card machine).
 Then the kernel table line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises (non-zero exit, no
 result line); so does a machine without CUDA.  Imports nothing of JAX or
@@ -208,6 +234,16 @@ JAX_N2_TZ_20_F64 = -31.746012714748243
 H8_FULL_KW = dict(maxiter=10, stopping_tolerance=1e-5)
 JAX_H8_12_FULL_F64 = -10.183879808455526
 H8_FULL_TOL = 5e-4
+# the pairs phase: the H8 -> 12 solve on the pairwise kernels against
+# the JAX package's float64 energy and the string kernel's, and the
+# kernels' oracle at H8 -> 16 (pairs against strings, float64, relative)
+PAIRS_TOL = 5e-4
+PAIRS_ORACLE_TOL = 1e-10
+# the mesh phase: the sharded H8 -> 28 CASSCF's first outer energy
+# against the casscf phase's (f32, the same U0), and the H4 -> 8 float64
+# solves against their unsharded runs
+MESH_TOL = 1e-5
+MESH_F64_TOL = 1e-6
 # BENCH_r02.json's record of this configuration (the JAX package on a
 # TPU v5e, older code): printed beside E, not gated
 BENCH_R02_H8_12 = -10.1839046
@@ -242,6 +278,9 @@ NARROW_SHAPES = ([(729, 112, n) for n in (1, 4, 5, 8, 12, 14, 16)]
                  + [(729, 300, 5), (4098, 7, 14)])
 # stage 1 of the transform's chain at m=112: the n of the sweep
 K1_SWEEP_N = (4, 8, 12, 14, 16)
+# one shard of g on the `mesh` phase's 4-shard meshes, (m, m_loc, n): H8
+# cc-pVTZ -> 28 and H4 cc-pVTZ -> 8
+MESH_SHARD_SHAPES = ((112, 28, 14), (56, 14, 4))
 
 # published H100 peaks (NVIDIA data sheets): memory bytes/s and the
 # float32 CUDA-core FLOP/s (the kernels use no tensor cores)
@@ -577,6 +616,9 @@ def phase_kernels(card: str) -> dict:
     k1_sweep = _k1_stage1_sweep(checks, (bw, fl32))
     at_n2 = _kernels_at_n2_shapes((bw, fl32))
     at_full = _transform_at_full_shape(checks, (bw, fl32))
+    at_shard = {f"shard_at_m{mm}_mloc{ml}_n{nn}":
+                _transform_shard(checks, mm, ml, nn, (bw, fl32))
+                for mm, ml, nn in MESH_SHARD_SHAPES}
     mh = 112
     Mh = mh ** 3
     bounded = [(k1, k1_bytes, k1_flops), (k2, k2_bytes, k2_flops)]
@@ -606,6 +648,7 @@ def phase_kernels(card: str) -> dict:
          rotate_two_body_chain_casscf_n16=chain_h8_16,
          matmul_stage1_m112_sweep=k1_sweep, at_n2_shapes=at_n2,
          rotate_two_body_cuda_m112_n6=at_full,
+         rotate_two_body_shard=at_shard,
          timing=f"ms: median over 50 calls after 5 warm-up of CUDA events "
          f"around each call, the calls queued behind a device spin (no host "
          f"launch gaps); kernel_ms: profiler kernel time per call; "
@@ -614,7 +657,8 @@ def phase_kernels(card: str) -> dict:
                                 "(1404928x112)^T @ (112x14)",
                                 at_h4_stage1=k1, at_m112_n16=k1_h8_16,
                                 stage1_m112_sweep=k1_sweep,
-                                stage1_at_m58_n10=at_n2["matmul_stage1"]),
+                                stage1_at_m58_n10=at_n2["matmul_stage1"],
+                                **at_shard),
             "gemm.rotate_two_body_cuda": dict(
                 k2, shape="m=56 n=4 one-pass kernel",
                 chain_at_m112_n14=chain_h8, chain_at_m112_n16=chain_h8_16,
@@ -746,6 +790,59 @@ def _transform_at_full_shape(checks: list, peak: tuple) -> dict:
                plain_ms=time_ms(lambda: gemm.rotate_two_body_plain(g, u)),
                library_ms=time_ms(library), chain_ms=time_ms(chain),
                chain_kernel_ms=kernel_ms(chain, match="gemm_"),
+               max_abs_err=float((call() - library()).abs().max()),
+               bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    rec["pct_of_bound"] = 100 * rec["bound_ms"] / kms
+    return rec
+
+
+def _transform_shard(checks: list, m: int, m_loc: int, n: int,
+                     peak: tuple) -> dict:
+    """One mesh shard's partial transform (gemm.rotate_two_body_shard:
+    four K1 launches, stage 4 over the shard's m_loc rows) at a mesh
+    path's shape, float32 and float64, held against its plain version;
+    at float32 its time beside its bound, the plain version's and the
+    torch.matmul chain's (the library call) in the same layout."""
+    import torch
+    from esoo_torch.ops import gemm
+    dev = torch.device("cuda")
+    dgen = torch.Generator(device=dev).manual_seed(m + m_loc)
+    for dtype in (torch.float64, torch.float32):
+        g_loc = torch.randn((m, m, m, m_loc), dtype=dtype, device=dev,
+                            generator=dgen)
+        u = _partial_unitary(m, n, dtype,
+                             torch.Generator().manual_seed(n)).to(dev)
+        u_loc = u[:m_loc].contiguous()
+        out = gemm.rotate_two_body_shard(g_loc, u, u_loc)
+        torch.cuda.synchronize()
+        err = check_close(out, gemm.rotate_two_body_shard_plain(
+            g_loc, u, u_loc), dtype, f"rotate_two_body_shard m={m} "
+            f"m_loc={m_loc} n={n}")
+        checks.append(dict(kernel="gemm.matmul", route="shard", m=m,
+                           m_loc=m_loc, n=n, dtype=str(dtype), err=err))
+
+    def call():
+        return gemm.rotate_two_body_shard(g_loc, u, u_loc)
+
+    def library():
+        t = torch.matmul(g_loc.reshape(m, -1).T, u)
+        t = torch.matmul(t.reshape(m, -1).T, u)
+        t = torch.matmul(t.reshape(m, -1).T, u)
+        return torch.matmul(t.reshape(m_loc, -1).T, u_loc).reshape((n,) * 4)
+
+    kms, events = device_profile(call, match="gemm_")
+    bw, fl32 = peak
+    nbytes = 4 * (m ** 3 * m_loc + m * n + m_loc * n + n ** 4)
+    flops = 2 * (m ** 3 * m_loc * n + m * m * m_loc * n ** 2
+                 + m * m_loc * n ** 3 + m_loc * n ** 4)
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / fl32 * 1e3
+    rec = dict(m=m, m_loc=m_loc, n=n, kernel_ms=kms,
+               kernel_launches_per_call=events, ms=time_ms(call),
+               plain_ms=time_ms(lambda: gemm.rotate_two_body_shard_plain(
+                   g_loc, u, u_loc)),
+               library_ms=time_ms(library),
+               library_kernel_ms=kernel_ms(library),
                max_abs_err=float((call() - library()).abs().max()),
                bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations")
@@ -1149,13 +1246,18 @@ def phase_casscf() -> dict:
          gates_failed=failed)
     if failed:
         raise AssertionError("H8 CASSCF gates failed: " + "; ".join(failed))
-    return launches, problem
+    return launches, problem, dict(energy=E, first=trace[0],
+                                   solve_s=solve_s, bb_s=stats["bb_s"],
+                                   peak_memory_bytes=peak_bytes,
+                                   U=r.optimal_partial_unitary,
+                                   V=r.optimal_point)
 
 
 def _casscf_gates(r, witness: dict, launches: dict, routes: dict,
-                  route: str = "chain") -> list:
+                  route: str = "chain", shards: int = 1) -> list:
     """The gates every CASSCF solve of the smoke meets beside its energy
-    window; `route` is the transform's route at the solve's (m, n)."""
+    window; `route` is the transform's route at the solve's (m, n), or
+    "shard" for a mesh of `shards` shards (four K1 launches each)."""
     E, trace, stats = r.eigenvalue, r.energy_convergence_list, r.stage_stats
     rotations = stats["davidson_solves"]     # one rotation before each solve
     failed = []
@@ -1180,14 +1282,17 @@ def _casscf_gates(r, witness: dict, launches: dict, routes: dict,
         failed.append(f"the float64 energy at the final orbitals "
                       f"{witness['energy_f64']!r} differs from {E!r} by "
                       f"more than {H8_F64_WITNESS_TOL}")
-    # every rotation is the transform's four-launch K1 chain (n > 8) or
-    # one C call of the one-pass kernel, two launches (n <= 8)
-    per = 4 if route == "chain" else 2
-    expected = {"fused": 0, "chain": 0}
+    # every rotation is the transform's four-launch K1 chain (n > 8), one
+    # C call of the one-pass kernel, two launches (n <= 8), or on a mesh
+    # four K1 launches a shard
+    per = {"chain": 4, "fused": 2, "shard": 4 * shards}[route]
+    expected = {"fused": 0, "chain": 0, "shard": 0}
     expected[route] = per * rotations
     if not (rotations == r.outer_iterations + 1
             and launches["gemm.matmul"] == expected["chain"]
-            and launches["gemm.rotate_two_body_cuda"] == per * rotations
+            + expected["shard"]
+            and launches["gemm.rotate_two_body_cuda"]
+            == expected["chain"] + expected["fused"]
             and routes == expected):
         failed.append(f"{rotations} rotations but launches {launches}, "
                       f"routes {routes}")
@@ -2099,7 +2204,7 @@ def phase_optorb(h4) -> dict:
          gates_failed=failed)
     if failed:
         raise AssertionError("optorb H2 gates failed: " + "; ".join(failed))
-    return launches
+    return launches, E
 
 
 def _n2_casscf(basis: str, n_act: int, kw: dict, route: str):
@@ -2221,6 +2326,396 @@ def phase_chem() -> dict:
     return paths
 
 
+def _relative_err(out, ref) -> float:
+    """max|out - ref| / max(1, max|ref|), float64 on the host."""
+    out, ref = out.detach().double().cpu(), ref.detach().double().cpu()
+    return float((out - ref).abs().max()) / max(1.0,
+                                                float(ref.abs().max()))
+
+
+def phase_pairs(problem) -> dict:
+    """The pairwise sector kernels (SectorUCC kernel 'pairs', the string
+    kernels' oracle) on the card.  (a) FusedOptOrbVQE on H8 cc-pVTZ -> 12
+    (the `full` phase's settings, f32) with ESOO_SECTOR_KERNEL=pairs, the
+    launch counts zeroed just before the solve and read just after;
+    gates: E within PAIRS_TOL of JAX_H8_12_FULL_F64 and of the same
+    solver on the string kernel, solved in the phase, and every transform
+    launch one-pass.  One L-BFGS evaluation's wall, device ms and launches
+    on each kernel, and the busy share over a one-outer-iteration solve.
+    (b) The oracle at full width, float64: H8 cc-pVTZ -> 16 (4,900
+    determinants, UCCSD with 360 parameters) at the integrals rotated by
+    a seeded partial unitary, pairs against strings at seeded theta
+    (state, energy and its theta-gradient, gamma and Gamma within
+    PAIRS_ORACLE_TOL relative), and the lowest eigenvalue of the dense
+    build_hamiltonian within 1e-8 of davidson_ground on SectorCI; the
+    Slater-Condon structure scan's host time cold and from its disk
+    cache."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    import esoo_torch as T
+    from esoo_torch.initializations.ci import enumerate_determinants
+    from esoo_torch.ops import gemm
+    from esoo_torch.orbital_optimization import kernels as K
+    from esoo_torch.orbital_optimization.stiefel import value_and_grad
+    from esoo_torch.sim import SectorCI
+    from esoo_torch.sim import sector as S
+    from esoo_torch.solvers import davidson_ground
+    f32, f64, dev = torch.float32, torch.float64, "cuda"
+
+    def pairs_solver(**kw):
+        os.environ["ESOO_SECTOR_KERNEL"] = "pairs"
+        try:
+            return _full_solver(problem, "sector", f32, dev, **kw)
+        finally:
+            del os.environ["ESOO_SECTOR_KERNEL"]
+
+    t0 = time.perf_counter()
+    solver = pairs_solver(**H8_FULL_KW)
+    setup_s = time.perf_counter() - t0
+    sec = solver._sector
+    held_bytes = torch.cuda.memory_allocated()   # earlier phases' too
+    torch.cuda.reset_peak_memory_stats()
+    gemm.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = solver.compute_minimum_energy()
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = gemm.launch_counts()
+    routes = gemm.route_launch_counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    E, stats = r.eigenvalue, r.stage_stats
+
+    strings = _full_solver(problem, "sector", f32, dev, **H8_FULL_KW)
+    t0 = time.perf_counter()
+    r_str = strings.compute_minimum_energy()
+    torch.cuda.synchronize()
+    strings_solve_s = time.perf_counter() - t0
+
+    # one L-BFGS evaluation at the final state on each kernel
+    U = torch.as_tensor(r.optimal_partial_unitary, device=dev)
+    theta = torch.as_tensor(r.optimal_point, device=dev)
+    h_so, g_so = K.expand_spin_tensors(*solver._rotate(U))
+    evaluation = {}
+    for name, s in (("pairs", sec), ("strings", strings._sector)):
+        vals = s.build_values(h_so, g_so)
+        vag = value_and_grad(s.energy_values)
+        vag(theta, vals)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            vag(theta, vals)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / 10 * 1e3
+        dms, events = device_profile(lambda: vag(theta, vals), reps=3)
+        evaluation[name] = dict(wall_ms=wall_ms, device_ms=dms,
+                                device_events=events)
+    window_s, busy_s = busy_share(pairs_solver(maxiter=1)
+                                  .compute_minimum_energy)
+
+    failed = []
+    if sec.kernel != "pairs" or strings._sector.kernel != "strings":
+        failed.append(f"kernels {sec.kernel}, {strings._sector.kernel}")
+    if not abs(E - JAX_H8_12_FULL_F64) <= PAIRS_TOL:
+        failed.append(f"(a) energy {E!r} not within {PAIRS_TOL} of the JAX "
+                      f"package's float64 {JAX_H8_12_FULL_F64}")
+    if not abs(E - r_str.eigenvalue) <= PAIRS_TOL:
+        failed.append(f"(a) energy {E!r} not within {PAIRS_TOL} of the "
+                      f"string kernel's {r_str.eigenvalue!r}")
+    if not (launches["gemm.rotate_two_body_cuda"] > 0
+            and launches["gemm.matmul"] == 0 and routes["chain"] == 0):
+        failed.append(f"(a) launches {launches}, routes {routes}: the "
+                      f"one-pass transform only")
+    solves = r.outer_iterations + 1
+    emit("pairs", problem="H8 cc-pVTZ m=112 -> 12 spin orbitals, (4, 4) "
+         "electrons, UCCSD(6, (4, 4)) from HF (92 parameters, 225 "
+         "determinants), ESOO_SECTOR_KERNEL=pairs, f32, maxiter 10, tol "
+         "1e-5", energy=E, strings_energy=r_str.eigenvalue,
+         jax_f64=JAX_H8_12_FULL_F64, tolerance=PAIRS_TOL,
+         outer_trace=r.energy_convergence_list,
+         outer_iterations=r.outer_iterations, setup_s=setup_s,
+         solve_s=solve_s, strings_solve_s=strings_solve_s,
+         strings_outer_iterations=r_str.outer_iterations,
+         peak_memory_bytes=peak_bytes, held_before_solve_bytes=held_bytes,
+         stage_stats=stats, lbfgs_evaluations=stats["lbfgs_evaluations"],
+         lbfgs_evaluations_per_solve=stats["lbfgs_evaluations"] / solves,
+         strings_lbfgs_evaluations=r_str.stage_stats["lbfgs_evaluations"],
+         lbfgs_evaluation=evaluation,
+         busy_window=dict(maxiter=1, wall_s=window_s, device_busy_s=busy_s,
+                          device_busy_share=busy_s / window_s),
+         launches=launches, transform_route_launches=routes,
+         gates_failed=failed)
+    if failed:
+        raise AssertionError("pairs gates failed: " + "; ".join(failed))
+
+    # (b) the oracle at H8 -> 16, float64
+    n, parts = 8, (4, 4)
+    cache_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build", "esoo_torch", "sector_cache")
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    saved = os.environ.get("ESOO_CACHE_DIR")
+    os.environ["ESOO_CACHE_DIR"] = cache_dir
+    try:
+        dets = [int(d) for d in enumerate_determinants(2 * n, parts,
+                                                       sum(parts))]
+        t0 = time.perf_counter()
+        S._slater_condon_structure_cached(dets, 2 * n)
+        scan_cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        S._slater_condon_structure_cached(dets, 2 * n)
+        scan_cached_s = time.perf_counter() - t0
+        ansatz = T.UCCSD(n, parts, initial_state=T.HartreeFock(n, parts))
+        t0 = time.perf_counter()
+        sp = S.SectorUCC(ansatz, 2 * n, kernel="pairs")
+        tabs = sp.device_tables(f64, device=dev)
+        pairs_tables_s = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            del os.environ["ESOO_CACHE_DIR"]
+        else:
+            os.environ["ESOO_CACHE_DIR"] = saved
+    ss = S.SectorUCC(ansatz, 2 * n, kernel="strings")
+    h_np, g_np = (np.ascontiguousarray(a)
+                  for a in problem.spatial_integral_tensors())
+    U = _partial_unitary(problem.num_spatial_orbitals, n, f64,
+                         torch.Generator().manual_seed(16)).to(dev)
+    with torch.no_grad():
+        h_so, g_so = K.expand_spin_tensors(
+            K.rotate_one_body(torch.as_tensor(h_np, device=dev), U),
+            K.rotate_two_body(torch.as_tensor(g_np, device=dev), U))
+    del g_np
+    theta = 0.1 * torch.randn(len(sp._excs), dtype=f64,
+                              generator=torch.Generator().manual_seed(7))
+    theta = theta.to(dev)
+    got = {}
+    for name, s in (("pairs", sp), ("strings", ss)):
+        vals = s.build_values(h_so, g_so)
+        x = theta.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        energy = s.energy_values(x, vals)
+        (grad,) = torch.autograd.grad(energy, x)
+        torch.cuda.synchronize()
+        vag_s = time.perf_counter() - t0
+        with torch.no_grad():
+            v = s.state(theta)
+            got[name] = dict(state=v, energy=energy.detach(), grad=grad,
+                             rdms=s.rdms(v), vag_s=vag_s)
+    errs = {k: _relative_err(got["pairs"][k], got["strings"][k])
+            for k in ("state", "energy", "grad")}
+    errs["gamma"], errs["Gamma"] = (
+        _relative_err(a, b) for a, b in zip(got["pairs"]["rdms"],
+                                            got["strings"]["rdms"]))
+    t0 = time.perf_counter()
+    H = sp.build_hamiltonian(h_so, g_so)
+    lam0 = float(torch.linalg.eigvalsh(H)[0])
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    del H
+    ci = SectorCI(2 * n, parts)
+    cvals = ci.build_values(h_so, g_so)
+    res = davidson_ground(
+        lambda v: ci.sigma_values(v.reshape(ci.nB, ci.nA), cvals).reshape(-1),
+        ci.diagonal_values(cvals).reshape(-1),
+        ci.hf_matrix(f64, device=dev).reshape(-1), tol=1e-10)
+    failed = [f"{k}: {e:.3e} > {PAIRS_ORACLE_TOL}" for k, e in errs.items()
+              if not e <= PAIRS_ORACLE_TOL]
+    if not abs(lam0 - float(res.eigenvalue)) <= 1e-8:
+        failed.append(f"dense lowest eigenvalue {lam0!r} vs SectorCI "
+                      f"Davidson {float(res.eigenvalue)!r}")
+    emit("pairs_oracle", problem="H8 cc-pVTZ m=112 -> 16 spin orbitals, "
+         "(4, 4) electrons, 4,900 determinants, UCCSD(8, (4, 4)) from HF "
+         "(360 parameters), f64, integrals rotated by a seeded partial "
+         "unitary, theta seeded (0.1 N(0, 1))", determinants=sp.dim,
+         parameters=len(sp._excs), relative_errors=errs,
+         tolerance=PAIRS_ORACLE_TOL, energy=float(got["pairs"]["energy"]),
+         dense_lowest=lam0, sector_ci_davidson=float(res.eigenvalue),
+         sector_ci_residual=float(res.residual_norm),
+         structure_scan_cold_s=scan_cold_s,
+         structure_scan_cached_s=scan_cached_s,
+         pairs_tables_s=pairs_tables_s, dense_build_eigvalsh_s=dense_s,
+         pairs_vag_s=got["pairs"]["vag_s"],
+         strings_vag_s=got["strings"]["vag_s"],
+         row_width=int(tabs["VIDX"].shape[1]), gates_failed=failed)
+    if failed:
+        raise AssertionError("pairs oracle gates failed: "
+                             + "; ".join(failed))
+    return launches
+
+
+def phase_mesh(problem, casscf: dict, h4, optorb_energy: float) -> dict:
+    """The orbital mesh over the integral tensor.  (a) FusedOptOrbCASSCF
+    on H8 cc-pVTZ -> 28 (the casscf phase's settings) with g sharded over
+    a 4-shard mesh: four logical shards on cuda:0, or the first four
+    cards where the machine has them; the launch counts zeroed just
+    before the solve and read just after.  Gates: every gate of the
+    casscf phase (on the shard route: 16 K1 launches a rotation); the
+    first outer energy within MESH_TOL of the unsharded solve's (the
+    same U0: the sharded rotation against the unsharded one); and at the
+    unsharded solve's final U and RDMs, the sharded rotation and the
+    sharded BB objective's value and gradient against the unsharded ones
+    at the kernels' float32 tolerance.  The final E is printed beside
+    the unsharded E, not gated against it: from the first BB descent on,
+    float32 trajectories of different summation orders part by up to
+    ~1.5e-3 on this surface's plateau (the casscf phase's window against
+    the JAX package's float32 energy is 1e-3 for the same reason).
+    (b) FusedOptOrbVQE and the class-based OptOrbVQE on H4 cc-pVTZ -> 8
+    at float64 on a 4-shard mesh, each within MESH_F64_TOL of its
+    unsharded run (the optorb phase's, for the class-based one)."""
+    import numpy as np
+    import torch
+    from esoo_torch.ops import gemm
+    from esoo_torch.orbital_optimization import kernels as K
+    from esoo_torch.orbital_optimization.fused import _ORBITAL_VAG
+    from esoo_torch.orbital_optimization.stiefel import value_and_grad
+    from esoo_torch.parallel import (make_orbital_mesh,
+                                     rotate_two_body_sharded,
+                                     sharded_spatial_energy)
+    f32, f64, dev = torch.float32, torch.float64, "cuda"
+    devices = ([f"cuda:{i}" for i in range(4)]
+               if torch.cuda.device_count() >= 4 else ["cuda:0"] * 4)
+    mesh = make_orbital_mesh(devices=devices)
+    t0 = time.perf_counter()
+    solver = _casscf_solver(problem, 14, f32, dev, maxiter=10,
+                            stopping_tolerance=1e-5, dispatch="two",
+                            mesh=mesh)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    held_bytes = torch.cuda.memory_allocated()   # earlier phases' too
+    torch.cuda.reset_peak_memory_stats()
+    gemm.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = solver.compute_minimum_energy()
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = gemm.launch_counts()
+    routes = gemm.route_launch_counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    E, stats = r.eigenvalue, r.stage_stats
+
+    sec, tabs = solver._sector, solver._sector_tables
+    U = torch.as_tensor(r.optimal_partial_unitary, device=dev)
+    vals = sec.build_values(*K.expand_spin_tensors(*solver._rotate(U)), tabs)
+    witness = _casscf_f64_witness(problem, solver, r, vals)
+
+    # the sharded rotation and BB objective at the unsharded solve's final
+    # U and RDMs against the unsharded ones (g whole on the card for this)
+    U0 = torch.as_tensor(casscf["U"], device=dev)
+    V0 = torch.as_tensor(casscf["V"], device=dev).reshape(sec.nB, sec.nA)
+    gamma_s, Gamma_s = K.spin_reduce_rdms(*sec.rdms(V0, tabs))
+    g_whole = torch.as_tensor(np.ascontiguousarray(
+        problem.spatial_integral_tensors()[1]), device=dev).to(f32)
+    E_u, G_u = _ORBITAL_VAG(U0, gamma_s, Gamma_s, solver._h_sp, g_whole)
+    rot_u = K.rotate_two_body(g_whole, U0)
+    del g_whole
+    E_m, G_m = value_and_grad(sharded_spatial_energy(mesh))(
+        U0, gamma_s, Gamma_s, solver._h_sp, solver._g_shards)
+    gemm.reset_launch_counts()
+    rot_m = rotate_two_body_sharded(mesh, solver._g_shards, U0)
+    torch.cuda.synchronize()
+    at_u = dict(
+        rotation_err=check_close(rot_m, rot_u, f32, "sharded rotation"),
+        energy_err=check_close(E_m, E_u, f32, "sharded objective"),
+        gradient_err=check_close(G_m, G_u, f32, "sharded gradient"),
+        rotation_launches=gemm.route_launch_counts())
+    failed = []
+    if not abs(E - H8_CASSCF_REFERENCE) <= H8_CASSCF_TOL:
+        failed.append(f"energy {E!r} not within {H8_CASSCF_TOL} of "
+                      f"{H8_CASSCF_REFERENCE}")
+    first = r.energy_convergence_list[0]
+    if not abs(first - casscf["first"]) <= MESH_TOL:
+        failed.append(f"first outer energy {first!r} not within {MESH_TOL} "
+                      f"of the unsharded {casscf['first']!r}")
+    if at_u["rotation_launches"]["shard"] != 16:
+        failed.append(f"the sharded rotation's launches "
+                      f"{at_u['rotation_launches']}")
+    failed += _casscf_gates(r, witness, launches, routes, "shard", 4)
+    emit("mesh", problem="H8 cc-pVTZ m=112 -> 28 spin orbitals, "
+         "FusedOptOrbCASSCF as in the casscf phase, g sharded on its last "
+         "axis over a 4-shard mesh (m_loc = 28)", devices=devices,
+         energy=E, unsharded_energy=casscf["energy"],
+         unsharded_first_outer=casscf["first"],
+         tolerance=[H8_CASSCF_TOL, MESH_TOL, "f32 5e-6*max(1,max|ref|)"],
+         at_unsharded_optimum=at_u,
+         outer_trace=r.energy_convergence_list,
+         outer_iterations=r.outer_iterations, setup_s=setup_s,
+         solve_s=solve_s, unsharded_solve_s=casscf["solve_s"],
+         bb_s=stats["bb_s"], unsharded_bb_s=casscf["bb_s"],
+         bb_iterations=stats["bb_iterations"],
+         peak_memory_bytes=peak_bytes, held_before_solve_bytes=held_bytes,
+         unsharded_peak_memory_bytes=casscf["peak_memory_bytes"],
+         launches=launches, transform_route_launches=routes,
+         f64_witness=witness, gates_failed=failed)
+    if failed:
+        raise AssertionError("mesh gates failed: " + "; ".join(failed))
+
+    # (b) H4 cc-pVTZ -> 8 at float64 on a 4-shard mesh
+    import esoo_torch as T
+
+    def fused(mesh=None):
+        return T.FusedOptOrbVQE(
+            num_spin_orbitals=8, ansatz=T.UCCSD(
+                4, (2, 2), initial_state=T.HartreeFock(4, (2, 2))),
+            problem=h4, maxiter=20, stopping_tolerance=1e-5, dtype=f64,
+            device=dev, mesh=mesh).compute_minimum_energy()
+
+    t0 = time.perf_counter()
+    e_fused = fused().eigenvalue
+    fused_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    e_fused_mesh = fused(mesh).eigenvalue
+    fused_mesh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    e_class_mesh = float(_class_optorbvqe(h4, 4, dev, mesh=mesh)
+                         .compute_minimum_energy().eigenvalue)
+    class_mesh_s = time.perf_counter() - t0
+    failed = []
+    if not abs(e_fused_mesh - e_fused) <= MESH_F64_TOL:
+        failed.append(f"FusedOptOrbVQE {e_fused_mesh!r} vs unsharded "
+                      f"{e_fused!r}")
+    if not abs(e_class_mesh - optorb_energy) <= MESH_F64_TOL:
+        failed.append(f"OptOrbVQE {e_class_mesh!r} vs unsharded "
+                      f"{optorb_energy!r}")
+    emit("mesh_h4", problem="H4 cc-pVTZ m=56 -> 8 spin orbitals, f64, "
+         "g over a 4-shard mesh (m_loc = 14): FusedOptOrbVQE (UCCSD from "
+         "HF, maxiter 20) and the class-based OptOrbVQE (the optorb "
+         "phase's)", devices=devices, fused=e_fused,
+         fused_mesh=e_fused_mesh, class_unsharded=optorb_energy,
+         class_mesh=e_class_mesh, tolerance=MESH_F64_TOL, fused_s=fused_s,
+         fused_mesh_s=fused_mesh_s, class_mesh_s=class_mesh_s,
+         gates_failed=failed)
+    if failed:
+        raise AssertionError("mesh H4 gates failed: " + "; ".join(failed))
+    return launches
+
+
+def mesh_only() -> int:
+    """`python3 chip_smoke.py --mesh-only`: the kernels' build, the
+    unsharded casscf phase, the optorb phase's class-based H4 solve and
+    the mesh phases alone, for a machine of four cards (whose mesh the
+    mesh phase takes: each shard's K1 launches on its own card, the
+    partials summed by torch.cuda.comm.reduce_add).  Prints the phases'
+    lines, the card line and `{"ok": true, ...}` last; a run with no
+    arguments drives every path."""
+    import torch
+    from esoo_torch.chem import MoleculeDriver
+    card = phase_device()
+    _, h8, casscf = phase_casscf()
+    h4 = MoleculeDriver(atom=H4_GEOM, basis="cc-pvtz").run()
+    optorb_energy = float(_class_optorbvqe(h4, 4, "cuda")
+                          .compute_minimum_energy().eigenvalue)
+    phase_mesh(h8, casscf, h4, optorb_energy)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2228,6 +2723,12 @@ def main() -> int:
               "test needs an NVIDIA GPU", file=sys.stderr)
         return 2
     import esoo_torch  # noqa: F401  (fails outside a checkout of the repo)
+    if sys.argv[1:] == ["--mesh-only"]:
+        return mesh_only()
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
+              file=sys.stderr)
+        return 2
 
     t_start = time.perf_counter()
     card = phase_device()
@@ -2237,14 +2738,15 @@ def main() -> int:
     phase_profile(problem)
     paths["ssvqe_h4"] = phase_excited(problem)
     h4 = problem
-    paths["casscf_h8_n28"], problem = phase_casscf()
-    paths["casscf_h8_n32_compact"] = phase_compact(problem)
-    paths["vqe_full_h8_n12"] = phase_full(problem)
-    del problem
+    paths["casscf_h8_n28"], h8, casscf = phase_casscf()
+    paths["casscf_h8_n32_compact"] = phase_compact(h8)
+    paths["vqe_full_h8_n12"] = phase_full(h8)
     phase_parity()
-    paths["optorbvqe_h4"] = phase_optorb(h4)
-    del h4
+    paths["optorbvqe_h4"], optorb_energy = phase_optorb(h4)
     paths.update(phase_chem())
+    paths["vqe_pairs_h8_n12"] = phase_pairs(h8)
+    paths["casscf_h8_n28_mesh4"] = phase_mesh(h8, casscf, h4, optorb_energy)
+    del h8, h4
 
     table = []
     # K2's source is the one-pass kernel for n <= 8 (the VQE and SSVQE

@@ -4,6 +4,9 @@ Counterparts of esoo_tpu/ops/pallas_kernels.py:
 
   * `matmul(x, y, trans_x=False)`  <- `matmul_pallas` (Pallas tiled GEMM,
     pl.pallas_call at pallas_kernels.py:80).  Kernel: csrc/gemm.cu.
+  * `rotate_two_body_shard(g_loc, u, u_loc)`: one shard's partial
+    transform for a g sharded on its last axis (parallel/sharded.py),
+    four `matmul` launches at the shard's shapes.
   * `rotate_two_body_cuda(g, u)`   <- `rotate_two_body_pallas`
     (pallas_kernels.py:108).  For n <= 8 (and a ring of two slabs that
     fits in shared memory) one pass over g in one C call, two launches:
@@ -247,6 +250,68 @@ def rotate_two_body_chain(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return t.reshape(n, n, n, n)
 
 
+def rotate_two_body_shard_plain(g_loc: torch.Tensor, u: torch.Tensor,
+                                u_loc: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of `rotate_two_body_shard`: the tensordot
+    chain with u_loc in the last stage."""
+    t = torch.tensordot(g_loc, u, dims=([0], [0]))     # (q, r, s_loc, i)
+    t = torch.tensordot(t, u, dims=([0], [0]))         # (r, s_loc, i, j)
+    t = torch.tensordot(t, u, dims=([0], [0]))         # (s_loc, i, j, k)
+    return torch.tensordot(t, u_loc, dims=([0], [0]))  # (i, j, k, l)
+
+
+def rotate_two_body_shard(g_loc: torch.Tensor, u: torch.Tensor,
+                          u_loc: torch.Tensor) -> torch.Tensor:
+    """One shard's partial transform for a g sharded on its last axis
+    (parallel/sharded.py): g_loc (m, m, m, m_loc) holds g[..., s_d] and
+    u_loc (m_loc, n) the rows s_d of u; the partial is
+        sum_{pqr, s in s_d} g[p,q,r,s] u[p,i] u[q,j] u[r,k] u[s,l],
+    and the shards' partials sum to the transform.  CUDA tensors run four
+    `matmul` launches with trans_x=True, stage 4 contracting the local
+    axis, (m_loc, n^3)^T (m_loc, n); CPU tensors run
+    `rotate_two_body_shard_plain`.  Not differentiable."""
+    if g_loc.device.type == "cpu" and u.device.type == "cpu" and \
+            u_loc.device.type == "cpu":
+        return rotate_two_body_shard_plain(g_loc, u, u_loc)
+    _check_shard_args(g_loc, u, u_loc)
+    m, n = u.shape
+    m_loc = u_loc.shape[0]
+    u = u.contiguous()
+    t = matmul(g_loc.reshape(m, m * m * m_loc), u, trans_x=True)
+    t = matmul(t.reshape(m, m * m_loc * n), u, trans_x=True)
+    t = matmul(t.reshape(m, m_loc * n * n), u, trans_x=True)
+    t = matmul(t.reshape(m_loc, n ** 3), u_loc.contiguous(), trans_x=True)
+    rotate_two_body_shard.launches += 4
+    return t.reshape(n, n, n, n)
+
+
+def _check_shard_args(g_loc: torch.Tensor, u: torch.Tensor,
+                      u_loc: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (g_loc, u, u_loc)):
+        raise RuntimeError("rotate_two_body_shard has no backward; call it "
+                           "under torch.no_grad() or on detached tensors")
+    if g_loc.device.type != "cuda" or u.device != g_loc.device or \
+            u_loc.device != g_loc.device:
+        raise ValueError(
+            f"rotate_two_body_shard: tensors on {g_loc.device}, {u.device} "
+            f"and {u_loc.device}; all must be on one CUDA device (or all "
+            "on CPU)")
+    if not (g_loc.dtype == u.dtype == u_loc.dtype) or \
+            g_loc.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"rotate_two_body_shard takes float32 or float64, "
+                        f"got {g_loc.dtype}, {u.dtype} and {u_loc.dtype}")
+    m, n = u.shape if u.dim() == 2 else (-1, -1)
+    if g_loc.dim() != 4 or g_loc.shape[:3] != (m, m, m) or \
+            u_loc.dim() != 2 or u_loc.shape != (g_loc.shape[3], n):
+        raise ValueError(
+            f"expected g_loc (m,m,m,m_loc), u (m,n) and u_loc (m_loc,n), "
+            f"got {tuple(g_loc.shape)}, {tuple(u.shape)} and "
+            f"{tuple(u_loc.shape)}")
+    if not g_loc.is_contiguous():
+        raise ValueError("rotate_two_body_shard takes a contiguous g_loc")
+
+
 def _check_transform_args(g: torch.Tensor, u: torch.Tensor) -> None:
     if torch.is_grad_enabled() and (g.requires_grad or u.requires_grad):
         raise RuntimeError("rotate_two_body_cuda has no backward; call it "
@@ -271,6 +336,7 @@ def reset_launch_counts() -> None:
     rotate_two_body_cuda.launches = 0
     rotate_two_body_cuda.fused_launches = 0
     rotate_two_body_cuda.chain_launches = 0
+    rotate_two_body_shard.launches = 0
 
 
 def launch_counts() -> dict:
@@ -279,10 +345,12 @@ def launch_counts() -> dict:
 
 
 def route_launch_counts() -> dict:
-    """The transform's launches split by route: "fused" (transform.cu)
-    and "chain" (four K1 launches)."""
+    """The transform's launches split by route: "fused" (transform.cu),
+    "chain" (four K1 launches) and "shard" (the four K1 launches of a
+    mesh shard's partial transform)."""
     return {"fused": rotate_two_body_cuda.fused_launches,
-            "chain": rotate_two_body_cuda.chain_launches}
+            "chain": rotate_two_body_cuda.chain_launches,
+            "shard": rotate_two_body_shard.launches}
 
 
 reset_launch_counts()

@@ -173,15 +173,19 @@ class BaseOptOrbSolver:
             rdm_measurement: 'direct' (default) or 'pauli'.
             checkpoint_dir: write a resumable checkpoint after every outer
                 iteration (the .npz layout of the JAX package).
-            mesh: multi-device sharding; not ported (raises).
+            mesh: an esoo_torch.parallel.OrbitalMesh led by `device`
+                (spin-block-structured integrals only): the orbital
+                subproblem runs over g sharded on its last axis
+                (parallel.ShardedOrbitalOptimizer, with the partial
+                unitary optimizer's settings and without its callback);
+                the rotated Hamiltonian is still rebuilt from the
+                unsharded g on `device`.
             device: where the integrals, U, the RDMs and the orbital
                 optimization live ("cuda" by default; "cpu" on the host).
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (sharded integrals over several devices) needs the "
-                "multi-GPU sharding, not ported yet")
         self.device = resolve_device(device)
+        from .fused import _check_mesh
+        _check_mesh(mesh, self.device)
         # drop-in interop: accept qiskit-nature problems / qiskit mappers
         # where the reference does (base_opt_orb_solver.py:22,87-91,115)
         from ..interop import adapt as _interop_adapt
@@ -271,7 +275,27 @@ class BaseOptOrbSolver:
         self.rdm_measurement = rdm_measurement
         self.checkpoint_dir = checkpoint_dir
         self._rng = np.random.default_rng(seed)
-        self.mesh = None
+
+        # optional sharding of g over a mesh (parallel/sharded.py): the
+        # inner orbital optimization runs over the shards
+        self.mesh = mesh
+        self._sharded = None
+        if mesh is not None:
+            if not self._spatial_path:
+                raise ValueError(
+                    "mesh sharding requires spin-block-structured integrals")
+            from ..parallel import (ShardedOrbitalOptimizer,
+                                    shard_problem_tensors)
+            pupo = self.partial_unitary_optimizer
+            h_lead, g_shards = shard_problem_tensors(mesh, self._h_sp,
+                                                     self._g_sp)
+            self._sharded = {
+                "h": h_lead, "g": g_shards,
+                "optimizer": ShardedOrbitalOptimizer(
+                    mesh, initial_BBstepsize=pupo.BBstepsize,
+                    stopping_tolerance=pupo.stopping_tolerance,
+                    maxiter=pupo.maxiter, decay_factor=pupo.decay_factor),
+            }
 
         self._hamiltonian: Optional[SparsePauliOp] = None
         self._pauli_op_dict: Optional[Dict[str, SparsePauliOp]] = None
@@ -372,7 +396,16 @@ class BaseOptOrbSolver:
 
     def _run_inner_optimization(self, pupo, U0, gammas, Gammas,
                                 weights: Optional[Sequence[float]] = None):
-        """The orbital-rotation subproblem on the device: (U, E)."""
+        """The orbital-rotation subproblem on the device, or over the
+        mesh when one was given: (U, E)."""
+        if self._sharded is not None:
+            gamma, Gamma = self._combined_rdms(
+                [self._to_device(g) for g in gammas],
+                [self._to_device(G) for G in Gammas], weights)
+            gamma_s, Gamma_s = spin_reduce_rdms(gamma, Gamma)
+            return self._sharded["optimizer"].compute_optimal_rotation(
+                U0, gamma_s, Gamma_s, self._sharded["h"],
+                self._sharded["g"])
         objective, data = self._inner_objective_and_data(gammas, Gammas,
                                                          weights)
         return pupo.compute_optimal_rotation(objective, U0, *data)

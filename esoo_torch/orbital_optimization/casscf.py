@@ -24,7 +24,11 @@ loosens the loop's solves 30x; the final solve stays tight), as the JAX
 package does; the eager loop gives the same results either way.
 `table_storage='compact'` (and 'auto' past 1.1M determinants) keeps the
 sector's operator stacks int8 and runs the operator-chunked kernels
-(sim/strings.py).  Not ported yet: `mesh=`, which raises.
+(sim/strings.py).  `mesh=` (parallel.make_orbital_mesh) shards the m^4
+integral tensor on its last axis over the mesh's devices: each outer
+iteration's rotation and every BB step run shard by shard and reduce on
+the lead device, as in the JAX package; the sector tables stay unsharded
+on the lead device.
 """
 
 from __future__ import annotations
@@ -42,10 +46,11 @@ from ..solvers.davidson import (davidson_block, davidson_block_advance,
 from ..utils.config import resolve_device
 from .checkpoint import load_checkpoint
 from .fused import (FusedOptOrbEigensolverResult, FusedOptOrbResult,
-                    _OuterLoopSolver, _numpy, _spatial_integrals,
-                    _state_diagnostics, _states_diagnostics, _to_dtype,
-                    _transition_rdm1s, _weighted_rdms)
-from .kernels import expand_spin_tensors, rotate_one_body, rotate_two_body
+                    _check_mesh, _OuterLoopSolver, _numpy,
+                    _spatial_integrals, _state_diagnostics,
+                    _states_diagnostics, _to_dtype, _transition_rdm1s,
+                    _weighted_rdms)
+from .kernels import expand_spin_tensors
 from .stiefel import orth
 
 _SECTOR_CI_CACHE = {}
@@ -214,10 +219,7 @@ class FusedOptOrbCASSCF(_OuterLoopSolver):
         if table_storage not in ("auto", "dense", "compact"):
             raise ValueError(
                 "table_storage must be 'auto', 'dense', or 'compact'")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (sharded integrals and sector tables) needs the "
-                "multi-GPU sharding, not ported yet")
+        _check_mesh(mesh, dev)
         if num_particles is None:
             if problem is None or not hasattr(problem, "num_particles"):
                 raise ValueError(
@@ -225,13 +227,11 @@ class FusedOptOrbCASSCF(_OuterLoopSolver):
                     "it is given")
             num_particles = tuple(problem.num_particles)
 
-        h_sp, g_sp = (torch.as_tensor(np.ascontiguousarray(a))
-                      for a in _spatial_integrals(problem, integral_tensors,
-                                                  type(self).__name__))
-        dtype = _to_dtype(dtype) or h_sp.dtype
+        h_sp, g_sp = _spatial_integrals(problem, integral_tensors,
+                                        type(self).__name__)
+        dtype = _to_dtype(dtype) or _to_dtype(h_sp.dtype)
         self.dtype = dtype
-        self._h_sp = h_sp.to(device=dev, dtype=dtype)
-        self._g_sp = g_sp.to(device=dev, dtype=dtype)
+        self._set_integrals(h_sp, g_sp, dtype, mesh)
 
         self.num_spin_orbitals = num_spin_orbitals
         self._sector = _sector_ci_cached(num_spin_orbitals,
@@ -352,10 +352,8 @@ class FusedOptOrbSACASSCF(FusedOptOrbCASSCF):
             self._V0 = self._v0.reshape(self.k, self._sector.dim)
         else:
             with torch.no_grad():
-                U0 = orth(self._U0)
-                h_so, g_so = expand_spin_tensors(
-                    rotate_one_body(self._h_sp, U0),
-                    rotate_two_body(self._g_sp, U0))
+                h_so, g_so = expand_spin_tensors(*self._rotate(
+                    orth(self._U0)))
                 vals = self._sector.build_values(h_so, g_so,
                                                  self._sector_tables)
                 diag = _numpy(self._sector.diagonal_values(

@@ -28,6 +28,12 @@ by solver, as in the JAX package: VQE re-solves at the final U, VQD
 reruns the deflation, ADAPT regrows, while SSVQE and MCVQE only evaluate
 the last theta's energies at the final U.
 
+`mesh=` (parallel.make_orbital_mesh) shards the m^4 integral tensor on
+its last axis over the mesh's devices: the rotation of each outer
+iteration and every BB step then run shard by shard and reduce on the
+lead device (parallel/sharded.py), while the eigensolver stage and the
+sector tables stay on the lead device, unsharded.
+
 Every host decision (a stop test, a line-search branch) reads a device
 scalar, so the loop syncs with the device several times per step.
 """
@@ -46,7 +52,7 @@ from ..sim.circuit import QuantumCircuit
 from ..sim.rdm import one_rdm, rdm_energy, two_rdm
 from ..sim.statevector import compile_circuit
 from ..solvers.lbfgs import lbfgs_minimize
-from ..utils.config import resolve_device
+from ..utils.config import check_same_device, resolve_device
 from .checkpoint import load_checkpoint, save_checkpoint
 from .kernels import (expand_spin_tensors, rotate_one_body, rotate_two_body,
                       rotated_energy_spatial, rotated_integrals_spatial,
@@ -189,8 +195,9 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def _optorb_loop(solve: Callable, extract_rdms: Callable, state, U0, h_sp,
-                 g_sp, outer_tol, inner_tol, bb_stepsize, decay,
+def _optorb_loop(solve: Callable, extract_rdms: Callable, state, U0,
+                 rotate: Callable, orbital_vag: Callable, orbital_data,
+                 outer_tol, inner_tol, bb_stepsize, decay,
                  outer_maxiter: int = 20, inner_maxiter: int = 10000,
                  weights: Optional[torch.Tensor] = None,
                  final_solve: Optional[Callable] = None,
@@ -199,19 +206,20 @@ def _optorb_loop(solve: Callable, extract_rdms: Callable, state, U0, h_sp,
     """The OptOrb outer loop of every fused solver (esoo_tpu
     fused.py:499-574, casscf.py:119-174 and 639-696).
 
+    rotate(U) -> (h_act, g_act) rotates the integrals;
     solve(state, h_act, g_act) -> (state, es) runs the eigensolver stage
-    at the rotated integrals (es a scalar, or the (k,) energies whose
-    `weights` sum the convergence rule reads); extract_rdms(state) ->
-    spin-orbital (gamma, Gamma).  The final re-solve runs `final_solve`
-    (default `solve`).  Returns (es, state, U, n_outer, energy_trace)."""
+    at them (es a scalar, or the (k,) energies whose `weights` sum the
+    convergence rule reads); extract_rdms(state) -> spin-orbital (gamma,
+    Gamma); the BB descent minimizes orbital_vag(U, gamma_s, Gamma_s,
+    *orbital_data) (the integrals on one device, or a mesh's shards).
+    The final re-solve runs `final_solve` (default `solve`).  Returns
+    (es, state, U, n_outer, energy_trace)."""
     trace = np.full((outer_maxiter,), np.nan)
     U = orth(U0)
-    E_prev = torch.full((), float("inf"), dtype=h_sp.dtype,
-                        device=h_sp.device)
+    E_prev = torch.full((), float("inf"), dtype=U.dtype, device=U.device)
     it = 0
     while True:
-        h_act = rotate_one_body(h_sp, U)
-        g_act = rotate_two_body(g_sp, U)
+        h_act, g_act = rotate(U)
         state, es = solve(state, h_act, g_act)
         E = es if weights is None else weights @ es
         trace[it] = float(E)
@@ -225,22 +233,20 @@ def _optorb_loop(solve: Callable, extract_rdms: Callable, state, U0, h_sp,
             break
         gamma, Gamma = extract_rdms(state)
         gamma_s, Gamma_s = spin_reduce_rdms(gamma, Gamma)
-        U = _inner_bb(_ORBITAL_VAG, U, (gamma_s, Gamma_s, h_sp, g_sp),
+        U = _inner_bb(orbital_vag, U, (gamma_s, Gamma_s) + orbital_data,
                       bb_stepsize, inner_tol, decay, inner_maxiter, stats)
         if it >= outer_maxiter:
             break
         E_prev = E
     # re-solve at the final U so (E, state, U) are mutually consistent even
     # when the loop ended on hit_max (where U is the freshly rotated one)
-    h_act = rotate_one_body(h_sp, U)
-    g_act = rotate_two_body(g_sp, U)
-    state, es = (final_solve or solve)(state, h_act, g_act)
+    state, es = (final_solve or solve)(state, *rotate(U))
     return es, state, U, it, trace[:it]
 
 
 def _state_diagnostics(sector, v: torch.Tensor, tables: dict = None):
     """_rdm_diagnostics of a sector state."""
-    return _rdm_diagnostics(*sector.rdms(v.reshape(sector.nB, sector.nA),
+    return _rdm_diagnostics(*sector.rdms(v.reshape(sector.state_shape),
                                          tables))
 
 
@@ -344,9 +350,10 @@ def _sector_or_full(simulation: str, make_sector: Callable):
     """(made, simulation): what `make_sector()` builds (a SectorUCC, or
     one with its projected initial states) for 'sector' and 'auto', which
     resolves to the sector wherever the circuit permits, as in the JAX
-    package; or (None, 'full') for 'full', and for 'auto' when the
-    circuit or its initial states do not fit a sector (make_sector raises
-    ValueError)."""
+    package (on the string kernels, or the pairwise kernels where the
+    sector does not factorize over strings); or (None, 'full') for
+    'full', and for 'auto' when the circuit or its initial states do not
+    fit a sector (make_sector raises ValueError)."""
     if simulation == "full":
         return None, "full"
     try:
@@ -357,11 +364,44 @@ def _sector_or_full(simulation: str, make_sector: Callable):
         return None, "full"
 
 
-def _check_options(mesh, simulation: str, dispatch: str) -> None:
-    if mesh is not None:
+def _check_mesh(mesh, device) -> None:
+    """A mesh must be an OrbitalMesh led by the solver's device, with no
+    state axis (the 2-D state x orb mesh is not ported)."""
+    if mesh is None:
+        return
+    from ..parallel import OrbitalMesh
+    if not isinstance(mesh, OrbitalMesh):
+        raise TypeError(f"mesh must be an esoo_torch.parallel.OrbitalMesh "
+                        f"(make_orbital_mesh); got {type(mesh).__name__}")
+    if "state" in mesh.shape:
         raise NotImplementedError(
-            "mesh= (sharded integrals and sector tables) needs the "
-            "multi-GPU sharding, not ported yet")
+            "the state axis of a 2-D state x orb mesh "
+            "(make_orbital_state_mesh: data-parallel k-state simulation) "
+            "is not ported yet; use make_orbital_mesh")
+    if "orb" not in mesh.shape:
+        raise ValueError(f"mesh has no 'orb' axis: {mesh.shape}")
+    check_same_device("the solver", device, mesh=mesh)
+
+
+def _place_on_mesh(mesh, h_sp: np.ndarray, g_sp: np.ndarray,
+                   dtype: torch.dtype):
+    """(h on the lead device, g's shards over the mesh) at `dtype`: g
+    sharded on its last axis, each shard sent to its device alone.  The
+    solvers take only a mesh whose size divides m, with the JAX package's
+    message (parallel.shard_problem_tensors pads)."""
+    from ..parallel import shard_problem_tensors
+    d = mesh.shape["orb"]
+    m = int(g_sp.shape[-1])
+    if m % d:
+        raise ValueError(
+            f"spatial dimension {m} not divisible by mesh size {d}; pad the "
+            f"basis or choose a divisor mesh")
+    h, shards = shard_problem_tensors(mesh, h_sp, g_sp)
+    return h.to(dtype), [s.to(dtype) for s in shards]
+
+
+def _check_options(mesh, simulation: str, dispatch: str, device) -> None:
+    _check_mesh(mesh, device)
     if simulation not in ("full", "sector", "auto"):
         raise ValueError("simulation must be 'full', 'sector' or 'auto'")
     # dispatch bounds the length of one compiled TPU program in the JAX
@@ -405,6 +445,46 @@ class _OuterLoopSolver:
         self.outer_loop_callback = outer_loop_callback
         self.checkpoint_dir = checkpoint_dir
 
+    def _set_integrals(self, h_sp: np.ndarray, g_sp: np.ndarray,
+                       dtype: torch.dtype, mesh) -> None:
+        """The spatial integrals at `dtype`: both on the solver's device
+        (`_h_sp`, `_g_sp`), or, with a mesh, h on its lead device and g's
+        shards over it (`_g_shards`; `_g_sp` is then None: no device
+        holds the whole g)."""
+        self.mesh = mesh
+        self._g_shards = None
+        if mesh is None:
+            dev = self.device
+            self._h_sp = torch.as_tensor(np.ascontiguousarray(h_sp),
+                                         device=dev).to(dtype)
+            self._g_sp = torch.as_tensor(np.ascontiguousarray(g_sp),
+                                         device=dev).to(dtype)
+        else:
+            self._h_sp, self._g_shards = _place_on_mesh(
+                mesh, np.asarray(h_sp), np.asarray(g_sp), dtype)
+            self._g_sp = None
+
+    def _rotate(self, U: torch.Tensor):
+        """(h_act, g_act): the integrals rotated at U (the K2 transform on
+        one card, or each shard's K1 chain and a reduction on a mesh)."""
+        h_act = rotate_one_body(self._h_sp, U)
+        if self._g_shards is None:
+            return h_act, rotate_two_body(self._g_sp, U)
+        from ..parallel import rotate_two_body_sharded
+        return h_act, rotate_two_body_sharded(self.mesh, self._g_shards, U)
+
+    def _orbital_objective(self):
+        """(value-and-grad, integral data) of the BB descent: the spatial
+        energy on one device, or the mesh-sharded one."""
+        if self._g_shards is None:
+            return _ORBITAL_VAG, (self._h_sp, self._g_sp)
+        from ..parallel import sharded_spatial_energy
+        vag = getattr(self, "_sharded_vag", None)
+        if vag is None:
+            vag = self._sharded_vag = value_and_grad(
+                sharded_spatial_energy(self.mesh))
+        return vag, (self._h_sp, self._g_shards)
+
     def _loop(self, solve: Callable, extract_rdms: Callable, state0,
               stats: dict, weights: Optional[torch.Tensor] = None,
               final_solve: Optional[Callable] = None):
@@ -414,7 +494,8 @@ class _OuterLoopSolver:
                              self.inner_stopping_tolerance,
                              self.initial_BBstepsize, self.decay_factor))
         return _optorb_loop(
-            solve, extract_rdms, state0, self._U0, self._h_sp, self._g_sp,
+            solve, extract_rdms, state0, self._U0, self._rotate,
+            *self._orbital_objective(),
             *scalars, outer_maxiter=self.maxiter,
             inner_maxiter=self.inner_maxiter, weights=weights,
             final_solve=final_solve,
@@ -455,7 +536,7 @@ class FusedOptOrbVQE(_OuterLoopSolver):
                  device="cuda"):
         self.device = dev = resolve_device(device)
         self.diagnostics = bool(diagnostics)
-        _check_options(mesh, simulation, dispatch)
+        _check_options(mesh, simulation, dispatch, dev)
         self._compiled = _compile_ansatz(ansatz)
 
         if resume_from is not None:
@@ -467,10 +548,7 @@ class FusedOptOrbVQE(_OuterLoopSolver):
                                         type(self).__name__)
         dtype = _to_dtype(dtype) or _to_dtype(h_sp.dtype)
         self.dtype = dtype
-        self._h_sp = torch.as_tensor(np.ascontiguousarray(h_sp),
-                                     device=dev).to(dtype)
-        self._g_sp = torch.as_tensor(np.ascontiguousarray(g_sp),
-                                     device=dev).to(dtype)
+        self._set_integrals(h_sp, g_sp, dtype, mesh)
 
         self.num_spin_orbitals = num_spin_orbitals
         self.ansatz = ansatz
@@ -582,7 +660,7 @@ def _weighted_rdms(sector, weights: torch.Tensor, Vs: torch.Tensor,
     """sum_i w_i (gamma_i, Gamma_i) over k sector states, one at a time."""
     gamma = Gamma = 0.0
     for w, v in zip(weights, Vs):
-        g1, g2 = sector.rdms(v.reshape(sector.nB, sector.nA), tables)
+        g1, g2 = sector.rdms(v.reshape(sector.state_shape), tables)
         gamma = gamma + w * g1
         Gamma = Gamma + w * g2
     return gamma, Gamma
@@ -774,17 +852,14 @@ class FusedOptOrbSSVQE(_OuterLoopSolver):
                  device="cuda"):
         self.device = dev = resolve_device(device)
         self.diagnostics = bool(diagnostics)
-        _check_options(mesh, simulation, dispatch)
+        _check_options(mesh, simulation, dispatch, dev)
         self._compiled = _compile_ansatz(ansatz)
         h_sp, g_sp = (_spatial_tensors if _spatial_tensors is not None
                       else _spatial_integrals(problem, integral_tensors,
                                               type(self).__name__))
         dtype = _to_dtype(dtype) or _to_dtype(h_sp.dtype)
         self.dtype = dtype
-        self._h_sp = torch.as_tensor(np.ascontiguousarray(h_sp),
-                                     device=dev).to(dtype)
-        self._g_sp = torch.as_tensor(np.ascontiguousarray(g_sp),
-                                     device=dev).to(dtype)
+        self._set_integrals(h_sp, g_sp, dtype, mesh)
         self.num_spin_orbitals = N = num_spin_orbitals
         self.ansatz = ansatz
 
@@ -814,9 +889,8 @@ class FusedOptOrbSSVQE(_OuterLoopSolver):
         else:
             sec, init = found
             self._sector = sec
-            self._init = torch.as_tensor(
-                init[:, : sec.dim].reshape(self.k, sec.nB, sec.nA),
-                device=dev).to(dtype)
+            self._init = torch.as_tensor(sec.to_native(init),
+                                         device=dev).to(dtype)
         if weight_vector is None:
             weight_vector = [self.k - i for i in range(self.k)]
         self._weights = torch.as_tensor(
@@ -873,10 +947,10 @@ class FusedOptOrbSSVQE(_OuterLoopSolver):
         """The result with its transition RDMs and, when `diagnostics`,
         the per-state diagnostics; `mix` (k, k) re-expresses the
         eigenstates as mix[:, I]-weighted combinations of the raw states
-        (MCVQE's contracted basis).  A full-space run carries neither
-        (None, as in the JAX package: rerun with simulation='sector' for
-        them)."""
-        if self._sector is None:
+        (MCVQE's contracted basis).  A full-space run carries neither, and
+        nor does a sector on the pairs kernel (None, as in the JAX
+        package: transition RDMs need the string kernel)."""
+        if self._sector is None or self._sector.kernel != "strings":
             return FusedOptOrbEigensolverResult(
                 eigenvalues=_numpy(es), optimal_point=_numpy(thetas),
                 optimal_partial_unitary=_numpy(U),
@@ -952,15 +1026,14 @@ class FusedOptOrbMCVQE(FusedOptOrbSSVQE):
                 batch.append((vecs[i] + vecs[j]) / np.sqrt(2))
                 batch.append((vecs[i] - vecs[j]) / np.sqrt(2))
         sec = self._sector
-        h_act = rotate_one_body(self._h_sp, U)
-        g_act = rotate_two_body(self._g_sp, U)
+        h_act, g_act = self._rotate(U)
         if sec is None:
             V0 = torch.as_tensor(np.stack(batch),
                                  device=self.device).to(self.dtype)
             return _numpy(rdm_energy(self._compiled.apply_raw(V0, theta),
                                      *expand_spin_tensors(h_act, g_act)))
-        stack = np.stack([sec.project_full(v)[: sec.dim] for v in batch])
-        V0 = torch.as_tensor(stack.reshape(-1, sec.nB, sec.nA),
+        stack = np.stack([sec.project_full(v) for v in batch])
+        V0 = torch.as_tensor(sec.to_native(stack),
                              device=self.device).to(self.dtype)
         vals = _sector_values(sec, h_act, g_act)
         return _numpy(sec.quadform_values(sec.apply_matrix(V0, theta), vals))
@@ -1026,11 +1099,9 @@ class FusedOptOrbVQD(FusedOptOrbSSVQE):
             # deflation works when beta exceeds the energy gap: a bound
             # from the integrals at the starting partial unitary
             with torch.no_grad():
-                bound = float(
-                    torch.sum(torch.abs(rotate_one_body(self._h_sp,
-                                                        self._U0)))
-                    + torch.sum(torch.abs(rotate_two_body(self._g_sp,
-                                                          self._U0)))) + 10.0
+                h0, g0 = self._rotate(self._U0)
+                bound = float(torch.sum(torch.abs(h0))
+                              + torch.sum(torch.abs(g0))) + 10.0
             betas = [bound] * (self.k - 1)
         if len(betas) < self.k - 1:
             raise ValueError("betas must have length k-1")

@@ -10,7 +10,7 @@ with the dtype and the device.
 Three routes, as in the JAX package:
   * sector:     a UCC-family circuit over an occupation-basis initial state
                 runs in its particle-number sector (sim/sector.py, string
-                kernels); the sector Hamiltonian's sigma operators are
+                or pairwise kernels); the sector Hamiltonian's values are
                 built once per operator;
   * fermionic:  any other Jordan-Wigner circuit: the full statevector and
                 the direct RDM contraction (sim/rdm.py::rdm_energy);
@@ -22,6 +22,7 @@ Three routes, as in the JAX package:
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
 import numpy as np
@@ -40,11 +41,11 @@ _SECTOR_CACHE: Dict[tuple, object] = {}
 
 def _sector_for(circuit: QuantumCircuit):
     """SectorUCC for a UCC-family circuit with its own occupation-basis
-    initial state, or None when the circuit is not sector-eligible (or
-    its sector does not factorize over strings, the one kernel ported).
-    Cached on the circuit fingerprint; the SectorUCC keeps its device
-    tables per dtype and device."""
-    key = circuit.fingerprint()
+    initial state, or None when the circuit is not sector-eligible.
+    Cached on the circuit fingerprint and the ESOO_SECTOR_KERNEL override
+    (which picks the kernel); the SectorUCC keeps its device tables per
+    dtype and device."""
+    key = (circuit.fingerprint(), os.environ.get("ESOO_SECTOR_KERNEL"))
     if key in _SECTOR_CACHE:
         return _SECTOR_CACHE[key]
     sec = None

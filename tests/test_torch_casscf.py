@@ -33,6 +33,7 @@ from esoo_torch.convert import tensors_from_numpy
 from esoo_torch.orbital_optimization import casscf as TC
 from esoo_torch.sim import strings as TS
 from esoo_torch.solvers import davidson as TD
+from esoo_torch.parallel import make_orbital_state_mesh
 from test_torch_engine import same_eri_engine  # noqa: F401
 
 jax.config.update("jax_enable_x64", True)
@@ -482,8 +483,12 @@ def test_casscf_options_validated_as_in_jax(h2_631g, monkeypatch):
     def make(**kw):
         return FusedOptOrbCASSCF(4, problem=h2_631g, device="cpu", **kw)
 
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # mesh= is ported: a non-mesh raises TypeError, a 2-D state x orb
+    # mesh NotImplementedError (its state axis is not ported)
+    with pytest.raises(TypeError, match="OrbitalMesh"):
         make(mesh=object())
+    with pytest.raises(NotImplementedError, match="state axis"):
+        make(mesh=make_orbital_state_mesh(2, 2, devices=["cpu"] * 4))
     # compact storage: the JAX package's int8 stacks
     comp = make(table_storage="compact")
     jcomp = JCASSCF(4, problem=h2_631g, table_storage="compact")

@@ -271,7 +271,8 @@ def test_chain_route_and_k1_at_the_casscf_shape(card):
     gemm.reset_launch_counts()
     out = gemm.rotate_two_body_cuda(g, u)
     torch.cuda.synchronize()
-    assert gemm.route_launch_counts() == {"fused": 0, "chain": 4}
+    assert gemm.route_launch_counts() == {"fused": 0, "chain": 4,
+                                          "shard": 0}
     _close(out, gemm.rotate_two_body_plain(g, u))
     x = g.reshape(m, m ** 3)
     _close(gemm.matmul(x, u, trans_x=True),
@@ -391,7 +392,8 @@ def test_one_pass_transform_at_the_full_space_shape(card):
     gemm.reset_launch_counts()
     out = gemm.rotate_two_body_cuda(g, u)
     torch.cuda.synchronize()
-    assert gemm.route_launch_counts() == {"fused": 2, "chain": 0}
+    assert gemm.route_launch_counts() == {"fused": 2, "chain": 0,
+                                          "shard": 0}
     _close(out, gemm.rotate_two_body_plain(g, u))
 
 
@@ -484,3 +486,101 @@ def test_class_optorb_h2_on_the_card_matches_the_cpu(card, kind):
                                rtol=0, atol=1e-8)
     assert routes["chain"] == 0
     assert routes["fused"] == 2 * len(r_gpu.metrics["hamiltonian_time"]) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,m_loc,n", [(112, 28, 14), (56, 14, 4),
+                                       (12, 3, 5)])
+def test_rotate_two_body_shard_matches_plain(card, dtype, m, m_loc, n):
+    """One shard's partial transform (four K1 launches, stage 4 over the
+    local axis) against its plain version, and the shards' sum against
+    the unsharded transform."""
+    rng = np.random.default_rng(m + m_loc + n)
+    g = torch.as_tensor(rng.normal(size=(m,) * 4) / m, device=card).to(dtype)
+    u = torch.as_tensor(np.linalg.qr(rng.normal(size=(m, n)))[0],
+                        device=card).to(dtype)
+    gemm.reset_launch_counts()
+    parts = []
+    for d in range(m // m_loc):
+        g_loc = g[..., d * m_loc:(d + 1) * m_loc].contiguous()
+        u_loc = u[d * m_loc:(d + 1) * m_loc].contiguous()
+        out = gemm.rotate_two_body_shard(g_loc, u, u_loc)
+        _close(out, gemm.rotate_two_body_shard_plain(g_loc, u, u_loc))
+        parts.append(out)
+    torch.cuda.synchronize()
+    assert gemm.route_launch_counts()["shard"] == 4 * (m // m_loc)
+    assert gemm.launch_counts()["gemm.matmul"] == 4 * (m // m_loc)
+    _close(sum(parts), gemm.rotate_two_body_plain(g, u))
+
+
+def _pairs_sector(n, parts):
+    from esoo_torch import HartreeFock, UCCSD
+    from esoo_torch.sim.sector import SectorUCC
+    return SectorUCC(UCCSD(n, parts, initial_state=HartreeFock(n, parts)),
+                     2 * n, kernel="pairs")
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pairs_kernels_on_the_card_match_the_cpu(card, dtype):
+    """The pairwise sector kernels on the card (n = 4, (2, 2)): state,
+    theta-gradient of the energy, values, energy and RDMs against the
+    same code on the CPU at float64."""
+    sec = _pairs_sector(4, (2, 2))
+    rng = np.random.default_rng(4)
+    N = 8
+    h = rng.normal(size=(N, N))
+    g = rng.normal(size=(N,) * 4)
+    h, g = (h + h.T) / 2, g + g.transpose(1, 0, 3, 2)
+    th = rng.normal(size=len(sec._excs)) * 0.3
+    out = {}
+    for dev, dt in ((card, dtype), (torch.device("cpu"), torch.float64)):
+        x = torch.as_tensor(th, device=dev).to(dt).requires_grad_(True)
+        vals = sec.build_values(torch.as_tensor(h, device=dev).to(dt),
+                                torch.as_tensor(g, device=dev).to(dt))
+        E = sec.energy_values(x, vals)
+        (grad,) = torch.autograd.grad(E, x)
+        v = sec.state(x.detach())
+        out[dev.type] = [E.detach(), grad, v, *sec.rdms(v)]
+    tol = 5e-6 if dtype == torch.float32 else 1e-12
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.device.type == "cuda"
+        err = float((a.double().cpu() - b).abs().max())
+        assert err <= tol * max(1.0, float(b.abs().max()))
+
+
+def test_pairs_vqe_on_the_card_matches_the_cpu(card, monkeypatch):
+    from esoo_torch import FusedOptOrbVQE, HartreeFock, UCCSD
+    from esoo_torch.chem import MoleculeDriver
+    monkeypatch.setenv("ESOO_SECTOR_KERNEL", "pairs")
+    p = MoleculeDriver(atom="H 0 0 0; H 0 0 0.735", basis="6-31g").run()
+    runs = []
+    for device in ("cuda", "cpu"):
+        s = FusedOptOrbVQE(4, UCCSD(2, (1, 1),
+                                    initial_state=HartreeFock(2, (1, 1))),
+                           problem=p, device=device)
+        assert s._sector.kernel == "pairs"
+        runs.append(s.compute_minimum_energy().eigenvalue)
+    assert abs(runs[0] - runs[1]) <= 1e-8
+
+
+def test_mesh_on_the_card_matches_the_cpu(card):
+    """FusedOptOrbCASSCF on H4 6-31G -> 8 over four logical shards on one
+    card: the card's run against the CPU's 4-shard run (1e-8), every
+    rotation through the shard route."""
+    from esoo_torch import FusedOptOrbCASSCF
+    from esoo_torch.chem import MoleculeDriver
+    from esoo_torch.parallel import make_orbital_mesh
+    p = MoleculeDriver(atom="H 0 0 0; H 0 0 1.23; H 0 0 2.46; H 0 0 3.69",
+                       basis="6-31g").run()
+    runs = []
+    for dev in ("cuda", "cpu"):
+        gemm.reset_launch_counts()
+        r = FusedOptOrbCASSCF(8, problem=p, device=dev,
+                              mesh=make_orbital_mesh(devices=[dev] * 4)
+                              ).compute_minimum_energy()
+        runs.append(r.eigenvalue)
+        if dev == "cuda":
+            routes = gemm.route_launch_counts()
+            assert routes["shard"] == 16 * (r.outer_iterations + 1)
+            assert routes["fused"] == routes["chain"] == 0
+    assert abs(runs[0] - runs[1]) <= 1e-8

@@ -40,6 +40,7 @@ from esoo_torch import (FusedOptOrbAdaptVQE, FusedOptOrbMCVQE,
                         OccupationState, UCCSD)
 from esoo_torch.ops import BravyiKitaevMapper, ParityMapper
 from esoo_torch.sim.sector import SectorUCC
+from esoo_torch.parallel import make_orbital_state_mesh
 from test_torch_engine import same_eri_engine  # noqa: F401
 
 jax.config.update("jax_enable_x64", True)
@@ -381,8 +382,10 @@ def test_error_paths(h2_631g, monkeypatch):
         ssvqe(initial_states=[HartreeFock(2, (1, 1),
                                           qubit_mapper=BravyiKitaevMapper())])
     assert ssvqe(simulation="full").simulation == "full"
-    with pytest.raises(NotImplementedError, match="sharding"):
+    with pytest.raises(TypeError, match="OrbitalMesh"):
         ssvqe(mesh=object())
+    with pytest.raises(NotImplementedError, match="state axis"):
+        ssvqe(mesh=make_orbital_state_mesh(2, 2, devices=["cpu"] * 4))
     with pytest.raises(ValueError, match="dispatch"):
         ssvqe(dispatch="three")
     with pytest.raises(ValueError, match="k=5"):

@@ -19,6 +19,7 @@ from esoo_torch import FusedOptOrbVQE, HartreeFock, UCCSD
 from esoo_torch.chem import MoleculeDriver
 from esoo_torch.convert import tensors_from_numpy
 from esoo_torch.utils import resolve_device
+from esoo_torch.parallel import make_orbital_state_mesh
 from test_torch_engine import same_eri_engine  # noqa: F401
 
 REFERENCE = -1.8661038079694765     # tests/test_optorb_e2e.py (decimal 3)
@@ -172,8 +173,11 @@ def test_float32_run_on_carried_tensors(h2_631g):
 
 
 def test_options_outside_the_slice_raise(h2_631g):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="OrbitalMesh"):
         _port(h2_631g, mesh=object())
+    with pytest.raises(NotImplementedError, match="state axis"):
+        _port(h2_631g,
+              mesh=make_orbital_state_mesh(2, 2, devices=["cpu"] * 4))
     # the full-space simulator is ported: simulation='full' is taken
     assert _port(h2_631g, simulation="full").simulation == "full"
     with pytest.raises(TypeError):
@@ -222,7 +226,8 @@ def test_port_imports_neither_jax_nor_esoo_tpu():
         " 'orbital_optimization.opt_orb_ssvqe',"
         " 'orbital_optimization.opt_orb_mcvqe',"
         " 'orbital_optimization.opt_orb_vqd',"
-        " 'orbital_optimization.opt_orb_adapt_vqe')}\n"
+        " 'orbital_optimization.opt_orb_adapt_vqe', 'parallel.sharded',"
+        " 'utils.profiling')}\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or"
         " m.startswith(('jax.', 'jaxlib', 'esoo_tpu')))\n"
         "print(len(names), bad, sorted(want - set(names)))\n"

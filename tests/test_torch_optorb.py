@@ -35,6 +35,7 @@ from esoo_torch.orbital_optimization import base as TB
 from esoo_torch.orbital_optimization.stiefel import (
     _bb_projected_descent, value_and_grad)
 from esoo_torch.utils import precision_mode
+from esoo_torch.parallel import make_orbital_state_mesh
 from esoo_tpu.orbital_optimization import base as JB
 from test_torch_engine import same_eri_engine  # noqa: F401
 
@@ -408,8 +409,14 @@ def test_parts_on_another_device_raise(problems):
 
 
 def test_mesh_is_not_ported(problems):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    """mesh= is ported (tests/test_torch_parallel.py); what is not: a
+    non-mesh raises TypeError, the state axis of a 2-D mesh
+    NotImplementedError."""
+    with pytest.raises(TypeError, match="OrbitalMesh"):
         optorbvqe(P, problems, mesh=object())
+    with pytest.raises(NotImplementedError, match="state axis"):
+        optorbvqe(P, problems, mesh=make_orbital_state_mesh(
+            2, 2, devices=["cpu"] * 4))
 
 
 def test_wrong_solver_type_and_unitary_shape_raise(problems):

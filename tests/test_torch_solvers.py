@@ -766,3 +766,31 @@ def test_debug_guards():
     x = torch.tensor([0.0], requires_grad=True)
     with pytest.raises(RuntimeError), nan_checks():
         torch.sqrt(x - 1.0).sum().backward()
+
+
+def test_profiling_utils(tmp_path):
+    """utils/profiling.py: PhaseTimer as the JAX package's, trace_to a
+    no-op without a directory, and a Chrome trace holding an annotated
+    span with one; the package exports them with the debug helpers."""
+    import json
+    import esoo_torch.utils as TU
+    from esoo_tpu.utils import PhaseTimer as JPhaseTimer
+    timers = (TU.PhaseTimer(), JPhaseTimer())
+    for t in timers:
+        for name in ("a", "a", "b"):
+            with t.phase(name):
+                pass
+    assert [{k: len(v) for k, v in t.laps.items()} for t in timers] == \
+        [{"a": 2, "b": 1}] * 2
+    assert set(timers[0].totals()) == {"a", "b"}
+    assert timers[0].report().splitlines()[0].strip().startswith("a:")
+    with TU.trace_to(None):
+        pass
+    with TU.trace_to(str(tmp_path)):
+        with TU.annotate("esoo_span"):
+            torch.ones(8).sum()
+    (trace,) = list(tmp_path.iterdir())
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any(e.get("name") == "esoo_span" for e in events)
+    assert {"check_rdm_sanity", "nan_checks", "PhaseTimer", "annotate",
+            "trace_to"} <= set(TU.__all__)

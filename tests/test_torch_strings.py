@@ -214,8 +214,9 @@ def test_kernels_run_on_tables_carried_from_jax(case, h2_631g):
 
 def test_sector_rejects_what_is_not_ported():
     ansatz = UCCSD(2, (1, 1), initial_state=HartreeFock(2, (1, 1)))
-    with pytest.raises(NotImplementedError):
-        SectorUCC(ansatz, 4, kernel="pairs")
+    # the pairwise gather kernels are ported: kernel='pairs' builds them
+    pairs = SectorUCC(ansatz, 4, kernel="pairs")
+    assert pairs.kernel == "pairs" and pairs.state_shape == (pairs.dim + 1,)
     with pytest.raises(ValueError):
         SectorUCC(object(), 4)
     # a parity-mapped circuit is built, and the sector refuses it (its
