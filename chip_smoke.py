@@ -138,9 +138,27 @@ Phases, one JSON line each:
             rotation, BB energy and gradient at the unsharded optimum
             against the unsharded ones; (b) `mesh_h4`: FusedOptOrbVQE and
             the class-based OptOrbVQE on H4 cc-pVTZ -> 8 at f64 on the
-            mesh, each within 1e-6 of its unsharded run.
+            mesh, each within 1e-6 of its unsharded run.  Both solvers
+            hold the sector's string tables sharded over the mesh
+            (table_storage 'sharded');
+  sector_mesh the sector on the mesh, the state axis and the bf16 split:
+            (a) at the casscf phase's final U and vector, the mesh
+            solve's sharded sigma, diagonal and RDMs against the
+            unsharded ones, one sigma's ms and peak bytes on each card
+            both ways; (b) the N=28 solve on 'sharded-compact' tables,
+            maxiter 2 (the first outer energy within 1e-5 of the
+            unsharded one, the Davidson exit); (d) FusedOptOrbSSVQE on H4
+            -> 8 at f64 on a 2 x 2 (state x orb) mesh within 1e-8 of its
+            unsharded run; (e) under force_split(True), sigma and the
+            RDMs at N=28 against the float32 path, their ms both ways,
+            and a FusedOptOrbCASSCF N=28 solve with the casscf gates;
+            the launch counts zeroed just before each solve and read
+            just after.
 `python3 chip_smoke.py --mesh-only` runs device, casscf, the optorb
-phase's H4 class solve and mesh alone (for a four-card machine).
+phase's H4 class solve, mesh and sector_mesh alone (for a four-card
+machine), sector_mesh with (c): H8 -> 32 on 'sharded-compact' tables
+over the mesh, one outer iteration, beside the unsharded one-card
+compact solve (first outer energies within 1e-5, each card's peak).
 Then the kernel table line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises (non-zero exit, no
 result line); so does a machine without CUDA.  Imports nothing of JAX or
@@ -244,6 +262,9 @@ PAIRS_ORACLE_TOL = 1e-10
 # solves against their unsharded runs
 MESH_TOL = 1e-5
 MESH_F64_TOL = 1e-6
+# the sector_mesh phase: FusedOptOrbSSVQE on H4 -> 8 at f64 on the 2 x 2
+# (state x orb) mesh against its unsharded run
+STATE_MESH_F64_TOL = 1e-8
 # BENCH_r02.json's record of this configuration (the JAX package on a
 # TPU v5e, older code): printed beside E, not gated
 BENCH_R02_H8_12 = -10.1839046
@@ -1264,20 +1285,7 @@ def _casscf_gates(r, witness: dict, launches: dict, routes: dict,
     if not E <= trace[0]:
         failed.append(f"energy {E!r} above the first outer energy "
                       f"{trace[0]!r}")
-    # The float32 Davidson stalls above its 1e-6 * max(1, |E|) rule at
-    # nd = 1M: warm solves end by the stagnation exit at residuals of
-    # 2-4e-5, and warm solves restarted from the final vector leave it as
-    # it is, though sigma's own float32 error there is ~40x smaller (the
-    # float64 witness; PERF.md section 6).  So the final solve must end by
-    # one of the solver's own rules, not by maxiter, with its residual
-    # within 10x the rule, and the float64 ground energy at the final
-    # orbitals must agree with E.
-    rn_final = stats["davidson_residuals"][-1]
-    if (stats["davidson_exits"][-1] == "maxiter"
-            or not rn_final <= 10 * 1e-6 * max(1.0, abs(E))):
-        failed.append(f"the final Davidson solve ended by "
-                      f"{stats['davidson_exits'][-1]} with residual "
-                      f"{rn_final!r} (limit 1e-5 * max(1, |E|))")
+    failed += _davidson_exit_gate(r)
     if not abs(witness["energy_f64"] - E) <= H8_F64_WITNESS_TOL:
         failed.append(f"the float64 energy at the final orbitals "
                       f"{witness['energy_f64']!r} differs from {E!r} by "
@@ -1297,6 +1305,25 @@ def _casscf_gates(r, witness: dict, launches: dict, routes: dict,
         failed.append(f"{rotations} rotations but launches {launches}, "
                       f"routes {routes}")
     return failed
+
+
+def _davidson_exit_gate(r) -> list:
+    """The float32 Davidson stalls above its 1e-6 * max(1, |E|) rule at
+    nd = 1M: warm solves end by the stagnation exit at residuals of
+    2-4e-5, and warm solves restarted from the final vector leave it as
+    it is, though sigma's own float32 error there is ~40x smaller (the
+    float64 witness; PERF.md section 6).  So the final solve must end by
+    one of the solver's own rules, not by maxiter, with its residual
+    within 10x the rule (and _casscf_gates holds the float64 ground
+    energy at the final orbitals to E)."""
+    E, stats = r.eigenvalue, r.stage_stats
+    rn_final = stats["davidson_residuals"][-1]
+    if (stats["davidson_exits"][-1] == "maxiter"
+            or not rn_final <= 10 * 1e-6 * max(1.0, abs(E))):
+        return [f"the final Davidson solve ended by "
+                f"{stats['davidson_exits'][-1]} with residual "
+                f"{rn_final!r} (limit 1e-5 * max(1, |E|))"]
+    return []
 
 
 def event_ms(fn, reps: int = 3) -> float:
@@ -1594,14 +1621,14 @@ def phase_full(problem) -> dict:
     return launches
 
 
-def _ssvqe_h4(problem, dtype, device):
+def _ssvqe_h4(problem, dtype, device, **kw):
     import esoo_torch as T
     return T.FusedOptOrbSSVQE(
         num_spin_orbitals=8, ansatz=T.UCCSD(4, (2, 2)),
         initial_states=[T.HartreeFock(4, (2, 2)),
                         T.OccupationState(8, H4_EXCITED_MASK)],
         weight_vector=[2.0, 1.0], problem=problem, maxiter=20,
-        stopping_tolerance=1e-5, dtype=dtype, device=device)
+        stopping_tolerance=1e-5, dtype=dtype, device=device, **kw)
 
 
 def _exact_sector_spectrum(problem, U, n: int, parts):
@@ -1759,7 +1786,8 @@ def _casscf_f64_witness(problem, solver, r, vals32) -> dict:
       energy_f64        the float64 Davidson ground energy at U (tol 1e-9).
 
     The float64 operators take the plain transform (no kernel launch) and
-    the solver's table storage."""
+    the solver's table storage (a mesh's unsharded: dense for 'sharded',
+    compact for 'sharded-compact')."""
     import torch
     from esoo_torch.ops import gemm
     from esoo_torch.orbital_optimization import kernels as K
@@ -1768,10 +1796,12 @@ def _casscf_f64_witness(problem, solver, r, vals32) -> dict:
     f64, dev = torch.float64, solver.device
     sec, tabs32 = solver._sector, solver._sector_tables
     nB, nA = sec.nB, sec.nA
-    tabs64 = sec.device_tables(f64, device=dev, storage=solver.table_storage)
+    storage = {"sharded": "dense", "sharded-compact": "compact"}.get(
+        solver.table_storage, solver.table_storage)
+    tabs64 = sec.device_tables(f64, device=dev, storage=storage)
     x32 = torch.as_tensor(r.optimal_point, device=dev).reshape(nB, nA)
     x32 = x32 / torch.linalg.norm(x32)
-    up = {k: v.double() for k, v in vals32.items()}
+    up = {k: vals32[k].double() for k in ("G2", "FA", "FB")}
     sigma_err = float(torch.linalg.norm(
         sec.sigma_values(x32, vals32, tabs32).double()
         - sec.sigma_values(x32.double(), up, tabs64)))
@@ -2546,12 +2576,22 @@ def phase_pairs(problem) -> dict:
     return launches
 
 
-def phase_mesh(problem, casscf: dict, h4, optorb_energy: float) -> dict:
+def _mesh_devices() -> list:
+    """The 4-shard meshes' devices: the first four cards where the
+    machine has them, else four logical shards on cuda:0."""
+    import torch
+    return ([f"cuda:{i}" for i in range(4)]
+            if torch.cuda.device_count() >= 4 else ["cuda:0"] * 4)
+
+
+def phase_mesh(problem, casscf: dict, h4, optorb_energy: float):
     """The orbital mesh over the integral tensor.  (a) FusedOptOrbCASSCF
     on H8 cc-pVTZ -> 28 (the casscf phase's settings) with g sharded over
     a 4-shard mesh: four logical shards on cuda:0, or the first four
-    cards where the machine has them; the launch counts zeroed just
-    before the solve and read just after.  Gates: every gate of the
+    cards where the machine has them, the sector's string tables sharded
+    over it too (table_storage 'sharded'; the sector_mesh phase holds
+    them); the launch counts zeroed just before the solve and read just
+    after.  Gates: every gate of the
     casscf phase (on the shard route: 16 K1 launches a rotation); the
     first outer energy within MESH_TOL of the unsharded solve's (the
     same U0: the sharded rotation against the unsharded one); and at the
@@ -2564,7 +2604,8 @@ def phase_mesh(problem, casscf: dict, h4, optorb_energy: float) -> dict:
     the JAX package's float32 energy is 1e-3 for the same reason).
     (b) FusedOptOrbVQE and the class-based OptOrbVQE on H4 cc-pVTZ -> 8
     at float64 on a 4-shard mesh, each within MESH_F64_TOL of its
-    unsharded run (the optorb phase's, for the class-based one)."""
+    unsharded run (the optorb phase's, for the class-based one).
+    Returns (the launch counts of (a), its solver, its result)."""
     import numpy as np
     import torch
     from esoo_torch.ops import gemm
@@ -2575,8 +2616,7 @@ def phase_mesh(problem, casscf: dict, h4, optorb_energy: float) -> dict:
                                      rotate_two_body_sharded,
                                      sharded_spatial_energy)
     f32, f64, dev = torch.float32, torch.float64, "cuda"
-    devices = ([f"cuda:{i}" for i in range(4)]
-               if torch.cuda.device_count() >= 4 else ["cuda:0"] * 4)
+    devices = _mesh_devices()
     mesh = make_orbital_mesh(devices=devices)
     t0 = time.perf_counter()
     solver = _casscf_solver(problem, 14, f32, dev, maxiter=10,
@@ -2655,13 +2695,20 @@ def phase_mesh(problem, casscf: dict, h4, optorb_energy: float) -> dict:
 
     # (b) H4 cc-pVTZ -> 8 at float64 on a 4-shard mesh
     import esoo_torch as T
+    from esoo_torch.parallel import ShardedStringTables
 
     def fused(mesh=None):
-        return T.FusedOptOrbVQE(
+        solver = T.FusedOptOrbVQE(
             num_spin_orbitals=8, ansatz=T.UCCSD(
                 4, (2, 2), initial_state=T.HartreeFock(4, (2, 2))),
             problem=h4, maxiter=20, stopping_tolerance=1e-5, dtype=f64,
-            device=dev, mesh=mesh).compute_minimum_energy()
+            device=dev, mesh=mesh)
+        # on a mesh the sector's string tables shard over it too
+        if (mesh is not None) != isinstance(solver._sector_tables,
+                                            ShardedStringTables):
+            raise AssertionError(f"FusedOptOrbVQE(mesh={mesh}) sector "
+                                 f"tables {type(solver._sector_tables)}")
+        return solver.compute_minimum_energy()
 
     t0 = time.perf_counter()
     e_fused = fused().eigenvalue
@@ -2682,23 +2729,295 @@ def phase_mesh(problem, casscf: dict, h4, optorb_energy: float) -> dict:
                       f"{optorb_energy!r}")
     emit("mesh_h4", problem="H4 cc-pVTZ m=56 -> 8 spin orbitals, f64, "
          "g over a 4-shard mesh (m_loc = 14): FusedOptOrbVQE (UCCSD from "
-         "HF, maxiter 20) and the class-based OptOrbVQE (the optorb "
-         "phase's)", devices=devices, fused=e_fused,
+         "HF, maxiter 20; its sector tables sharded too) and the "
+         "class-based OptOrbVQE (the optorb phase's)", devices=devices,
+         fused=e_fused,
          fused_mesh=e_fused_mesh, class_unsharded=optorb_energy,
          class_mesh=e_class_mesh, tolerance=MESH_F64_TOL, fused_s=fused_s,
          fused_mesh_s=fused_mesh_s, class_mesh_s=class_mesh_s,
          gates_failed=failed)
     if failed:
         raise AssertionError("mesh H4 gates failed: " + "; ".join(failed))
-    return launches
+    return launches, solver, r
+
+
+def _as_accurate(got, ref32, ref64, what: str) -> dict:
+    """A float32 result held to the float64 kernel on the same inputs: its
+    error at most twice the reference float32 path's own plus 5e-6 *
+    max(1, max|ref64|) (two float32 sums of up to nd = 1M terms in other
+    orders part by ~sqrt(nd) ulps of the terms: 1.6e-5 between the
+    sharded and unsharded 2-RDM at N=28, each that far from float64).
+    Returns the errors and the float32 paths' difference."""
+    err = float((got.double() - ref64).abs().max())
+    err_ref = float((ref32.double() - ref64).abs().max())
+    limit = 2.0 * err_ref + 5e-6 * max(1.0, float(ref64.abs().max()))
+    if not err <= limit:
+        raise AssertionError(f"{what}: max|err| {err:.3e} against float64 "
+                             f"> {limit:.3e} (the float32 reference's "
+                             f"{err_ref:.3e})")
+    return dict(err_f64=err, reference_err_f64=err_ref,
+                max_abs_diff=float((got - ref32).abs().max()))
+
+
+def _peak_bytes_by_device(fn, devices) -> dict:
+    """The peak bytes one call of `fn` adds on each distinct card of
+    `devices`, above what the card held just before it."""
+    import torch
+    cards = sorted({torch.device(d).index or 0 for d in devices})
+    for i in cards:
+        torch.cuda.synchronize(i)
+    held = {i: torch.cuda.memory_allocated(i) for i in cards}
+    for i in cards:
+        torch.cuda.reset_peak_memory_stats(i)
+    fn()
+    for i in cards:
+        torch.cuda.synchronize(i)
+    return {f"cuda:{i}": torch.cuda.max_memory_allocated(i) - held[i]
+            for i in cards}
+
+
+def _solve_on_cards(solver, devices):
+    """(result, solve seconds, K1/K2 launches and transform routes, each
+    card's peak bytes and the bytes it held before) of one solve, the
+    launch counts zeroed just before it and read just after."""
+    import torch
+    from esoo_torch.ops import gemm
+    cards = sorted({torch.device(d).index or 0 for d in devices})
+    for i in cards:
+        torch.cuda.synchronize(i)
+        torch.cuda.reset_peak_memory_stats(i)
+    held = {f"cuda:{i}": torch.cuda.memory_allocated(i) for i in cards}
+    gemm.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = (solver.compute_energies() if hasattr(solver, "compute_energies")
+         else solver.compute_minimum_energy())
+    for i in cards:
+        torch.cuda.synchronize(i)
+    solve_s = time.perf_counter() - t0
+    return (r, solve_s, gemm.launch_counts(), gemm.route_launch_counts(),
+            {f"cuda:{i}": torch.cuda.max_memory_allocated(i) for i in cards},
+            held)
+
+
+def phase_sector_mesh(h8, casscf: dict, mesh_solver, h4,
+                      n32: bool = False) -> dict:
+    """The sector's string tables on the mesh (parallel.shard_sector_tables,
+    the kernels of sim/sharded_strings.py), the state axis of the 2-D
+    mesh, and the opt-in bf16 split, on the mesh phase's devices:
+      (a) the mesh phase's H8 -> 28 CASSCF (its casscf gates are that
+          phase's): table_storage 'sharded'; at the unsharded solve's
+          final U and vector, the sharded sigma, diagonal and RDMs
+          against the unsharded ones, each as accurate as the unsharded
+          one against the float64 kernel on the same inputs
+          (_as_accurate), one sigma's ms both ways and the peak bytes it
+          adds on each card;
+      (b) the same solve with table_storage='compact', maxiter 2:
+          'sharded-compact', the first outer energy within MESH_TOL of
+          the unsharded solve's from the same U0, the Davidson exit gate,
+          16 K1 launches a rotation;
+      (c) with n32 (`--mesh-only`): H8 -> 32 on the mesh, 'auto' ->
+          'sharded-compact', one outer iteration, beside the unsharded
+          one-iteration compact solve on cuda:0: the first outer energies
+          within MESH_TOL, the Davidson exit gate, each card's peak;
+      (d) H4 cc-pVTZ -> 8 FusedOptOrbSSVQE (the excited phase's
+          configuration) at f64 on make_orbital_state_mesh(n_orb=2,
+          n_state=2), within STATE_MESH_F64_TOL of its unsharded run (the
+          4-shard FusedOptOrbVQE on sharded tables is the mesh phase's
+          mesh_h4);
+      (e) split, at N=28 f32 under force_split(True) on cuda:0: sigma and
+          the RDMs at the fixed inputs of (a) against the float32 path
+          (_as_accurate), each one's ms both ways, and a
+          FusedOptOrbCASSCF solve with the casscf gates, its solve time
+          beside the unsplit one's.  Nothing is gated on speed.
+    Returns the launch counts of the solves it drives, by path."""
+    import torch
+    import esoo_torch as T
+    from esoo_torch.ops import split_precision as sp
+    from esoo_torch.orbital_optimization import kernels as K
+    from esoo_torch.parallel import (ShardedStringTables, make_orbital_mesh,
+                                     make_orbital_state_mesh)
+    f32, f64, dev = torch.float32, torch.float64, "cuda"
+    devices = _mesh_devices()
+    mesh = make_orbital_mesh(devices=devices)
+    paths, failed, out = {}, [], {}
+
+    # (a) the kernels at the unsharded optimum
+    sec, tabs = mesh_solver._sector, mesh_solver._sector_tables
+    if (mesh_solver.table_storage != "sharded"
+            or not isinstance(tabs, ShardedStringTables)):
+        failed.append(f"the mesh phase's tables {mesh_solver.table_storage!r}"
+                      f" ({type(tabs).__name__})")
+    U0 = torch.as_tensor(casscf["U"], device=dev)
+    V0 = torch.as_tensor(casscf["V"], device=dev).reshape(sec.nB, sec.nA)
+    h_so, g_so = K.expand_spin_tensors(*mesh_solver._rotate(U0))
+    dense = sec.device_tables(f32, device=dev)    # the casscf phase's
+    vals_u = sec.build_values(h_so, g_so, dense)
+    vals_s = sec.build_values(h_so, g_so, tabs)
+    # the float64 kernels on the same float32 inputs, cast up (the f64
+    # witness's dense tables, cached on the sector)
+    dense64 = sec.device_tables(f64, device=dev)
+    vals64 = {k: vals_u[k].double() for k in ("G2", "FA", "FB")}
+    ops = {"sigma": lambda t, v, x: sec.sigma_values(x, v, t),
+           "diagonal": lambda t, v, x: sec.diagonal_values(v, t),
+           "rdms": lambda t, v, x: sec.rdms(x, t)}
+
+    def parts(name, out):
+        return (dict(zip(("gamma", "Gamma"), out)) if name == "rdms"
+                else {name: out})
+
+    ref64 = {}
+    for name, fn in ops.items():
+        ref64.update(parts(name, fn(dense64, vals64, V0.double())))
+    err = {}
+    for name, fn in ops.items():
+        got = parts(name, fn(tabs, vals_s, V0))
+        ref = parts(name, fn(dense, vals_u, V0))
+        for p in got:
+            err[p] = _as_accurate(got[p], ref[p], ref64[p], f"sharded {p}")
+    ops = {name: functools.partial(fn, x=V0) for name, fn in ops.items()}
+    sigma_ms = {"sharded": time_ms(lambda: ops["sigma"](tabs, vals_s), 10, 2),
+                "unsharded": time_ms(lambda: ops["sigma"](dense, vals_u),
+                                     10, 2)}
+    peaks_a = {"sharded": _peak_bytes_by_device(
+        lambda: ops["sigma"](tabs, vals_s), devices),
+        "unsharded": _peak_bytes_by_device(
+            lambda: ops["sigma"](dense, vals_u), ["cuda:0"])}
+    out["a"] = dict(table_storage=mesh_solver.table_storage,
+                    shards=len(tabs.MA), q_pad=tabs.q_pad,
+                    errors=err, sigma_ms=sigma_ms,
+                    sigma_peak_extra_bytes=peaks_a)
+
+    # (b) the compact composition, maxiter 2
+    solver = _casscf_solver(h8, 14, f32, dev, maxiter=2,
+                            stopping_tolerance=1e-5, dispatch="two",
+                            mesh=mesh, table_storage="compact")
+    r, solve_s, launches, routes, peak, held = _solve_on_cards(solver,
+                                                               devices)
+    paths["casscf_h8_n28_mesh4_compact"] = launches
+    first = r.energy_convergence_list[0]
+    if solver.table_storage != "sharded-compact":
+        failed.append(f"(b) table_storage {solver.table_storage!r}")
+    if not abs(first - casscf["first"]) <= MESH_TOL:
+        failed.append(f"(b) first outer energy {first!r} not within "
+                      f"{MESH_TOL} of the unsharded {casscf['first']!r}")
+    failed += ["(b) " + f for f in _davidson_exit_gate(r)]
+    rotations = r.stage_stats["davidson_solves"]
+    if routes != {"fused": 0, "chain": 0, "shard": 16 * rotations}:
+        failed.append(f"(b) {rotations} rotations, routes {routes}")
+    out["b"] = dict(table_storage=solver.table_storage, energy=r.eigenvalue,
+                    outer_trace=r.energy_convergence_list,
+                    unsharded_first_outer=casscf["first"],
+                    davidson_exits=r.stage_stats["davidson_exits"],
+                    davidson_residuals=r.stage_stats["davidson_residuals"],
+                    solve_s=solve_s, launches=launches,
+                    peak_memory_bytes=peak, held_before_solve_bytes=held)
+    del solver
+
+    # (c) H8 -> 32 on the mesh, one outer iteration
+    if n32:
+        runs = {}
+        for name, mesh_ in (("unsharded", None), ("mesh", mesh)):
+            solver = T.FusedOptOrbCASSCF(
+                num_spin_orbitals=32, problem=h8, maxiter=1,
+                stopping_tolerance=1e-5, dtype=f32, dispatch="two",
+                mesh=mesh_)
+            cards = devices if mesh_ is not None else ["cuda:0"]
+            r, solve_s, launches, routes, peak, held = _solve_on_cards(
+                solver, cards)
+            runs[name] = dict(table_storage=solver.table_storage,
+                              energy=r.eigenvalue,
+                              first_outer=r.energy_convergence_list[0],
+                              davidson_exits=r.stage_stats["davidson_exits"],
+                              davidson_residuals=r.stage_stats[
+                                  "davidson_residuals"],
+                              solve_s=solve_s, launches=launches,
+                              peak_memory_bytes=peak,
+                              held_before_solve_bytes=held)
+            failed += [f"(c) {name} " + f for f in _davidson_exit_gate(r)]
+            if name == "mesh":
+                paths["casscf_h8_n32_mesh4_compact"] = launches
+            del solver
+            torch.cuda.empty_cache()
+        if runs["mesh"]["table_storage"] != "sharded-compact":
+            failed.append(f"(c) table_storage {runs['mesh']['table_storage']!r}")
+        d = abs(runs["mesh"]["first_outer"] - runs["unsharded"]["first_outer"])
+        if not d <= MESH_TOL:
+            failed.append(f"(c) first outer energies {d!r} apart")
+        out["c"] = runs
+
+    # (d) the state axis: H4 SSVQE at f64 on a 2 x 2 mesh
+    state_mesh = make_orbital_state_mesh(n_orb=2, n_state=2,
+                                         devices=devices)
+    e_u = _ssvqe_h4(h4, f64, dev).compute_energies().eigenvalues
+    solver = _ssvqe_h4(h4, f64, dev, mesh=state_mesh)
+    groups = [(str(g[0]), g[1].start, g[1].stop) for g in solver._groups]
+    r, solve_s, launches, routes, _, _ = _solve_on_cards(solver, devices)
+    paths["ssvqe_h4_state_mesh"] = launches
+    d = float(abs(r.eigenvalues - e_u).max())
+    if not d <= STATE_MESH_F64_TOL:
+        failed.append(f"(d) SSVQE on the state mesh {list(r.eigenvalues)} "
+                      f"vs unsharded {list(e_u)}")
+    out["d"] = dict(mesh=state_mesh.shape, groups=groups,
+                    energies=list(r.eigenvalues), unsharded=list(e_u),
+                    max_abs_diff=d, tolerance=STATE_MESH_F64_TOL,
+                    solve_s=solve_s, launches=launches, routes=routes)
+
+    # (e) the bf16 split at N=28 on cuda:0
+    split = {}
+    ops_e = {"sigma": lambda: sec.sigma_values(V0, vals_u, dense),
+             "rdms": lambda: sec.rdms(V0, dense)}
+    prev = sp.force_split(True)
+    try:
+        for name, fn in ops_e.items():
+            sp.force_split(False)
+            ref, ms_f32 = parts(name, fn()), time_ms(fn, 10, 2)
+            sp.force_split(True)
+            got, ms_split = parts(name, fn()), time_ms(fn, 10, 2)
+            split[name] = dict(
+                errors={p: _as_accurate(got[p], ref[p], ref64[p],
+                                        f"split {p}") for p in got},
+                ms_f32=ms_f32, ms_split=ms_split)
+        solver = _casscf_solver(h8, 14, f32, dev, maxiter=10,
+                                stopping_tolerance=1e-5, dispatch="two")
+        r, solve_s, launches, routes, peak, _ = _solve_on_cards(solver,
+                                                                ["cuda:0"])
+        paths["casscf_h8_n28_split"] = launches
+        U = torch.as_tensor(r.optimal_partial_unitary, device=dev)
+        witness = _casscf_f64_witness(h8, solver, r, sec.build_values(
+            *K.expand_spin_tensors(*solver._rotate(U)), dense))
+    finally:
+        sp.force_split(prev)
+    if not abs(r.eigenvalue - H8_CASSCF_REFERENCE) <= H8_CASSCF_TOL:
+        failed.append(f"(e) energy {r.eigenvalue!r} not within "
+                      f"{H8_CASSCF_TOL} of {H8_CASSCF_REFERENCE}")
+    failed += ["(e) " + f for f in _casscf_gates(r, witness, launches,
+                                                  routes)]
+    out["e"] = dict(kernels=split, energy=r.eigenvalue,
+                    unsplit_energy=casscf["energy"],
+                    outer_trace=r.energy_convergence_list,
+                    solve_s=solve_s, unsplit_solve_s=casscf["solve_s"],
+                    peak_memory_bytes=peak, launches=launches,
+                    f64_witness=witness)
+    emit("sector_mesh", problem="H8 cc-pVTZ m=112 -> 28 (and -> 32 with "
+         "--mesh-only) CASSCF on sharded sector tables, H4 cc-pVTZ -> 8 "
+         "SSVQE on the state axis, the bf16 split at N=28", devices=devices,
+         tolerance=["as accurate as the unsharded f32 kernel against "
+                    "f64: 2 x its error + 5e-6*max(1,max|ref|)", MESH_TOL,
+                    STATE_MESH_F64_TOL], timing="ms: time_ms, median of "
+         "10 CUDA-event pairs behind a device spin", **out,
+         gates_failed=failed)
+    if failed:
+        raise AssertionError("sector_mesh gates failed: " + "; ".join(failed))
+    return paths
 
 
 def mesh_only() -> int:
     """`python3 chip_smoke.py --mesh-only`: the kernels' build, the
     unsharded casscf phase, the optorb phase's class-based H4 solve and
-    the mesh phases alone, for a machine of four cards (whose mesh the
-    mesh phase takes: each shard's K1 launches on its own card, the
-    partials summed by torch.cuda.comm.reduce_add).  Prints the phases'
+    the mesh and sector_mesh phases alone (the latter with H8 -> 32, its
+    part (c)), for a machine of four cards (whose mesh the mesh phases
+    take: each shard's K1 launches and sector-table products on its own
+    card, the partials summed by torch.cuda.comm.reduce_add).  Prints the phases'
     lines, the card line and `{"ok": true, ...}` last; a run with no
     arguments drives every path."""
     import torch
@@ -2708,7 +3027,8 @@ def mesh_only() -> int:
     h4 = MoleculeDriver(atom=H4_GEOM, basis="cc-pvtz").run()
     optorb_energy = float(_class_optorbvqe(h4, 4, "cuda")
                           .compute_minimum_energy().eigenvalue)
-    phase_mesh(h8, casscf, h4, optorb_energy)
+    _, mesh_solver, _ = phase_mesh(h8, casscf, h4, optorb_energy)
+    phase_sector_mesh(h8, casscf, mesh_solver, h4, n32=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2745,8 +3065,10 @@ def main() -> int:
     paths["optorbvqe_h4"], optorb_energy = phase_optorb(h4)
     paths.update(phase_chem())
     paths["vqe_pairs_h8_n12"] = phase_pairs(h8)
-    paths["casscf_h8_n28_mesh4"] = phase_mesh(h8, casscf, h4, optorb_energy)
-    del h8, h4
+    paths["casscf_h8_n28_mesh4"], mesh_solver, _ = phase_mesh(
+        h8, casscf, h4, optorb_energy)
+    paths.update(phase_sector_mesh(h8, casscf, mesh_solver, h4))
+    del h8, h4, mesh_solver
 
     table = []
     # K2's source is the one-pass kernel for n <= 8 (the VQE and SSVQE

@@ -27,8 +27,12 @@ sector's operator stacks int8 and runs the operator-chunked kernels
 (sim/strings.py).  `mesh=` (parallel.make_orbital_mesh) shards the m^4
 integral tensor on its last axis over the mesh's devices: each outer
 iteration's rotation and every BB step run shard by shard and reduce on
-the lead device, as in the JAX package; the sector tables stay unsharded
-on the lead device.
+the lead device, as in the JAX package.  The sector's operator stacks
+shard over the mesh too (parallel.shard_sector_tables; `table_storage`
+reads 'sharded', or 'sharded-compact' with the stacks kept int8 and each
+device casting its own shard), and Davidson's sigma, the diagonal, the
+RDMs and the transition RDMs run over the shards
+(sim/sharded_strings.py).
 """
 
 from __future__ import annotations
@@ -240,10 +244,20 @@ class FusedOptOrbCASSCF(_OuterLoopSolver):
         if storage == "auto":
             storage = ("compact" if self._sector.dim > _COMPACT_MIN_ND
                        else "dense")
-        self.table_storage = storage
-        # cached on the (cached) sector: a second solver sends nothing
-        self._sector_tables = self._sector.device_tables(
-            dtype, device=dev, storage=storage)
+        if mesh is not None:
+            # the mesh composes with either storage: the operator stacks
+            # sharded over the mesh, int8 for 'compact' (the dense
+            # kernels' keys, each device casting only its own shard)
+            from ..parallel import shard_sector_tables
+            self.table_storage = ("sharded" if storage == "dense"
+                                  else "sharded-compact")
+            self._sector_tables = shard_sector_tables(
+                mesh, self._sector, dtype, storage=storage)
+        else:
+            self.table_storage = storage
+            # cached on the (cached) sector: a second solver sends nothing
+            self._sector_tables = self._sector.device_tables(
+                dtype, device=dev, storage=storage)
 
         self._v0 = self._sector.hf_matrix(dtype, device=dev).reshape(-1)
         if resume_from is not None:

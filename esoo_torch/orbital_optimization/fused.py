@@ -31,8 +31,15 @@ the last theta's energies at the final U.
 `mesh=` (parallel.make_orbital_mesh) shards the m^4 integral tensor on
 its last axis over the mesh's devices: the rotation of each outer
 iteration and every BB step then run shard by shard and reduce on the
-lead device (parallel/sharded.py), while the eigensolver stage and the
-sector tables stay on the lead device, unsharded.
+lead device (parallel/sharded.py).  On the string kernels the sector's
+operator stacks shard too (parallel.shard_sector_tables): sigma, the RDMs
+and the transition RDMs run over the shards (sim/sharded_strings.py),
+while the gate scan stays on the lead device, as in the JAX package.  A
+2-D mesh (parallel.make_orbital_state_mesh) splits SSVQE's and MCVQE's k
+states into contiguous groups over its 'state' axis: group r runs its
+gate scan and energies on state row r (over that row's table shards),
+and the weighted energy sum and the combined RDMs are formed on the lead
+device.  VQD gathers: it runs its states in sequence on the first row.
 
 Every host decision (a stop test, a line-search branch) reads a device
 scalar, so the loop syncs with the device several times per step.
@@ -134,10 +141,11 @@ def _inner_bb(vag_fn, U0, data, stepsize, tol, decay, maxiter,
 
 def _vqe_stage_fns(sector, compiled, n_active: int, vqe_maxiter: int,
                    dtype: torch.dtype, ftol=None,
-                   stats: Optional[dict] = None):
+                   stats: Optional[dict] = None, tables=None):
     """(run_vqe, extract_rdms) for the eigensolver stage: in the sector
-    (`sector`), or on the full statevector of `compiled` when `sector` is
-    None."""
+    (`sector`, over `tables`: a mesh's sector tables, or None for the
+    lead device's own), or on the full statevector of `compiled` when
+    `sector` is None."""
     gtol = _gtol(dtype)
     N = 2 * n_active
 
@@ -158,14 +166,14 @@ def _vqe_stage_fns(sector, compiled, n_active: int, vqe_maxiter: int,
         return run_vqe, extract_rdms
 
     def run_vqe(theta, h_act, g_act):
-        vals = _sector_values(sector, h_act, g_act)
-        res = _lbfgs(sector.energy_values, theta, (vals,), vqe_maxiter,
-                     gtol, ftol, stats)
+        vals = _sector_values(sector, h_act, g_act, tables)
+        res = _lbfgs(sector.energy_values, theta, (vals, tables),
+                     vqe_maxiter, gtol, ftol, stats)
         return res.x, res.fun
 
     def extract_rdms(theta):
         # sector-native RDMs: never touches the 2^N space
-        return sector.rdms(sector.state_matrix(theta))
+        return sector.rdms(sector.state_matrix(theta, tables), tables)
 
     return run_vqe, extract_rdms
 
@@ -294,8 +302,10 @@ def _attach_vqe_diagnostics(result, solver, theta):
             occ, s2, g1, sd = _rdm_diagnostics(one_rdm(state, N),
                                                two_rdm(state, N))
         else:
+            tables = solver._sector_tables
             occ, s2, g1, sd = _state_diagnostics(
-                solver._sector, solver._sector.state_matrix(theta))
+                solver._sector, solver._sector.state_matrix(theta, tables),
+                tables)
     result.natural_occupations = _numpy(occ)
     result.spin_squared = float(s2)
     result.one_rdm_spatial = _numpy(g1)
@@ -365,19 +375,14 @@ def _sector_or_full(simulation: str, make_sector: Callable):
 
 
 def _check_mesh(mesh, device) -> None:
-    """A mesh must be an OrbitalMesh led by the solver's device, with no
-    state axis (the 2-D state x orb mesh is not ported)."""
+    """A mesh must be an OrbitalMesh led by the solver's device, with an
+    'orb' axis (and, on a 2-D mesh, a 'state' axis outside it)."""
     if mesh is None:
         return
     from ..parallel import OrbitalMesh
     if not isinstance(mesh, OrbitalMesh):
         raise TypeError(f"mesh must be an esoo_torch.parallel.OrbitalMesh "
                         f"(make_orbital_mesh); got {type(mesh).__name__}")
-    if "state" in mesh.shape:
-        raise NotImplementedError(
-            "the state axis of a 2-D state x orb mesh "
-            "(make_orbital_state_mesh: data-parallel k-state simulation) "
-            "is not ported yet; use make_orbital_mesh")
     if "orb" not in mesh.shape:
         raise ValueError(f"mesh has no 'orb' axis: {mesh.shape}")
     check_same_device("the solver", device, mesh=mesh)
@@ -463,6 +468,20 @@ class _OuterLoopSolver:
             self._h_sp, self._g_shards = _place_on_mesh(
                 mesh, np.asarray(h_sp), np.asarray(g_sp), dtype)
             self._g_sp = None
+
+    def _set_sector_tables(self) -> None:
+        """`_sector_tables`: with a mesh and a string-kernel sector, its
+        tables sharded over the mesh's 'orb' axis (each state row holding
+        the shards on a 2-D mesh); else None (the pairs kernel and the
+        full statevector keep the lead device's own tables, as in the
+        JAX package)."""
+        self._sector_tables = None
+        sector = getattr(self, "_sector", None)
+        if (self.mesh is not None and sector is not None
+                and sector.kernel == "strings"):
+            from ..parallel import shard_sector_tables
+            self._sector_tables = shard_sector_tables(self.mesh, sector,
+                                                      self.dtype)
 
     def _rotate(self, U: torch.Tensor):
         """(h_act, g_act): the integrals rotated at U (the K2 transform on
@@ -555,6 +574,7 @@ class FusedOptOrbVQE(_OuterLoopSolver):
         from ..sim.sector import SectorUCC
         self._sector, self.simulation = _sector_or_full(
             simulation, lambda: SectorUCC(ansatz, num_spin_orbitals))
+        self._set_sector_tables()
 
         self._U0 = torch.as_tensor(_initial_partial_unitary(
             initial_partial_unitary, h_sp.shape[0], num_spin_orbitals // 2),
@@ -591,7 +611,8 @@ class FusedOptOrbVQE(_OuterLoopSolver):
         stats = _vqe_stats()
         run_vqe, extract_rdms = _vqe_stage_fns(
             self._sector, self._compiled, self.num_spin_orbitals // 2,
-            self.vqe_maxiter, self.dtype, ftol=self.vqe_ftol, stats=stats)
+            self.vqe_maxiter, self.dtype, ftol=self.vqe_ftol, stats=stats,
+            tables=self._sector_tables)
         E, theta, U, it, trace = self._loop(run_vqe, extract_rdms,
                                             self._theta0, stats)
         return _attach_vqe_diagnostics(FusedOptOrbResult(
@@ -673,58 +694,109 @@ def _weighted_full_rdms(weights: torch.Tensor, states: torch.Tensor,
             torch.tensordot(weights, two_rdm(states, N), dims=1))
 
 
-def _sector_values(sector, h_act, g_act) -> dict:
-    return sector.build_values(*expand_spin_tensors(h_act, g_act))
+def _sector_values(sector, h_act, g_act, tables=None) -> dict:
+    return sector.build_values(*expand_spin_tensors(h_act, g_act), tables)
+
+
+def _state_groups(mesh, k: int, tables, lead) -> list:
+    """The k states' groups over the 'state' axis of a 2-D mesh, as
+    (device, slice of the k states, sector tables): group r is the r-th
+    contiguous slice, on state row r's lead device, over that row's
+    table shards (None where the sector keeps unsharded tables, which it
+    then holds on each row's device).  Without a state axis, one group:
+    every state on the lead device."""
+    S = mesh.shape.get("state", 1) if mesh is not None else 1
+    if k % S:
+        raise ValueError(f"k={k} states not divisible by the state mesh "
+                         f"axis ({S})")
+    if S == 1:
+        return [(lead, slice(None), tables)]
+    D = len(mesh.devices) // S
+    rows = tables.rows if tables is not None else (None,) * S
+    return [(mesh.devices[r * D], slice(r * k // S, (r + 1) * k // S),
+             rows[r]) for r in range(S)]
 
 
 def _ssvqe_stage_fns(sector, compiled, n_active: int, init: torch.Tensor,
-                     weights: torch.Tensor, vqe_maxiter: int,
+                     weights: torch.Tensor, groups: list, vqe_maxiter: int,
                      dtype: torch.dtype, ftol=None,
                      stats: Optional[dict] = None):
     """(run_ssvqe, state_energies, batch_rdms) of the SSVQE stage: the k
     initial states `init` (string matrices (k, nB, nA) in the sector, or
     (k, 2^N) statevectors through `compiled` when `sector` is None) go
-    through one theta as one batched gate scan.  run_ssvqe minimizes the
-    weighted energy sum and returns theta and the k energies (their
-    weighted sum is the L-BFGS minimum); state_energies only evaluates
-    them."""
+    through one theta as one batched gate scan a state group
+    (`groups`, from _state_groups).
+    run_ssvqe minimizes the weighted energy sum and returns theta and the
+    k energies (their weighted sum is the L-BFGS minimum); state_energies
+    only evaluates them.  The energies and the weight-combined RDMs are
+    gathered on the lead device."""
     gtol = _gtol(dtype)
+    lead = init.device
+    inits = [init[sl].to(dev) for dev, sl, _ in groups]
+
+    def gathered(fn):
+        """fn(j, device, tables) of each group, concatenated on the
+        lead device."""
+        outs = [fn(j, dev, tabs).to(lead)
+                for j, (dev, _, tabs) in enumerate(groups)]
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+    def combined(fn):
+        """The weighted RDMs fn(j, device, weights_j, tables) of each
+        group, summed on the lead device."""
+        from ..parallel.sharded import reduce_to
+        parts = [fn(j, dev, weights[sl].to(dev), tabs)
+                 for j, (dev, sl, tabs) in enumerate(groups)]
+        return tuple(reduce_to(lead, list(x)) for x in zip(*parts))
 
     if sector is None:
-        def full_energies(theta, h_so, g_so):
-            return rdm_energy(compiled.apply_raw(init, theta), h_so, g_so)
+        N = 2 * n_active
+
+        def spread(h_act, g_act):
+            h_so, g_so = expand_spin_tensors(h_act, g_act)
+            return [(h_so.to(dev), g_so.to(dev)) for dev, _, _ in groups]
+
+        def full_energies(theta, hg):
+            return gathered(lambda j, dev, _: rdm_energy(
+                compiled.apply_raw(inits[j], theta.to(dev)), *hg[j]))
 
         def full_state_energies(theta, h_act, g_act):
-            return full_energies(theta, *expand_spin_tensors(h_act, g_act))
+            return full_energies(theta, spread(h_act, g_act))
 
         def run_full(theta, h_act, g_act):
-            hg = expand_spin_tensors(h_act, g_act)
-            res = _lbfgs(lambda th: weights @ full_energies(th, *hg), theta,
+            hg = spread(h_act, g_act)
+            res = _lbfgs(lambda th: weights @ full_energies(th, hg), theta,
                          (), vqe_maxiter, gtol, ftol, stats)
-            return res.x, full_energies(res.x, *hg)
+            return res.x, full_energies(res.x, hg)
 
         def full_rdms(theta):
-            return _weighted_full_rdms(weights,
-                                       compiled.apply_raw(init, theta),
-                                       2 * n_active)
+            return combined(lambda j, dev, w, _: _weighted_full_rdms(
+                w, compiled.apply_raw(inits[j], theta.to(dev)), N))
 
         return run_full, full_state_energies, full_rdms
 
+    def values(h_act, g_act):
+        return [_sector_values(sector, h_act.to(dev), g_act.to(dev), tabs)
+                for dev, _, tabs in groups]
+
     def energies(theta, vals):
-        return sector.quadform_values(sector.apply_matrix(init, theta), vals)
+        return gathered(lambda j, dev, tabs: sector.quadform_values(
+            sector.apply_matrix(inits[j], theta.to(dev), tabs), vals[j],
+            tabs))
 
     def state_energies(theta, h_act, g_act):
-        return energies(theta, _sector_values(sector, h_act, g_act))
+        return energies(theta, values(h_act, g_act))
 
     def run_ssvqe(theta, h_act, g_act):
-        vals = _sector_values(sector, h_act, g_act)
+        vals = values(h_act, g_act)
         res = _lbfgs(lambda th: weights @ energies(th, vals), theta, (),
                      vqe_maxiter, gtol, ftol, stats)
         return res.x, energies(res.x, vals)
 
     def batch_rdms(theta):
-        return _weighted_rdms(sector, weights,
-                              sector.apply_matrix(init, theta))
+        return combined(lambda j, dev, w, tabs: _weighted_rdms(
+            sector, w, sector.apply_matrix(inits[j], theta.to(dev), tabs),
+            tabs))
 
     return run_ssvqe, state_energies, batch_rdms
 
@@ -732,7 +804,7 @@ def _ssvqe_stage_fns(sector, compiled, n_active: int, init: torch.Tensor,
 def _vqd_stage_fns(sector, applies, n_active: int, init: torch.Tensor,
                    betas: torch.Tensor, weights: torch.Tensor,
                    vqe_maxiter: int, dtype: torch.dtype, ftol=None,
-                   stats: Optional[dict] = None):
+                   stats: Optional[dict] = None, tables=None):
     """(run_vqd, batch_rdms) of the sequential-deflation stage: state j
     minimizes E_j + sum_{i<j} betas[i] <psi_i|psi_j>^2 against the states
     already found in this call, then reports its deflation-free energy.
@@ -781,13 +853,13 @@ def _vqd_stage_fns(sector, applies, n_active: int, init: torch.Tensor,
         return run_full, full_rdms
 
     def run_vqd(thetas, h_act, g_act):
-        vals = _sector_values(sector, h_act, g_act)
+        vals = _sector_values(sector, h_act, g_act, tables)
         thetas = thetas.clone()
         prev, es = [], []
 
         def deflated(theta, j, P):
-            V = sector.apply_matrix(init[j], theta)
-            e = sector.quadform_values(V, vals)
+            V = sector.apply_matrix(init[j], theta, tables)
+            e = sector.quadform_values(V, vals, tables)
             if j == 0:
                 return e
             ov = P @ V.reshape(-1)
@@ -798,14 +870,15 @@ def _vqd_stage_fns(sector, applies, n_active: int, init: torch.Tensor,
             res = _lbfgs(deflated, thetas[j], (j, P), vqe_maxiter, gtol,
                          ftol, stats)
             thetas[j] = res.x
-            V = sector.apply_matrix(init[j], res.x)
+            V = sector.apply_matrix(init[j], res.x, tables)
             prev.append(V)
-            es.append(sector.quadform_values(V, vals))
+            es.append(sector.quadform_values(V, vals, tables))
         return thetas, torch.stack(es)
 
     def batch_rdms(thetas):
         return _weighted_rdms(sector, weights, torch.stack(
-            [sector.apply_matrix(v, th) for v, th in zip(init, thetas)]))
+            [sector.apply_matrix(v, th, tables)
+             for v, th in zip(init, thetas)]), tables)
 
     return run_vqd, batch_rdms
 
@@ -891,6 +964,8 @@ class FusedOptOrbSSVQE(_OuterLoopSolver):
             self._sector = sec
             self._init = torch.as_tensor(sec.to_native(init),
                                          device=dev).to(dtype)
+        self._set_sector_tables()
+        self._groups = _state_groups(mesh, self.k, self._sector_tables, dev)
         if weight_vector is None:
             weight_vector = [self.k - i for i in range(self.k)]
         self._weights = torch.as_tensor(
@@ -922,8 +997,8 @@ class FusedOptOrbSSVQE(_OuterLoopSolver):
         not optimize again."""
         run, state_energies, batch_rdms = _ssvqe_stage_fns(
             self._sector, self._compiled, self.num_spin_orbitals // 2,
-            self._init, self._weights, self.vqe_maxiter, self.dtype,
-            ftol=self.vqe_ftol, stats=stats)
+            self._init, self._weights, self._groups, self.vqe_maxiter,
+            self.dtype, ftol=self.vqe_ftol, stats=stats)
         return run, batch_rdms, \
             lambda theta, h, g: (theta, state_energies(theta, h, g))
 
@@ -931,8 +1006,10 @@ class FusedOptOrbSSVQE(_OuterLoopSolver):
         return self._theta0
 
     def _eigenstates(self, thetas: torch.Tensor) -> torch.Tensor:
-        """(k, nB, nA): each initial state through the optimized ansatz."""
-        return self._sector.apply_matrix(self._init, thetas)
+        """(k, nB, nA): each initial state through the optimized ansatz
+        (on the lead device, over the first state row's tables)."""
+        return self._sector.apply_matrix(self._init, thetas,
+                                         self._sector_tables)
 
     def _run(self):
         """The outer loop: (energies, thetas, U, n_outer, trace, stats)."""
@@ -957,7 +1034,8 @@ class FusedOptOrbSSVQE(_OuterLoopSolver):
                 energy_convergence_list=[float(e) for e in trace],
                 outer_iterations=it, stage_stats=stats)
         states = self._eigenstates(thetas)
-        t1 = _numpy(_transition_rdm1s(self._sector, states))
+        t1 = _numpy(_transition_rdm1s(self._sector, states,
+                                      self._sector_tables))
         if mix is not None:
             # |I> = sum_a mix[a, I] |raw_a>, orthonormal raw states
             t1 = np.einsum("ai,bj,abps->ijps", mix, mix, t1, optimize=True)
@@ -972,7 +1050,8 @@ class FusedOptOrbSSVQE(_OuterLoopSolver):
             transition_rdm1_spatial=t1,
             stage_stats=stats)
         if self.diagnostics:
-            occ, s2, g1, sd = _states_diagnostics(self._sector, states)
+            occ, s2, g1, sd = _states_diagnostics(self._sector, states,
+                                                  self._sector_tables)
             (result.natural_occupations, result.spin_squared,
              result.one_rdm_spatial, result.spin_density_spatial) = (
                 _numpy(occ), _numpy(s2), _numpy(g1), _numpy(sd))
@@ -1035,8 +1114,10 @@ class FusedOptOrbMCVQE(FusedOptOrbSSVQE):
         stack = np.stack([sec.project_full(v) for v in batch])
         V0 = torch.as_tensor(sec.to_native(stack),
                              device=self.device).to(self.dtype)
-        vals = _sector_values(sec, h_act, g_act)
-        return _numpy(sec.quadform_values(sec.apply_matrix(V0, theta), vals))
+        tabs = self._sector_tables
+        vals = _sector_values(sec, h_act, g_act, tabs)
+        return _numpy(sec.quadform_values(sec.apply_matrix(V0, theta, tabs),
+                                          vals, tabs))
 
     def compute_energies(self) -> FusedOptOrbEigensolverResult:
         with torch.no_grad():
@@ -1114,7 +1195,8 @@ class FusedOptOrbVQD(FusedOptOrbSSVQE):
         run, batch_rdms = _vqd_stage_fns(
             self._sector, self._applies, self.num_spin_orbitals // 2,
             self._init, self._betas, self._weights, self.vqe_maxiter,
-            self.dtype, ftol=self.vqe_ftol, stats=stats)
+            self.dtype, ftol=self.vqe_ftol, stats=stats,
+            tables=self._sector_tables)
         return run, batch_rdms, None
 
     def _theta_start(self) -> torch.Tensor:
@@ -1122,7 +1204,8 @@ class FusedOptOrbVQD(FusedOptOrbSSVQE):
         return th if th.dim() == 2 else th.expand(self.k, -1).clone()
 
     def _eigenstates(self, thetas: torch.Tensor) -> torch.Tensor:
-        return torch.stack([self._sector.apply_matrix(v, th)
+        return torch.stack([self._sector.apply_matrix(v, th,
+                                                      self._sector_tables)
                             for v, th in zip(self._init, thetas)])
 
 
@@ -1159,7 +1242,7 @@ def _append_group(circuit: QuantumCircuit, group) -> QuantumCircuit:
 def _adapt_stage_fns(sector, compiled, n_active: int, R: int, P: int,
                      vqe_maxiter: int, dtype: torch.dtype,
                      grad_tol: torch.Tensor, eig_tol: torch.Tensor,
-                     ftol=None, stats: Optional[dict] = None):
+                     ftol=None, stats: Optional[dict] = None, tables=None):
     """(run_adapt, extract_rdms) of the ADAPT stage: growth by masking
     over R slots of the P-excitation pool (theta has R*P entries,
     unselected ones pinned to zero).  Each growth step screens slot r's
@@ -1175,8 +1258,8 @@ def _adapt_stage_fns(sector, compiled, n_active: int, R: int, P: int,
             h_so, g_so = expand_spin_tensors(h_act, g_act)
             return lambda theta: rdm_energy(compiled.state_fn(theta, dtype),
                                             h_so, g_so)
-        vals = _sector_values(sector, h_act, g_act)
-        return lambda theta: sector.energy_values(theta, vals)
+        vals = _sector_values(sector, h_act, g_act, tables)
+        return lambda theta: sector.energy_values(theta, vals, tables)
 
     def run_adapt(h_act, g_act):
         energy = make_energy(h_act, g_act)
@@ -1211,7 +1294,7 @@ def _adapt_stage_fns(sector, compiled, n_active: int, R: int, P: int,
         if sector is None:
             state = compiled.state_fn(theta, dtype)
             return one_rdm(state, N), two_rdm(state, N)
-        return sector.rdms(sector.state_matrix(theta))
+        return sector.rdms(sector.state_matrix(theta, tables), tables)
 
     return run_adapt, extract_rdms
 
@@ -1268,7 +1351,7 @@ class FusedOptOrbAdaptVQE(FusedOptOrbVQE):
         run_adapt, extract_rdms = _adapt_stage_fns(
             self._sector, self._compiled, self.num_spin_orbitals // 2,
             self._R, self._P, self.vqe_maxiter, self.dtype, *thresholds,
-            ftol=self.vqe_ftol, stats=stats)
+            ftol=self.vqe_ftol, stats=stats, tables=self._sector_tables)
         masks = []
 
         def solve(_, h_act, g_act):

@@ -1,3 +1,4 @@
+from ..sim.sharded_strings import ShardedStringTables
 from .sharded import (
     OrbitalMesh,
     ShardedOrbitalOptimizer,
@@ -14,6 +15,7 @@ from .sharded import (
 __all__ = [
     "OrbitalMesh",
     "ShardedOrbitalOptimizer",
+    "ShardedStringTables",
     "make_orbital_mesh",
     "make_orbital_state_mesh",
     "rotate_two_body_sharded",

@@ -1,8 +1,9 @@
 """Sharding of the orbital-optimization hot path over several devices.
 
-Port of the integral-tensor half of esoo_tpu/parallel/sharded.py.  The
-scale axis is the starting basis: the spatial two-electron tensor is m^4
-values and the transform g . u (x) u (x) u (x) u is the O(m^4 n) hot spot.
+Port of esoo_tpu/parallel/sharded.py.  One scale axis is the starting
+basis: the spatial two-electron tensor is m^4 values and the transform
+g . u (x) u (x) u (x) u is the O(m^4 n) hot spot; the other is the
+active space, whose sector tables and T working set grow with it.
 The JAX package shards it over a `jax.sharding.Mesh` with one controller
 driving every device; the port keeps that model with an in-process device
 list (`OrbitalMesh`): one Python process launches each shard's work on its
@@ -26,8 +27,14 @@ energy arrives on the lead device.  A mesh may name one device several
 times (logical shards on one card, or on the CPU in tests): the layout
 and the arithmetic are the same, only the memory is not spread.
 
-Not ported yet: operator-axis sharding of the sector tables
-(`shard_sector_tables`) and the state axis of a 2-D state x orb mesh.
+The sector's string tables shard too (`shard_sector_tables`): the
+one-body operator stacks MA/MB over the 'orb' axis on their operator
+axis, the kernels over them in sim/sharded_strings.py.  On a 2-D
+(state x orb) mesh (`make_orbital_state_mesh`) the fused excited-state
+solvers split their k states over the 'state' axis, each state row
+holding the sector tables' orb shards; g's shards stay on the first row,
+since the rotation and the orbital step run once per step, not per
+state.
 """
 
 from __future__ import annotations
@@ -99,8 +106,9 @@ def make_orbital_state_mesh(n_orb: int, n_state: int,
                             devices: Optional[Sequence] = None
                             ) -> OrbitalMesh:
     """2-D (state x orb) mesh, the orb axis innermost, as the JAX
-    package's.  The solvers refuse its state axis (data-parallel k-state
-    simulation is not ported yet); the mesh itself is the layout."""
+    package's: row r (devices r n_orb .. r n_orb + n_orb - 1) holds the
+    orb shards of state group r (the fused SSVQE/MCVQE's k states split
+    over the state axis; VQD gathers)."""
     devs = _mesh_devices(n_orb * n_state, devices)
     return OrbitalMesh(devs, {state_axis: n_state, orb_axis: n_orb})
 
@@ -162,14 +170,21 @@ class _ReduceAdd(torch.autograd.Function):
         return (None,) + tuple(grad.to(d) for d in ctx.devices)
 
 
-def _reduce_to_lead(mesh: OrbitalMesh, parts: List[torch.Tensor]
-                    ) -> torch.Tensor:
-    """The partials' sum on the lead device (in shard order)."""
+def reduce_to(device: torch.device, parts: List[torch.Tensor]
+              ) -> torch.Tensor:
+    """The partials' sum on `device` (in shard order): reduce_add across
+    distinct cards, else a plain sum; differentiable."""
     devs = [p.device for p in parts]
     if len(set(devs)) == len(devs) > 1 and \
             all(d.type == "cuda" for d in devs):
-        return _ReduceAdd.apply(mesh.device.index or 0, *parts)
-    return functools.reduce(torch.add, [p.to(mesh.device) for p in parts])
+        return _ReduceAdd.apply(device.index or 0, *parts)
+    return functools.reduce(torch.add, [p.to(device) for p in parts])
+
+
+def _reduce_to_lead(mesh: OrbitalMesh, parts: List[torch.Tensor]
+                    ) -> torch.Tensor:
+    """The partials' sum on the lead device (in shard order)."""
+    return reduce_to(mesh.device, parts)
 
 
 def sharded_rotated_energy(mesh: OrbitalMesh, axis_name: str = "orb"):
@@ -305,9 +320,43 @@ class ShardedOrbitalOptimizer:
 
 def shard_sector_tables(mesh: OrbitalMesh, sector, dtype,
                         axis_name: str = "orb", storage: str = "dense"):
-    """Operator-axis sharding of a sector's string tables (the JAX
-    package's sigma and RDM split across devices): not ported yet.  The
-    solvers keep the sector tables unsharded on the lead device."""
-    raise NotImplementedError(
-        "shard_sector_tables: operator-axis sharding of the sector "
-        "tables, not ported yet")
+    """A string-kernel sector's tables on the mesh (the JAX package's
+    contract): the one-body operator stacks MA/MB zero-padded on their
+    operator axis to a multiple of D = mesh.shape[axis_name] and split
+    into D contiguous shards, each sent to its own mesh device; every
+    other table replicated on the lead device.  storage='compact' keeps
+    each shard int8 (the dense kernels cast it on its own device at each
+    call); 'dense' casts it to `dtype` there.  A 2-D mesh repeats the
+    layout on each state row (`rows`), the orb axis innermost.
+
+    Returns a sim.sharded_strings.ShardedStringTables, which every
+    `tables=` of SectorUCC and SectorCI takes; the string kernels
+    dispatch on its type.  Zero operators add nothing, so the results
+    are the unsharded ones up to the order of the sums."""
+    from ..sim.sharded_strings import ShardedStringTables
+    if getattr(sector, "kernel", None) != "strings":
+        raise ValueError(
+            "shard_sector_tables requires the string-factorized sector "
+            f"kernels (sector.kernel={getattr(sector, 'kernel', None)!r})")
+    if storage not in ("dense", "compact"):
+        raise ValueError("storage must be 'dense' or 'compact'")
+    D = _orb_size(mesh, axis_name)
+    host = sector._str_tabs
+    c = -(-host.MA.shape[0] // D)
+    pad = [(0, c * D - host.MA.shape[0]), (0, 0), (0, 0)]
+    stacks = [np.pad(np.asarray(M, dtype=np.int8), pad)
+              for M in (host.MA, host.MB)]
+
+    def shard(M, d, dev):
+        t = torch.as_tensor(M[d * c:(d + 1) * c], device=dev)
+        return t if storage == "compact" else t.to(dtype)
+
+    rows = []
+    for r in range(len(mesh.devices) // D):
+        devs = mesh.devices[r * D:(r + 1) * D]
+        rows.append(ShardedStringTables(
+            sector.replicated_tables(dtype, device=devs[0]),
+            *([shard(M, d, dev) for d, dev in enumerate(devs)]
+              for M in stacks), storage))
+    rows[0].rows = tuple(rows)
+    return rows[0]

@@ -38,6 +38,7 @@ import torch
 from ..initializations.ci import (enumerate_determinants,
                                   slater_condon_structure)
 from . import strings as _strings
+from .sharded_strings import ShardedStringTables
 
 _bitcount = _strings._bitcount
 
@@ -245,6 +246,20 @@ def _device_rdm_maps(cache: dict, n: int, device, q_pad=None) -> tuple:
 
 def _index(a, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+
+
+def _replicated(tabs):
+    """The lead device's tables dict: a mesh's replicated tables
+    (sharded_strings.ShardedStringTables.rep), or `tabs` itself."""
+    return tabs.rep if isinstance(tabs, ShardedStringTables) else tabs
+
+
+def _q_pad(tabs) -> int:
+    """The operator-axis length of a string kernel's stacks: dense,
+    compact ("MA8") or a mesh's shards."""
+    if isinstance(tabs, ShardedStringTables):
+        return tabs.q_pad
+    return int(tabs["MA8" if "MA8" in tabs else "MA"].shape[0])
 
 
 class SectorUCC:
@@ -522,6 +537,16 @@ class SectorUCC:
         self._dev_tabs[key] = tabs
         return tabs
 
+    def replicated_tables(self, dtype: torch.dtype = torch.float64, *,
+                          device) -> dict:
+        """Every string table but the operator stacks MA/MB, on `device`
+        (the part of a mesh's sector tables, parallel.shard_sector_tables,
+        that the lead device holds whole)."""
+        from ..convert import string_tables_from_numpy
+        host = {k: v for k, v in self._str_tabs._asdict().items()
+                if k not in ("MA", "MB")}
+        return string_tables_from_numpy(host, dtype=dtype, device=device)
+
     def _pairs_device_tables(self, dtype: torch.dtype, device) -> dict:
         """The pairs kernel's device tables (device_tables on a pairs
         sector), cached per (dtype, device) on either kernel."""
@@ -574,8 +599,11 @@ class SectorUCC:
         return tables if tables is not None else \
             self.device_tables(like.dtype, device=like.device)
 
-    def rdm_maps(self, *, device) -> tuple:
-        return _device_rdm_maps(self._rdm_maps, self.num_qubits // 2, device)
+    def rdm_maps(self, *, device, q_pad: int = None) -> tuple:
+        """build_rdm_maps for stacks of operator-axis length `q_pad`
+        (default n^2), as tensors on `device`."""
+        return _device_rdm_maps(self._rdm_maps, self.num_qubits // 2,
+                                device, q_pad)
 
     # -- simulation ----------------------------------------------------------
     def project_full(self, vec_full: np.ndarray) -> np.ndarray:
@@ -619,6 +647,7 @@ class SectorUCC:
                 return V0
             return _ApplyRev.apply(V0, theta, tabs["PARTNER"],
                                    tabs["SFIELD"])
+        tabs = _replicated(tabs)
         return _strings.apply_gates(V0, theta, tabs,
                                     (tabs["M"], tabs["S"], tabs["flat"]))
 
@@ -648,6 +677,17 @@ class SectorUCC:
               ) -> torch.Tensor:
         """Sector amplitudes after the UCC rotations, shape (nd + 1,)."""
         return self._padded(self.state_matrix(theta, tables))
+
+    def to_full(self, v: torch.Tensor) -> torch.Tensor:
+        """Scatter sector amplitudes (any layout `_padded` takes, with
+        leading batch axes) into the full 2^N statevector."""
+        v = self._padded(v)[..., : self.dim]
+        full = v.new_zeros(v.shape[:-1] + (2 ** self.num_qubits,))
+        full[..., _index(self.dets, v.device)] = v
+        return full
+
+    def full_state(self, theta: torch.Tensor) -> torch.Tensor:
+        return self.to_full(self.state(theta))
 
     # -- sector Hamiltonian --------------------------------------------------
     def build_values(self, h_so: torch.Tensor, g_so: torch.Tensor,
@@ -765,6 +805,15 @@ class SectorUCC:
         return self.quadform_values(self.state_matrix(theta, tabs), vals,
                                     tabs)
 
+    def quadform(self, v: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
+        """<v|H|v> over a dense (nd, nd) sector Hamiltonian
+        (build_hamiltonian), v in any layout `_padded` takes."""
+        v = self._padded(v)[: self.dim]
+        return v @ (H @ v)
+
+    def energy(self, theta: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
+        return self.quadform(self.state(theta), H)
+
     # -- sector-native RDMs --------------------------------------------------
     def rdms(self, v: torch.Tensor, tables: dict = None):
         """Spin-orbital (gamma, Gamma) from sector amplitudes (nd or
@@ -777,7 +826,8 @@ class SectorUCC:
         tabs = self._tabs(tables, v)
         if self.kernel == "strings":
             V = v.reshape(-1)[: self.dim].reshape(self.state_shape)
-            return _strings.rdms(V, tabs, self.rdm_maps(device=v.device))
+            return _strings.rdms(V, tabs, self.rdm_maps(
+                device=v.device, q_pad=_q_pad(tabs)))
         N = self.num_qubits
         vp = self._padded(v.reshape(-1))
         v = vp[: self.dim]
@@ -842,11 +892,20 @@ class SectorCI:
         self._str_tabs = _strings.build_string_tables(dets, n, [], [], [])
         self.nA = len(self._str_tabs.A)
         self.nB = len(self._str_tabs.B)
+        self.kernel = "strings"
         self.state_shape = (self.nB, self.nA)
         hf_mask = ((1 << na) - 1) | (((1 << nb) - 1) << n)
         self.init_index = int(np.searchsorted(dets, hf_mask))
         self._dev_tabs = {}
         self._rdm_maps = {}
+        self._content_key = ("SectorCI", N, (int(na), int(nb)))
+
+    def __hash__(self):
+        return hash(self._content_key)
+
+    def __eq__(self, other):
+        return (type(other) is SectorCI
+                and other._content_key == self._content_key)
 
     def device_tables(self, dtype: torch.dtype = torch.float64, *, device,
                       storage: str = "dense") -> dict:
@@ -887,6 +946,17 @@ class SectorCI:
             self._dev_tabs[key] = tabs
         return tabs
 
+    def replicated_tables(self, dtype: torch.dtype = torch.float64, *,
+                          device) -> dict:
+        """The pair maps LIN_A/LIN_B (int64) and CROSS (at `dtype`) on
+        `device`: every table but the operator stacks (the lead device's
+        part of parallel.shard_sector_tables)."""
+        s = self._str_tabs
+        return dict(
+            LIN_A=torch.as_tensor(s.LIN_A.astype(np.int64), device=device),
+            LIN_B=torch.as_tensor(s.LIN_B.astype(np.int64), device=device),
+            CROSS=torch.as_tensor(s.CROSS, device=device).to(dtype))
+
     def rdm_maps(self, *, device, q_pad: int = None) -> tuple:
         """build_rdm_maps for stacks of operator-axis length `q_pad`
         (default n^2), as tensors on `device`."""
@@ -926,9 +996,8 @@ class SectorCI:
         """Spin-orbital (gamma, Gamma) from a normalized (nB, nA) string
         matrix."""
         tabs = self._tabs(tables, V)
-        q_pad = int(tabs["MA8" if "MA8" in tabs else "MA"].shape[0])
         return _strings.rdms(V, tabs, self.rdm_maps(device=V.device,
-                                                    q_pad=q_pad))
+                                                    q_pad=_q_pad(tabs)))
 
     def transition_rdm1(self, U: torch.Tensor, V: torch.Tensor,
                         tables: dict = None) -> torch.Tensor:

@@ -23,7 +23,12 @@ package's; device kernels take a tables dict of tensors
 (sector.SectorUCC.device_tables or convert.string_tables_from_numpy).
 Compact tables (`compact_tables`: int8 stacks under "MA8"/"MB8") route
 build_ops, sigma, rdms, transition_rdm1 and diagonal to their
-operator-chunked variants.
+operator-chunked variants, and a mesh's operator-axis shards
+(parallel.shard_sector_tables, a `sharded_strings.ShardedStringTables`)
+to the sharded variants of sim/sharded_strings.py.  Under
+ops.split_precision.force_split(True) at float32, the products by the
+sign stacks MA/MB (T, the back-contraction, the compact chunks) run as
+exact bf16-split products; G2 @ T stays float32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..ops import split_precision as _sp
 
 
 def _bitcount(a: np.ndarray) -> np.ndarray:
@@ -299,6 +306,38 @@ def apply_gates(V0: torch.Tensor, theta: torch.Tensor, tabs: dict,
                               flat)
 
 
+# -- products by the sign stacks ----------------------------------------------
+
+# T = D v (alpha, beta) and the back-contraction sum_a D_a u_a (alpha,
+# beta), over V's or U's trailing axes; with the backward spec of each
+# (ops/split_precision.py)
+_T_EIN = {"A": "qji,bi->qbj", "B": "qji,ia->qja"}
+_BACK_EIN = {"A": "qji,qbi->bj", "B": "qji,qia->ja"}
+_EIN_BWD = {"qji,bi->qbj": "qji,qbj->bi", "qji,ia->qja": "qji,qja->ia",
+            "qji,qbi->bj": "qji,bj->qbi", "qji,qia->ja": "qji,ja->qia"}
+
+
+def _stack_operand(M: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """A sign stack (int8 or float) as the operand of its products at
+    working dtype `dt`: bf16 on the split path (exact: entries 0, +-1),
+    else `dt`."""
+    return M.to(torch.bfloat16 if _sp.use_split(dt) else dt)
+
+
+def _stack_einsum(ein: str, M: torch.Tensor, X: torch.Tensor
+                  ) -> torch.Tensor:
+    """einsum(ein, M, X) over X's trailing axes (leading batch axes carry
+    through), M a sign stack: the exact bf16 split at float32 under
+    force_split, else one einsum at X's dtype (M cast to it)."""
+    if _sp.use_split(X.dtype):
+        if X.dim() > len(ein.split(",")[1].split("->")[0]):
+            return torch.stack([_stack_einsum(ein, M, x) for x in X])
+        return _sp.exact_einsum(ein, _EIN_BWD[ein], M, X)
+    e, rest = ein.split(",")
+    x, o = rest.split("->")
+    return torch.einsum(f"{e},...{x}->...{o}", M.to(X.dtype), X)
+
+
 # -- compact (int8-stack, operator-chunked) kernel variants -----------------
 #
 # Port of the compact section of esoo_tpu/sim/strings.py.  The dense
@@ -353,6 +392,9 @@ def _t_chunk(V: torch.Tensor, Mc: torch.Tensor, spin: str, out=None):
     """D_a v for one int8 chunk of operators, (c, nB, nA).  spin 'A':
     T[q, b, j] = sum_i M[q, j, i] V[b, i]; 'B': T[q, j, a] =
     sum_i M[q, j, i] V[i, a]."""
+    if _sp.use_split(V.dtype):
+        T = _stack_einsum(_T_EIN[spin], Mc, V)
+        return T if out is None else out.copy_(T)
     Mf = Mc.to(V.dtype)
     if spin == "A":
         return torch.matmul(V, Mf.mT, out=out)
@@ -377,8 +419,11 @@ def _back_contract(Tf: torch.Tensor, G2blk: torch.Tensor, M8: torch.Tensor,
     'B': out[j, a] = sum_{q,i} M[q, j, i] U[q, i, a]."""
     acc = torch.zeros((nB, nA), dtype=Tf.dtype, device=Tf.device)
     for q0, Mc in _chunks(M8):
-        Mf = Mc.to(Tf.dtype)
         Uc = (G2blk[q0:q0 + Mc.shape[0]] @ Tf).reshape(-1, nB, nA)
+        if _sp.use_split(Tf.dtype):
+            acc = acc + _stack_einsum(_BACK_EIN[spin], Mc, Uc)
+            continue
+        Mf = Mc.to(Tf.dtype)
         for Mq, Uq in zip(Mf, Uc):
             if spin == "A":
                 acc.addmm_(Uq, Mq.T)
@@ -475,19 +520,20 @@ def _diagonal_compact(ops: dict, tabs: dict) -> torch.Tensor:
 
 # -- sigma / quadform -------------------------------------------------------
 
-def build_ops(h_so: torch.Tensor, g_so: torch.Tensor, tabs: dict) -> dict:
-    """Sigma-operator dict from spin-orbital integrals in the package
-    convention E = sum h gamma + sum g Gamma: the (P, P) pair coupling
-    G2 = g~ (gathered from g via the LIN tables) and the one-body string
-    matrices F = sum h~ D with h~ = h - sum_q g[p, q, q, s] over same-spin
-    q.  Differentiable in (h, g).  With stacks padded on their operator
-    axis (compact tables), G2 is embedded at the padded block offsets
-    with zero rows and columns for the zero operators."""
+def _sharded(tabs) -> bool:
+    """Whether `tabs` are a mesh's operator-axis shards
+    (sharded_strings.ShardedStringTables) rather than a tables dict."""
+    return not isinstance(tabs, dict)
+
+
+def _pair_coupling(h_so: torch.Tensor, g_so: torch.Tensor, tabs, q: int):
+    """(G2, hA, hB) of build_ops for stacks of operator-axis length q:
+    the pair coupling embedded at the padded block offsets (zero rows
+    and columns for the zero operators past n^2), and the one-body
+    coefficients h~ of each spin, zero-padded to q."""
     dt = h_so.dtype
-    compact = "MA8" in tabs
     P_half = tabs["CROSS"].shape[0] // 2
     nsp = int(round(np.sqrt(P_half)))               # spatial orbitals
-    q = tabs["MA8" if compact else "MA"].shape[0]
     gf = g_so.reshape(-1)
     G2 = gf[tabs["LIN_A"]] - tabs["CROSS"].to(dt) * gf[tabs["LIN_B"]]
     if q != P_half:
@@ -504,6 +550,24 @@ def build_ops(h_so: torch.Tensor, g_so: torch.Tensor, tabs: dict) -> dict:
                                  (0, q - P_half))
     hB = torch.nn.functional.pad((h_so - sB)[nsp:, nsp:].reshape(-1),
                                  (0, q - P_half))
+    return G2, hA, hB
+
+
+def build_ops(h_so: torch.Tensor, g_so: torch.Tensor, tabs: dict) -> dict:
+    """Sigma-operator dict from spin-orbital integrals in the package
+    convention E = sum h gamma + sum g Gamma: the (P, P) pair coupling
+    G2 = g~ (gathered from g via the LIN tables) and the one-body string
+    matrices F = sum h~ D with h~ = h - sum_q g[p, q, q, s] over same-spin
+    q.  Differentiable in (h, g).  With stacks padded on their operator
+    axis (compact tables, a mesh's shards), G2 is embedded at the padded
+    block offsets with zero rows and columns for the zero operators."""
+    if _sharded(tabs):
+        from . import sharded_strings
+        return sharded_strings.build_ops(h_so, g_so, tabs)
+    dt = h_so.dtype
+    compact = "MA8" in tabs
+    q = tabs["MA8" if compact else "MA"].shape[0]
+    G2, hA, hB = _pair_coupling(h_so, g_so, tabs, q)
     if compact:
         FA = _fold_one_body(hA, tabs["MA8"], dt)
         FB = _fold_one_body(hB, tabs["MB8"], dt)
@@ -514,29 +578,40 @@ def build_ops(h_so: torch.Tensor, g_so: torch.Tensor, tabs: dict) -> dict:
 
 
 def _t_tensor(V: torch.Tensor, MA: torch.Tensor, MB: torch.Tensor):
-    """T = [D_a v]_a over the 2 n^2 same-spin operators, (2 P_A, nB*nA);
-    leading batch axes of V carry through, (..., 2 P_A, nB*nA)."""
-    TA = torch.einsum("qji,...bi->...qbj", MA, V)
-    TB = torch.einsum("qji,...ia->...qja", MB, V)
+    """T = [D_a v]_a over the same-spin operators of the stacks MA, MB
+    (_stack_operand), (q_A + q_B, nB*nA); leading batch axes of V carry
+    through, (..., q_A + q_B, nB*nA)."""
+    TA = _stack_einsum(_T_EIN["A"], MA, V)
+    TB = _stack_einsum(_T_EIN["B"], MB, V)
     return torch.cat([TA, TB], dim=-3).flatten(-2)
+
+
+def _back(U: torch.Tensor, MA: torch.Tensor, MB: torch.Tensor):
+    """(alpha, beta) parts of sum_a D_a u_a of U (..., q_A + q_B, nB, nA)
+    over the operators of the stacks MA, MB (_stack_operand), each
+    (..., nB, nA)."""
+    q_A = MA.shape[0]
+    return (_stack_einsum(_BACK_EIN["A"], MA, U[..., :q_A, :, :]),
+            _stack_einsum(_BACK_EIN["B"], MB, U[..., q_A:, :, :]))
 
 
 def sigma(V: torch.Tensor, ops: dict, tabs: dict) -> torch.Tensor:
     """H . v on the string matrix:
     sigma = V FA^T + FB V + sum_a D_a (sum_b g~[a,b] D_b v).
     V (nB, nA), or (k, nB, nA) for k states at once (dense tables)."""
+    if _sharded(tabs):
+        from . import sharded_strings
+        return sharded_strings.sigma(V, ops, tabs)
     if "MA8" in tabs:
         return _sigma_compact(V, ops, tabs)
     dt = V.dtype
     nB, nA = V.shape[-2:]
-    MA = tabs["MA"].to(dt)
-    MB = tabs["MB"].to(dt)
-    P_A = MA.shape[0]
+    MA = _stack_operand(tabs["MA"], dt)
+    MB = _stack_operand(tabs["MB"], dt)
     s1 = V @ ops["FA"].T + ops["FB"] @ V
     T = _t_tensor(V, MA, MB)
     U = (ops["G2"] @ T).unflatten(-1, (nB, nA))
-    s2A = torch.einsum("qji,...qbi->...bj", MA, U[..., :P_A, :, :])
-    s2B = torch.einsum("qji,...qia->...ja", MB, U[..., P_A:, :, :])
+    s2A, s2B = _back(U, MA, MB)
     return s1 + s2A + s2B
 
 
@@ -594,12 +669,15 @@ def rdms(V: torch.Tensor, tabs: dict, maps):
     `maps` is a build_rdm_maps triple (as tensors or arrays) for the
     tables' operator-axis length q_pad."""
     maps = tuple(torch.as_tensor(a, device=V.device) for a in maps)
+    if _sharded(tabs):
+        from . import sharded_strings
+        return sharded_strings.rdms(V, tabs, maps)
     if "MA8" in tabs:
         return _rdms_compact(V, tabs, maps)
     dt = V.dtype
-    MA = tabs["MA"].to(dt)
+    MA = _stack_operand(tabs["MA"], dt)
     q = MA.shape[0]
-    T = _t_tensor(V, MA, tabs["MB"].to(dt))
+    T = _t_tensor(V, MA, _stack_operand(tabs["MB"], dt))
     gpairs = T @ V.reshape(-1)                       # (2 q,)
     G2f = (T @ T.T).reshape(-1)                      # (P*P,)
     return _assemble_rdms(gpairs[:q], gpairs[q:], G2f, maps, dt)
@@ -612,12 +690,12 @@ def transition_rdm1(U: torch.Tensor, V: torch.Tensor,
     blocks are nonzero).  U may carry a leading batch axis
     (k, nB, nA) -> (k, N, N): one T build against the whole bra stack.
     transition_rdm1(v, v, tabs) equals rdms(v)[0]."""
+    if _sharded(tabs):
+        from . import sharded_strings
+        return sharded_strings.transition_rdm1(U, V, tabs)
     dt = V.dtype
     batched = U.dim() == 3
     Ub = U if batched else U[None]
-    P_half = tabs["CROSS"].shape[0] // 2
-    nsp = int(round(np.sqrt(P_half)))
-    N = 2 * nsp
     k = Ub.shape[0]
     if "MA8" in tabs:
         # one (c, nd) chunk of T live at a time
@@ -635,10 +713,22 @@ def transition_rdm1(U: torch.Tensor, V: torch.Tensor,
                           torch.einsum("qji,bi->qbj", MA, V), Ub)
         gb = torch.einsum("qja,kja->kq",
                           torch.einsum("qji,ia->qja", MB, V), Ub)
-    gamma = torch.zeros((k, N, N), dtype=dt, device=V.device)
+    gamma = _transition_gamma(ga, gb, tabs)
+    return gamma if batched else gamma[0]
+
+
+def _transition_gamma(ga: torch.Tensor, gb: torch.Tensor, tabs
+                      ) -> torch.Tensor:
+    """(k, N, N) spin-orbital transition 1-RDMs from the (k, q) pair sums
+    <u|D_a|v> of each spin (the first n^2 of each are the operators)."""
+    P_half = tabs["CROSS"].shape[0] // 2
+    nsp = int(round(np.sqrt(P_half)))
+    N = 2 * nsp
+    k = ga.shape[0]
+    gamma = torch.zeros((k, N, N), dtype=ga.dtype, device=ga.device)
     gamma[:, :nsp, :nsp] = ga[:, : nsp * nsp].reshape(k, nsp, nsp)
     gamma[:, nsp:, nsp:] = gb[:, : nsp * nsp].reshape(k, nsp, nsp)
-    return gamma if batched else gamma[0]
+    return gamma
 
 
 def diagonal(ops: dict, tabs: dict) -> torch.Tensor:
@@ -653,6 +743,9 @@ def diagonal(ops: dict, tabs: dict) -> torch.Tensor:
 
     (same-spin products need the full intermediate sum over j of
     M[a,i,j] M[b,j,i]; cross-spin products factor over the grid)."""
+    if _sharded(tabs):
+        from . import sharded_strings
+        return sharded_strings.diagonal(ops, tabs)
     if "MA8" in tabs:
         return _diagonal_compact(ops, tabs)
     dt = ops["FA"].dtype

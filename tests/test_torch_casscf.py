@@ -484,11 +484,11 @@ def test_casscf_options_validated_as_in_jax(h2_631g, monkeypatch):
         return FusedOptOrbCASSCF(4, problem=h2_631g, device="cpu", **kw)
 
     # mesh= is ported: a non-mesh raises TypeError, a 2-D state x orb
-    # mesh NotImplementedError (its state axis is not ported)
+    # mesh shards g and the sector tables over its orb axis
     with pytest.raises(TypeError, match="OrbitalMesh"):
         make(mesh=object())
-    with pytest.raises(NotImplementedError, match="state axis"):
-        make(mesh=make_orbital_state_mesh(2, 2, devices=["cpu"] * 4))
+    assert make(mesh=make_orbital_state_mesh(
+        2, 2, devices=["cpu"] * 4)).table_storage == "sharded"
     # compact storage: the JAX package's int8 stacks
     comp = make(table_storage="compact")
     jcomp = JCASSCF(4, problem=h2_631g, table_storage="compact")

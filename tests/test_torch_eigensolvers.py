@@ -384,8 +384,13 @@ def test_error_paths(h2_631g, monkeypatch):
     assert ssvqe(simulation="full").simulation == "full"
     with pytest.raises(TypeError, match="OrbitalMesh"):
         ssvqe(mesh=object())
-    with pytest.raises(NotImplementedError, match="state axis"):
-        ssvqe(mesh=make_orbital_state_mesh(2, 2, devices=["cpu"] * 4))
+    # the state axis of a 2-D mesh takes the k states in groups; k not
+    # divisible by it raises the JAX package's ValueError
+    assert len(ssvqe(mesh=make_orbital_state_mesh(
+        2, 2, devices=["cpu"] * 4))._groups) == 2
+    with pytest.raises(ValueError, match=r"k=2 states not divisible by the "
+                       r"state mesh axis \(3\)"):
+        ssvqe(mesh=make_orbital_state_mesh(2, 3, devices=["cpu"] * 6))
     with pytest.raises(ValueError, match="dispatch"):
         ssvqe(dispatch="three")
     with pytest.raises(ValueError, match="k=5"):
@@ -445,3 +450,46 @@ def test_h4_ssvqe_at_full_width_matches_the_smoke_constants():
     np.testing.assert_allclose(r.eigenvalues, ref.eigenvalues, rtol=0,
                                atol=1e-6)
     assert r.outer_iterations == ref.outer_iterations
+
+
+def test_vqd_on_h4_matches_jax_one_outer_iteration(h4_631g, monkeypatch):
+    """FusedOptOrbVQD at n = 4 (H4 6-31G chain -> 8 spin orbitals, HF and
+    the HOMO->LUMO alpha single, betas [3.0], vqe_maxiter 300), one outer
+    iteration, against the JAX package to 1e-10.  The agreement rests on
+    the L-BFGS exits: state 0's solves end by the gradient test, state
+    1's run the full vqe_maxiter in both packages, which take the same
+    300 steps (past one outer iteration the orbital step amplifies what
+    is left, ~1e-4 after 20 with the default betas): asserted on each
+    solve's iteration count."""
+    from esoo_torch.convert import problem_from_numpy
+    from esoo_torch.orbital_optimization import fused
+    import dataclasses
+
+    st = QuantumCircuit(8)
+    for q in (0, 2, 4, 5):
+        st.x(q)
+    ref = JVQD(8, JUCCSD(4, (2, 2)), initial_states=[JHF(4, (2, 2)), st],
+               betas=[3.0], problem=h4_631g, maxiter=1,
+               vqe_maxiter=300).compute_energies()
+    nits = []
+    solve = fused.lbfgs_minimize
+
+    def counted(*args, **kw):
+        res = solve(*args, **kw)
+        nits.append(res.nit)
+        return res
+
+    monkeypatch.setattr(fused, "lbfgs_minimize", counted)
+    r = FusedOptOrbVQD(8, UCCSD(4, (2, 2)),
+                       initial_states=[HartreeFock(4, (2, 2)),
+                                       OccupationState(8, 0b110101)],
+                       betas=[3.0], problem=problem_from_numpy(
+                           dataclasses.asdict(h4_631g)),
+                       maxiter=1, vqe_maxiter=300,
+                       device="cpu").compute_energies()
+    # two states in the loop's solve and again in the final one
+    assert len(nits) == 4, nits
+    assert max(nits[0::2]) < 300 and nits[1::2] == [300, 300], nits
+    assert r.outer_iterations == ref.outer_iterations == 1
+    assert_close(r.eigenvalues, ref.eigenvalues, rtol=1e-10)
+    assert_close(r.optimal_point, ref.optimal_point, rtol=1e-6)

@@ -175,9 +175,12 @@ def test_float32_run_on_carried_tensors(h2_631g):
 def test_options_outside_the_slice_raise(h2_631g):
     with pytest.raises(TypeError, match="OrbitalMesh"):
         _port(h2_631g, mesh=object())
-    with pytest.raises(NotImplementedError, match="state axis"):
-        _port(h2_631g,
-              mesh=make_orbital_state_mesh(2, 2, devices=["cpu"] * 4))
+    # a 2-D mesh is taken: g and the sector tables shard over its orb
+    # axis, the tables on each state row
+    on_2d = _port(h2_631g,
+                  mesh=make_orbital_state_mesh(2, 2, devices=["cpu"] * 4))
+    assert len(on_2d._g_shards) == 2
+    assert len(on_2d._sector_tables.rows) == 2
     # the full-space simulator is ported: simulation='full' is taken
     assert _port(h2_631g, simulation="full").simulation == "full"
     with pytest.raises(TypeError):

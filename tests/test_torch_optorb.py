@@ -409,14 +409,14 @@ def test_parts_on_another_device_raise(problems):
 
 
 def test_mesh_is_not_ported(problems):
-    """mesh= is ported (tests/test_torch_parallel.py); what is not: a
-    non-mesh raises TypeError, the state axis of a 2-D mesh
-    NotImplementedError."""
+    """mesh= is ported (tests/test_torch_parallel.py): a non-mesh raises
+    TypeError, and a 2-D state x orb mesh shards g over its orb axis, as
+    in the JAX package."""
     with pytest.raises(TypeError, match="OrbitalMesh"):
         optorbvqe(P, problems, mesh=object())
-    with pytest.raises(NotImplementedError, match="state axis"):
-        optorbvqe(P, problems, mesh=make_orbital_state_mesh(
-            2, 2, devices=["cpu"] * 4))
+    on_2d = optorbvqe(P, problems, mesh=make_orbital_state_mesh(
+        2, 2, devices=["cpu"] * 4))
+    assert len(on_2d._sharded["g"]) == 2
 
 
 def test_wrong_solver_type_and_unitary_shape_raise(problems):

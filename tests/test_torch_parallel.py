@@ -217,8 +217,13 @@ def test_mesh_construction_and_refusals():
             TP.make_orbital_mesh(devices=["cuda:0"] * 2)
     with pytest.raises(TypeError, match="OrbitalMesh"):
         TP.shard_problem_tensors(object(), np.eye(4), np.zeros((4,) * 4))
-    with pytest.raises(NotImplementedError, match="operator-axis"):
+    # the JAX package's refusals: a sector off the string kernels, an
+    # unknown storage
+    with pytest.raises(ValueError, match="string-factorized"):
         TP.shard_sector_tables(mesh, None, torch.float64)
+    with pytest.raises(ValueError, match="storage"):
+        TP.shard_sector_tables(mesh, TP_SIM.SectorCI(4, (1, 1)),
+                               torch.float64, storage="int8")
 
 
 # -- the solvers on a mesh -----------------------------------------------------
@@ -381,12 +386,30 @@ def test_solver_mesh_refusals(h2_631g, toy16):
         _t_vqe(mesh=_cpu_mesh(3), **kw)
     with pytest.raises(TypeError, match="OrbitalMesh"):
         _t_vqe(mesh=object(), **kw)
+    # a 2-D mesh: the ground-state solvers shard over its orb axis and
+    # run (its state axis holds one state), as in the JAX package; k
+    # states not divisible by the state axis raise its ValueError
     state_mesh = TP.make_orbital_state_mesh(2, 2, devices=["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="state axis"):
-        _t_vqe(mesh=state_mesh, **kw)
-    with pytest.raises(NotImplementedError, match="state axis"):
-        TP_FUSED.FusedOptOrbCASSCF(4, problem=_Tensors(*toy16[:2]),
-                                   mesh=state_mesh, device="cpu")
+    h2 = problem_from_numpy(dataclasses.asdict(h2_631g))
+    on_state_mesh = _t_vqe(problem=h2, mesh=state_mesh)
+    assert on_state_mesh._sector_tables.rows[1].devices == \
+        list(state_mesh.devices[2:])
+    assert on_state_mesh.compute_minimum_energy().eigenvalue == \
+        pytest.approx(_t_vqe(problem=h2).compute_minimum_energy()
+                      .eigenvalue, abs=1e-9)
+    casscf = TP_FUSED.FusedOptOrbCASSCF(4, problem=_Tensors(*toy16[:2]),
+                                        mesh=state_mesh, maxiter=2,
+                                        device="cpu")
+    assert casscf.table_storage == "sharded"
+    assert np.isfinite(casscf.compute_minimum_energy().eigenvalue)
+    hf = TP_SIM.HartreeFock(2, (1, 1))
+    with pytest.raises(ValueError, match=r"k=3 states not divisible by "
+                       r"the state mesh axis \(2\)"):
+        TP_FUSED.FusedOptOrbSSVQE(
+            4, TP_SIM.UCCSD(2, (1, 1)), initial_states=[
+                hf, TP_SIM.OccupationState(4, 0b0110),
+                TP_SIM.OccupationState(4, 0b1001)],
+            integral_tensors=(h_so, g_so), mesh=state_mesh, device="cpu")
     meta = TP.make_orbital_mesh(devices=["meta"] * 2)
     with pytest.raises(ValueError, match="mesh"):
         _t_vqe(mesh=meta, **kw)
