@@ -23,13 +23,19 @@ Phases, one JSON line each:
             transform (four K1 launches) at the mesh phase's shard
             shapes, (112, 112, 112, 28) with n = 14 and (56, 56, 56, 14)
             with n = 4, beside its bound, its plain version and the
-            torch.matmul chain;
+            torch.matmul chain; the string gate scan (csrc/gate_scan.cu,
+            one launch a direction) against _ApplyRevStr at
+            GATE_SCAN_SHAPES (V, W and dtheta; two calls bit for bit;
+            theta = 0 the identity), each direction timed beside its
+            bound and the plain version;
   main path FusedOptOrbVQE on H4 cc-pVTZ (m=56 -> 8 spin orbitals,
             UCCSD, f32) with the launch counts zeroed before and read
             after; energy gates against the reference values; per-step
             costs of the eigensolver and the orbital step;
   profile   one more warm solve under torch.profiler: device busy share
-            and device time by kernel;
+            and device time by kernel; then one L-BFGS evaluation at its
+            final state: wall, device ms, device events and the gate
+            scan's launches (evaluation_costs);
   casscf    the second main path: FusedOptOrbCASSCF on H8 cc-pVTZ
             (m=112 -> 28 spin orbitals, 1,002,001 determinants, f32,
             maxiter 10) with the launch counts zeroed before and read
@@ -168,7 +174,7 @@ Phases, one JSON line each:
             (112, 8); E, the trace, the solve's wall, L-BFGS evaluations,
             one evaluation's wall, device ms and launches, BB iterations
             and seconds, peak memory, the busy share over three
-            evaluations; (b) the twins of EXAMPLES_DEFAULT (H2 sector
+            evaluations, the gate scan's launches an evaluation; (b) the twins of EXAMPLES_DEFAULT (H2 sector
             callbacks and checkpoint, H4 CASSCF, H2O OptOrbVQE, the LiH
             spectrum), each gated as its test gates it (example_gates),
             with its wall and launches.
@@ -182,6 +188,8 @@ phase's H4 class solve, mesh and sector_mesh alone (for a four-card
 machine), sector_mesh with (c): H8 -> 32 on 'sharded-compact' tables
 over the mesh, one outer iteration, beside the unsharded one-card
 compact solve (first outer energies within 1e-5, each card's peak).
+The main paths of the H4 VQE and SSVQE and the H8 demo must have
+launched the gate scan kernels.
 Then the kernel table line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises (non-zero exit, no
 result line); so does a machine without CUDA.  Imports nothing of JAX or
@@ -521,6 +529,19 @@ K1_SWEEP_N = (4, 8, 12, 14, 16)
 # one shard of g on the `mesh` phase's 4-shard meshes, (m, m_loc, n): H8
 # cc-pVTZ -> 28 and H4 cc-pVTZ -> 8
 MESH_SHARD_SHAPES = ((112, 28, 14), (56, 14, 4))
+# the gate scan's shapes, (name, n, (na, nb), dtype, states): the UCCSD
+# sectors of the H4 main path (nd = 36, 26 gates) and of the H8 -> 16
+# demo (nd = 4,900, 360 gates; one state, and two as SSVQE stacks them)
+# at float32, their type on the card, and n = 9 at (4, 4) (nd = 15,876,
+# 560 gates) at float64, which takes the global route both ways
+GATE_SCAN_SHAPES = (("h4", 4, (2, 2), "float32", 1),
+                    ("h8_16", 8, (4, 4), "float32", 1),
+                    ("h8_16_b2", 8, (4, 4), "float32", 2),
+                    ("n9_44_f64", 9, (4, 4), "float64", 1))
+# operations an amplitude and gate in csrc/gate_scan.cu: M and S (3
+# each), the update (6) forward; M, S, V_{k-1}, perm(V_{k-1}), the dtheta
+# term and its sum, and W's update (6 + 6 + 6 + 5 + 2 + 6) backward
+GATE_SCAN_OPS = {"fwd": 12, "bwd": 31}
 
 # published H100 peaks (NVIDIA data sheets): memory bytes/s and the
 # float32 CUDA-core FLOP/s (the kernels use no tensor cores)
@@ -530,6 +551,21 @@ _PEAKS = (("PCIe", 2.0e12, 51.2e12), ("NVL", 3.9e12, 60.0e12),
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def reset_launch_counts() -> None:
+    """Zero every kernel wrapper's launch count: K1/K2 (ops/gemm.py) and
+    the gate scan (ops/gate_scan.py)."""
+    from esoo_torch.ops import gate_scan, gemm
+    gemm.reset_launch_counts()
+    gate_scan.reset_launch_counts()
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launches since the last reset, by the name
+    of its row in the kernels line."""
+    from esoo_torch.ops import gate_scan, gemm
+    return {**gemm.launch_counts(), **gate_scan.launch_counts()}
 
 
 def nvidia_smi() -> str:
@@ -860,6 +896,7 @@ def phase_kernels(card: str) -> dict:
     at_shard = {f"shard_at_m{mm}_mloc{ml}_n{nn}":
                 _transform_shard(checks, mm, ml, nn, (bw, fl32))
                 for mm, ml, nn in MESH_SHARD_SHAPES}
+    scan = _gate_scan_kernels(checks, (bw, fl32))
     mh = 112
     Mh = mh ** 3
     bounded = [(k1, k1_bytes, k1_flops), (k2, k2_bytes, k2_flops)]
@@ -880,7 +917,8 @@ def phase_kernels(card: str) -> dict:
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    bytes=nbytes, flops=flops)
     (k1_h8, chain_h8), (k1_h8_16, chain_h8_16) = at_casscf[14], at_casscf[16]
-    emit("kernels", kernels=["gemm.matmul", "gemm.rotate_two_body_cuda"],
+    emit("kernels", kernels=["gemm.matmul", "gemm.rotate_two_body_cuda",
+                             "gate_scan.apply_rev_str"],
          checks=checks, tolerance="f32 atol 5e-6*max(1,max|ref|); "
          "f64 1e-12*max(1,max|ref|)", peak_bytes_per_s=bw,
          peak_f32_flops=fl32, matmul=k1, rotate_two_body_cuda=k2,
@@ -890,7 +928,7 @@ def phase_kernels(card: str) -> dict:
          matmul_stage1_m112_sweep=k1_sweep, at_n2_shapes=at_n2,
          rotate_two_body_cuda_m112_n6=at_full,
          rotate_two_body_cuda_m112_n8=at_demo,
-         rotate_two_body_shard=at_shard,
+         rotate_two_body_shard=at_shard, gate_scan=scan,
          timing=f"ms: median over 50 calls after 5 warm-up of CUDA events "
          f"around each call, the calls queued behind a device spin (no host "
          f"launch gaps); kernel_ms: profiler kernel time per call; "
@@ -906,7 +944,125 @@ def phase_kernels(card: str) -> dict:
                 chain_at_m112_n14=chain_h8, chain_at_m112_n16=chain_h8_16,
                 at_m26_n8=at_n2["one_pass"],
                 chain_at_m58_n10=at_n2["chain"], at_m112_n6=at_full,
-                at_m112_n8=at_demo)}
+                at_m112_n8=at_demo),
+            # the row's numbers: one scan forward and backward at the H8 ->
+            # 16 demo's sector, one state (an L-BFGS evaluation's two
+            # launches); ms, plain_ms and bound_ms both directions
+            "gate_scan.apply_rev_str": dict(
+                scan["h8_16"], **{f"at_{k}": v for k, v in scan.items()
+                                  if k != "h8_16"})}
+
+
+def _gate_scan_kernels(checks: list, peak: tuple) -> dict:
+    """The string gate scan K3 (ops/gate_scan.py, csrc/gate_scan.cu) at
+    GATE_SCAN_SHAPES against the plain sim/strings.py::_ApplyRevStr on
+    the same seeded inputs (every fifth theta exactly 0, ADAPT's padded
+    slots): the states V, the cotangent W of V0 and dtheta within
+    check_close's tolerance (5e-6 at f32, 1e-12 at f64, of max(1,
+    max|ref|)); two calls bit for bit; a scan at theta = 0 leaves V0 bit
+    for bit.  Each direction timed (time_ms, and its kernel time under
+    the profiler) beside the plain forward and forward + backward
+    (autograd through _ApplyRevStr; event_ms, host launch gaps included,
+    since its thousands of launches fill the launch queue and time_ms
+    cannot queue them behind a spin; and its kernels' device time) and
+    the bound: the bytes a direction
+    must move (the factored tables, c and s, the states in and out, and
+    the backward's (B, K) partials) at the card's rate, or its
+    operations (GATE_SCAN_OPS) at the float32 rate (float64 at half),
+    whichever is longer.  No single PyTorch call computes the scan:
+    library_ms is null."""
+    import numpy as np
+    import torch
+    from esoo_torch.ops import gate_scan
+    from esoo_torch.sim import HartreeFock, UCCSD, strings
+    from esoo_torch.sim.sector import SectorUCC
+    bw, fl32 = peak
+    sectors, out = {}, {}
+    for name, n, parts, dt, B in GATE_SCAN_SHAPES:
+        dtype = getattr(torch, dt)
+        if (n, parts) not in sectors:
+            sectors[n, parts] = SectorUCC(
+                UCCSD(n, parts, initial_state=HartreeFock(n, parts)), 2 * n)
+        ts = sectors[n, parts]
+        tabs = ts.device_tables(dtype, device="cuda")
+        K, nB, nA = len(ts._excs), ts.nB, ts.nA
+        rng = np.random.default_rng(n)
+        th = rng.normal(size=K) * 0.4
+        th[::5] = 0.0
+        V0 = rng.normal(size=(B, nB, nA))
+        V0 /= np.linalg.norm(V0, axis=(1, 2), keepdims=True)
+        ct = rng.normal(size=V0.shape)
+        th, V0, ct = (torch.as_tensor(a, device="cuda").to(dtype)
+                      for a in (th, V0, ct))
+        c, s = torch.cos(th), torch.sin(th)
+        plan = gate_scan._plan(nB, nA, dtype)
+        fields = strings.gate_fields(tabs)     # the plain version's input
+
+        def fwd():
+            return gate_scan._forward(V0, c, s, tabs)
+
+        V = fwd()
+
+        def bwd():
+            return gate_scan._backward(V, ct, c, s, tabs)
+
+        def plain_fwd():
+            return strings._ApplyRevStr.apply(V0, th, *fields)
+
+        def plain():
+            v, t = V0.clone().requires_grad_(), th.clone().requires_grad_()
+            Vp = strings._ApplyRevStr.apply(v, t, *fields)
+            torch.autograd.backward(Vp, ct)
+            return Vp.detach(), v.grad, t.grad
+
+        W, parts_k = bwd()
+        V2, (W2, parts2) = fwd(), bwd()
+        zero = gate_scan._forward(V0, torch.ones_like(c), torch.zeros_like(s),
+                                  tabs)
+        torch.cuda.synchronize()
+        if not (torch.equal(V, V2) and torch.equal(W, W2)
+                and torch.equal(parts_k, parts2)):
+            raise AssertionError(f"gate scan {name}: two calls differ")
+        if not torch.equal(zero, V0):
+            raise AssertionError(f"gate scan {name}: theta = 0 moved V0")
+        V_ref, W_ref, dth_ref = plain()
+        errs = {what: check_close(got, ref, dtype, f"gate scan {name} {what}")
+                for what, got, ref in (("V", V, V_ref), ("W", W, W_ref),
+                                       ("dtheta", parts_k.sum(0), dth_ref))}
+        routes = {d: plan[d]["route"] for d in ("fwd", "bwd")}
+        checks.append(dict(kernel="gate_scan.apply_rev_str", shape=name,
+                           n=n, particles=parts, states=B, nB=nB, nA=nA,
+                           gates=K, dtype=dt, routes=routes, err=errs,
+                           repeat_bit_identical=True))
+
+        item = V0.element_size()
+        nd = nB * nA
+        tables = K * (nA + nB) * (4 + 4 * item) + 2 * K * item
+        nbytes = {"fwd": tables + 2 * B * nd * item,
+                  "bwd": tables + 3 * B * nd * item + B * K * item}
+        rate = fl32 if dtype == torch.float32 else fl32 / 2
+        ops = {d: GATE_SCAN_OPS[d] * B * nd * K for d in ("fwd", "bwd")}
+        t_bytes = sum(nbytes.values()) / bw * 1e3
+        t_ops = sum(ops.values()) / rate * 1e3
+        rec = dict(
+            fwd_ms=time_ms(fwd), bwd_ms=time_ms(bwd),
+            fwd_kernel_ms=kernel_ms(fwd, match="gate_scan_fwd"),
+            bwd_kernel_ms=kernel_ms(bwd, match="gate_scan_bwd"),
+            plain_fwd_ms=event_ms(plain_fwd, reps=5),
+            plain_ms=event_ms(plain, reps=5),
+            plain_kernel_ms=kernel_ms(plain, reps=3), library_ms=None,
+            max_abs_err=max(errs.values()), routes=routes,
+            threads=plan["threads"], smem_bytes={d: plan[d]["smem"]
+                                                for d in ("fwd", "bwd")},
+            bytes=nbytes, operations=ops,
+            fwd_bound_ms=max(nbytes["fwd"] / bw, ops["fwd"] / rate) * 1e3,
+            bwd_bound_ms=max(nbytes["bwd"] / bw, ops["bwd"] / rate) * 1e3,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            shape=f"UCCSD({n}, {parts}): {B} x ({nB}, {nA}), {K} gates, {dt}")
+        rec["ms"] = rec["fwd_ms"] + rec["bwd_ms"]
+        out[name] = rec
+    return out
 
 
 def _kernels_at_n2_shapes(peak: tuple) -> dict:
@@ -1245,13 +1401,13 @@ def phase_main_path():
     chem_s = time.perf_counter() - t0
     assert problem.num_spatial_orbitals == 56, problem.num_spatial_orbitals
 
-    gemm.reset_launch_counts()
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     r = _solver(problem, 4, torch.float32, "cuda").compute_minimum_energy()
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
-    launches = gemm.launch_counts()
+    launches = launch_counts()
     routes = gemm.route_launch_counts()
 
     t0 = time.perf_counter()
@@ -1343,15 +1499,44 @@ def busy_share(fn) -> tuple:
     return wall, sum(t for _, t in _device_events(prof)) / 1e6
 
 
+def evaluation_costs(vag, theta, vals, reps: int = 5) -> dict:
+    """One L-BFGS evaluation (value and gradient of the sector energy:
+    the gate scan forward and backward and the sigma products) at fixed
+    theta: its wall (host clock over `reps`, synchronized), device ms and
+    device events (torch.profiler: every kernel and copy it launches),
+    and the gate scan kernels' launches an evaluation by direction and
+    route."""
+    import torch
+    from esoo_torch.ops import gate_scan
+    vag(theta, vals)
+    torch.cuda.synchronize()
+    gate_scan.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        vag(theta, vals)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / reps * 1e3
+    scan = {k: v / reps for k, v in gate_scan.route_launch_counts().items()}
+    device_ms, events = device_profile(lambda: vag(theta, vals), reps=3)
+    return dict(lbfgs_evaluation_wall_ms=wall_ms,
+                lbfgs_evaluation_device_ms=device_ms,
+                lbfgs_evaluation_device_events=events,
+                lbfgs_evaluation_gate_scan_launches=scan)
+
+
 def phase_profile(problem) -> None:
-    """Device busy share and time by kernel over one warm main-path run."""
+    """Device busy share and time by kernel over one warm main-path run;
+    then one L-BFGS evaluation at its final state (evaluation_costs)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from esoo_torch.orbital_optimization import kernels as K
+    from esoo_torch.orbital_optimization.stiefel import value_and_grad
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    solver = _solver(problem, 4, torch.float32, "cuda")
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        _solver(problem, 4, torch.float32, "cuda").compute_minimum_energy()
+        r = solver.compute_minimum_energy()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = {}
@@ -1360,12 +1545,19 @@ def phase_profile(problem) -> None:
         by_name[name] = (tot + us, cnt + 1)
     rows = sorted(((tot, name, cnt) for name, (tot, cnt) in by_name.items()),
                   reverse=True)
-    busy_us = sum(r[0] for r in rows)
+    busy_us = sum(row[0] for row in rows)
+    sec = solver._sector
+    U = torch.as_tensor(r.optimal_partial_unitary, device="cuda")
+    theta = torch.as_tensor(r.optimal_point, device="cuda")
+    vals = sec.build_values(*K.expand_spin_tensors(*solver._rotate(U)))
+    per_eval = evaluation_costs(value_and_grad(sec.energy_values), theta,
+                                vals)
     emit("profile", wall_s=wall, device_busy_s=busy_us / 1e6,
          device_busy_share=busy_us / 1e6 / wall,
-         device_events=sum(r[2] for r in rows),
+         device_events=sum(row[2] for row in rows),
+         lbfgs_evaluations=r.stage_stats["lbfgs_evaluations"],
          top_kernels=[dict(name=k[:90], device_ms=d / 1e3, count=c)
-                      for d, k, c in rows[:15]])
+                      for d, k, c in rows[:15]], **per_eval)
 
 
 def _casscf_solver(problem, n_act: int, dtype, device, **kw):
@@ -1408,13 +1600,13 @@ def phase_casscf() -> dict:
     setup_s = time.perf_counter() - t0          # integrals and tables sent
 
     torch.cuda.reset_peak_memory_stats()
-    gemm.reset_launch_counts()
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     r = solver.compute_minimum_energy()
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
-    launches = gemm.launch_counts()
+    launches = launch_counts()
     routes = gemm.route_launch_counts()
     peak_bytes = torch.cuda.max_memory_allocated()
 
@@ -1685,13 +1877,13 @@ def phase_compact(problem) -> dict:
         raise AssertionError(f"table_storage='auto' resolved to "
                              f"{solver.table_storage!r} at N=32")
     torch.cuda.reset_peak_memory_stats()
-    gemm.reset_launch_counts()
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     r = solver.compute_minimum_energy()
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
-    launches = gemm.launch_counts()
+    launches = launch_counts()
     routes = gemm.route_launch_counts()
     peak_bytes = torch.cuda.max_memory_allocated()
 
@@ -1769,13 +1961,13 @@ def phase_full(problem) -> dict:
 
     held_bytes = torch.cuda.memory_allocated()   # earlier phases' too
     torch.cuda.reset_peak_memory_stats()
-    gemm.reset_launch_counts()
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     r = solver.compute_minimum_energy()
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
-    launches = gemm.launch_counts()
+    launches = launch_counts()
     routes = gemm.route_launch_counts()
     peak_bytes = torch.cuda.max_memory_allocated()
     E, trace, stats = r.eigenvalue, r.energy_convergence_list, r.stage_stats
@@ -1883,13 +2075,13 @@ def phase_excited(problem) -> dict:
     from esoo_torch.orbital_optimization import kernels as K
     from esoo_torch.orbital_optimization.stiefel import value_and_grad
     f32 = torch.float32
-    gemm.reset_launch_counts()
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     r = _ssvqe_h4(problem, f32, "cuda").compute_energies()
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
-    launches = gemm.launch_counts()
+    launches = launch_counts()
     routes = gemm.route_launch_counts()
     t0 = time.perf_counter()
     solver = _ssvqe_h4(problem, f32, "cuda")
@@ -1970,7 +2162,7 @@ def phase_excited(problem) -> dict:
             dtype=f64, device=d).compute_minimum_energy().eigenvalue]}
     runs, failed = {}, []
     for name, make in makers.items():
-        gemm.reset_launch_counts()
+        reset_launch_counts()
         card_e = [float(e) for e in make("cuda")]
         fused = gemm.route_launch_counts()["fused"]
         cpu_e = [float(e) for e in make("cpu")]
@@ -2110,11 +2302,11 @@ def phase_parity() -> None:
     from esoo_torch.chem import MoleculeDriver
     from esoo_torch.ops import gemm
     problem = MoleculeDriver(atom=H2_GEOM, basis="6-31g").run()
-    gemm.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     r_gpu = _solver(problem, 2, torch.float64, "cuda").compute_minimum_energy()
     gpu_s = time.perf_counter() - t0
-    launches = gemm.launch_counts()
+    launches = launch_counts()
     routes = gemm.route_launch_counts()
     r_cpu = _solver(problem, 2, torch.float64, "cpu").compute_minimum_energy()
     E = r_gpu.eigenvalue
@@ -2133,11 +2325,11 @@ def phase_parity() -> None:
 
     import esoo_torch
     f64 = torch.float64
-    gemm.reset_launch_counts()
+    reset_launch_counts()
     cas = [_casscf_solver(problem, 2, f64, d,
                           maxiter=20).compute_minimum_energy().eigenvalue
            for d in ("cuda", "cpu")]
-    cas_launches = gemm.launch_counts()
+    cas_launches = launch_counts()
     sa = esoo_torch.FusedOptOrbSACASSCF(
         4, k=2, problem=problem, maxiter=20, dtype=f64,
         device="cuda").compute_energies().eigenvalues
@@ -2205,7 +2397,7 @@ def _parity_full(problem) -> None:
         out = []
         for d in ("cuda", "cpu"):
             solver = make(d)
-            gemm.reset_launch_counts()
+            reset_launch_counts()
             if hasattr(solver, "compute_energies"):
                 es = solver.compute_energies().eigenvalues
             else:
@@ -2374,12 +2566,12 @@ def phase_optorb(h4) -> dict:
         h4, 4, "cuda",
         outer_loop_callback=lambda it, res, orb: evals.append(
             res.cost_function_evals))
-    gemm.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     r = solver.compute_minimum_energy()
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
-    launches = gemm.launch_counts()
+    launches = launch_counts()
     routes = gemm.route_launch_counts()
     peak_mb = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 20
     rebuilds = len(r.metrics["hamiltonian_time"])
@@ -2481,13 +2673,13 @@ def _n2_casscf(basis: str, n_act: int, kw: dict, route: str):
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     held_bytes = torch.cuda.memory_allocated()  # earlier phases' too
-    gemm.reset_launch_counts()
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     r = solver.compute_minimum_energy()
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
-    launches = gemm.launch_counts()
+    launches = launch_counts()
     routes = gemm.route_launch_counts()
     peak_bytes = torch.cuda.max_memory_allocated()
     U = torch.as_tensor(r.optimal_partial_unitary, device=solver.device)
@@ -2632,13 +2824,13 @@ def phase_pairs(problem) -> dict:
     sec = solver._sector
     held_bytes = torch.cuda.memory_allocated()   # earlier phases' too
     torch.cuda.reset_peak_memory_stats()
-    gemm.reset_launch_counts()
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     r = solver.compute_minimum_energy()
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
-    launches = gemm.launch_counts()
+    launches = launch_counts()
     routes = gemm.route_launch_counts()
     peak_bytes = torch.cuda.max_memory_allocated()
     E, stats = r.eigenvalue, r.stage_stats
@@ -2850,13 +3042,13 @@ def phase_mesh(problem, casscf: dict, h4, optorb_energy: float):
     setup_s = time.perf_counter() - t0
     held_bytes = torch.cuda.memory_allocated()   # earlier phases' too
     torch.cuda.reset_peak_memory_stats()
-    gemm.reset_launch_counts()
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     r = solver.compute_minimum_energy()
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
-    launches = gemm.launch_counts()
+    launches = launch_counts()
     routes = gemm.route_launch_counts()
     peak_bytes = torch.cuda.max_memory_allocated()
     E, stats = r.eigenvalue, r.stage_stats
@@ -2878,7 +3070,7 @@ def phase_mesh(problem, casscf: dict, h4, optorb_energy: float):
     del g_whole
     E_m, G_m = value_and_grad(sharded_spatial_energy(mesh))(
         U0, gamma_s, Gamma_s, solver._h_sp, solver._g_shards)
-    gemm.reset_launch_counts()
+    reset_launch_counts()
     rot_m = rotate_two_body_sharded(mesh, solver._g_shards, U0)
     torch.cuda.synchronize()
     at_u = dict(
@@ -3011,14 +3203,14 @@ def _solve_on_cards(solver, devices):
         torch.cuda.synchronize(i)
         torch.cuda.reset_peak_memory_stats(i)
     held = {f"cuda:{i}": torch.cuda.memory_allocated(i) for i in cards}
-    gemm.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     r = (solver.compute_energies() if hasattr(solver, "compute_energies")
          else solver.compute_minimum_energy())
     for i in cards:
         torch.cuda.synchronize(i)
     solve_s = time.perf_counter() - t0
-    return (r, solve_s, gemm.launch_counts(), gemm.route_launch_counts(),
+    return (r, solve_s, launch_counts(), gemm.route_launch_counts(),
             {f"cuda:{i}": torch.cuda.max_memory_allocated(i) for i in cards},
             held)
 
@@ -3250,14 +3442,14 @@ def _run_twin(name: str, argv: list, **prebuilt):
     main = runpy.run_path(os.path.join(root, "examples", f"torch_{name}.py"),
                           run_name=f"torch_{name}")["main"]
     buf = io.StringIO()
-    gemm.reset_launch_counts()
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         got = main(argv, **prebuilt)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return (got, buf.getvalue(), wall, gemm.launch_counts(),
+    return (got, buf.getvalue(), wall, launch_counts(),
             gemm.route_launch_counts())
 
 
@@ -3469,7 +3661,8 @@ def phase_examples(h8) -> dict:
     ground energy at the final orbitals less 1e-6 (SectorCI Davidson at
     float64), E below the RHF electronic energy, every transform launch
     one-pass (at (112, 8)).  Then one L-BFGS evaluation's wall, device ms
-    and launches at the final state, and the card's busy share over three
+    and launches (the gate scan's too) at the final state
+    (evaluation_costs), and the card's busy share over three
     evaluations.  (b) The twins of EXAMPLES_DEFAULT through
     main(["--device", "cuda"]), each gated as its test gates it
     (example_gates), with its wall and launches."""
@@ -3509,14 +3702,7 @@ def phase_examples(h8) -> dict:
     sec = solver._sector
     vals = sec.build_values(*K.expand_spin_tensors(*solver._rotate(U)))
     vag = value_and_grad(sec.energy_values)
-    vag(theta, vals)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(5):
-        vag(theta, vals)
-    torch.cuda.synchronize()
-    eval_wall_ms = (time.perf_counter() - t0) / 5 * 1e3
-    eval_ms, eval_events = device_profile(lambda: vag(theta, vals), reps=3)
+    per_eval = evaluation_costs(vag, theta, vals)
     window_s, busy_s = busy_share(
         lambda: [vag(theta, vals) for _ in range(3)])
     del solver, sec, vals
@@ -3545,9 +3731,7 @@ def phase_examples(h8) -> dict:
          lbfgs_evaluations=stats["lbfgs_evaluations"],
          lbfgs_evaluations_per_solve=stats["lbfgs_evaluations"] / solves,
          bb_iterations=stats["bb_iterations"], bb_s=stats["bb_s"],
-         lbfgs_evaluation_wall_ms=eval_wall_ms,
-         lbfgs_evaluation_device_ms=eval_ms,
-         lbfgs_evaluation_device_events=eval_events,
+         **per_eval,
          busy_window=dict(evaluations=3, wall_s=window_s,
                           device_busy_s=busy_s,
                           device_busy_share=busy_s / window_s),
@@ -3654,7 +3838,14 @@ def main() -> int:
                "gemm.rotate_two_body_cuda": (
                    "esoo_tpu/ops/pallas_kernels.py:108",
                    "esoo_torch/csrc/transform.cu",
-                   {"chain_source": "esoo_torch/csrc/gemm.cu (n > 8)"})}
+                   {"chain_source": "esoo_torch/csrc/gemm.cu (n > 8)"}),
+               # K3 is a lax.scan in the JAX package, no Pallas kernel
+               "gate_scan.apply_rev_str": (
+                   "esoo_tpu/sim/strings.py:303",
+                   "esoo_torch/csrc/gate_scan.cu",
+                   {"backward_replaces": "esoo_tpu/sim/strings.py:324",
+                    "library": "none: no single PyTorch call computes the "
+                    "scan; plain_ms (_ApplyRevStr) is for reference"})}
     # launches: the main paths' runs, each with the counts zeroed just
     # before it; the numbers are at the row's `shape`, other shapes nested
     for name, (replaces, source, extra) in sources.items():
@@ -3667,6 +3858,11 @@ def main() -> int:
             plain_ms=rec.pop("plain_ms"), bound_ms=rec.pop("bound_ms"),
             bound_by=rec.pop("bound_by"), library_ms=rec.pop("library_ms"),
             **extra, **rec))
+    # the sector paths' L-BFGS evaluations ran the gate scan kernels
+    for path in ("vqe_h4", "ssvqe_h4", "example_H8_scale_demo"):
+        if paths[path]["gate_scan.apply_rev_str"] <= 0:
+            raise AssertionError(f"the gate scan kernels never launched on "
+                                 f"the {path} path: {paths[path]}")
     emit("done", total_s=time.perf_counter() - t_start)
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)

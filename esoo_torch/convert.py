@@ -38,9 +38,10 @@ def string_tables_from_numpy(host: dict, *, dtype: torch.dtype,
                              device) -> dict:
     """String tables (a StringTables._asdict() of either package) as the
     port's device tables: index tables int64, float and operator-stack
-    tables at `dtype`, plus the per-gate fields of strings.gate_fields
-    under "M", "S" and "flat".  The host-only string bitmasks A/B are
-    dropped."""
+    tables at `dtype`; on the CPU also the per-gate (K, nd) fields of
+    strings.gate_fields under "M", "S" and "flat", which only the plain
+    gate scan reads (the card's kernels form them from the factored
+    tables).  The host-only string bitmasks A/B are dropped."""
     out = {}
     for k, a in host.items():
         if k in ("A", "B"):
@@ -55,7 +56,8 @@ def string_tables_from_numpy(host: dict, *, dtype: torch.dtype,
         else:
             out[k] = torch.as_tensor(a.astype(np.float64),
                                      device=device).to(dtype)
-    out["M"], out["S"], out["flat"] = _strings.gate_fields(out)
+    if torch.device(device).type == "cpu":
+        out["M"], out["S"], out["flat"] = _strings.gate_fields(out)
     return out
 
 

@@ -507,8 +507,9 @@ class SectorUCC:
                       device, storage: str = "dense") -> dict:
         """The sector's tables as tensors on `device` (float tables at
         `dtype`, index tables int64), cached per (dtype, device,
-        storage).  String kernel: the string tables plus the per-gate
-        fields of strings.gate_fields under "M"/"S"/"flat"; storage='int8'
+        storage).  String kernel: the string tables (on the CPU plus the
+        per-gate fields of strings.gate_fields under "M"/"S"/"flat", the
+        plain gate scan's); storage='int8'
         keeps the MA/MB operator stacks int8 under the dense keys.  Pairs
         kernel: the JAX package's PARTNER/SFIELD gate fields, VIDX/PTN
         row tables, SU/SV/DU/DV pair indices, occf, rdm_SRC/rdm_SG and
@@ -647,9 +648,7 @@ class SectorUCC:
                 return V0
             return _ApplyRev.apply(V0, theta, tabs["PARTNER"],
                                    tabs["SFIELD"])
-        tabs = _replicated(tabs)
-        return _strings.apply_gates(V0, theta, tabs,
-                                    (tabs["M"], tabs["S"], tabs["flat"]))
+        return _strings.apply_gates(V0, theta, _replicated(tabs))
 
     def apply(self, v0: torch.Tensor, theta: torch.Tensor,
               tables: dict = None) -> torch.Tensor:

@@ -11,7 +11,9 @@ V[ib, ia] of shape (nB, nA), and
     with M the touched mask, S the sign field and (pA, pB) the partner
     permutations (the JAX package forms the permutation sandwich
     EB V EA^T as two one-hot GEMMs for the TPU's matrix unit; here it is
-    an index gather, which gives the same numbers exactly);
+    an index gather, which gives the same numbers exactly); on the card
+    `apply_gates` runs all K gates in one kernel launch a direction
+    (ops/gate_scan.py, csrc/gate_scan.cu);
   * the sector Hamiltonian acts through same-spin one-body operators
     D_pq = a+_p a_q, each a signed string permutation, so
         H v = V FA^T + FB V + sum_a D_a (sum_b g~[a, b] D_b v)
@@ -38,6 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops import gate_scan as _gate_scan
 from ..ops import split_precision as _sp
 
 
@@ -295,15 +298,13 @@ class _ApplyRevStr(torch.autograd.Function):
         return W, torch.stack(dths), None, None, None
 
 
-def apply_gates(V0: torch.Tensor, theta: torch.Tensor, tabs: dict,
-                fields=None) -> torch.Tensor:
-    """Gate application on the string matrix with the reversible backward.
-    `fields` (from `gate_fields`) may be passed precomputed."""
-    if int(theta.shape[0]) == 0:
-        return V0
-    M, S, flat = gate_fields(tabs) if fields is None else fields
-    return _ApplyRevStr.apply(V0, theta, M.to(V0.dtype), S.to(V0.dtype),
-                              flat)
+def apply_gates(V0: torch.Tensor, theta: torch.Tensor,
+                tabs: dict) -> torch.Tensor:
+    """Gate application on the string matrix with the reversible backward
+    (ops/gate_scan.py::apply_rev_str): on CUDA tensors the gate scan
+    kernels, one launch forward and one backward on the factored tables;
+    on CPU tensors _ApplyRevStr."""
+    return _gate_scan.apply_rev_str(V0, theta, tabs)
 
 
 # -- products by the sign stacks ----------------------------------------------

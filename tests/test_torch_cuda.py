@@ -584,3 +584,135 @@ def test_mesh_on_the_card_matches_the_cpu(card):
             assert routes["shard"] == 16 * (r.outer_iterations + 1)
             assert routes["fused"] == routes["chain"] == 0
     assert abs(runs[0] - runs[1]) <= 1e-8
+
+
+# -- the string gate scan K3 (csrc/gate_scan.cu) ------------------------------
+
+def _scan_inputs(n, parts, dtype, batch, card, seed=0):
+    """A UCCSD(n, parts) sector's device tables, theta (every fifth one
+    exactly 0: ADAPT's padded slots), states (batch, nB, nA) and a
+    cotangent."""
+    from esoo_torch.sim import HartreeFock, UCCSD
+    from esoo_torch.sim.sector import SectorUCC
+    ts = SectorUCC(UCCSD(n, parts, initial_state=HartreeFock(n, parts)),
+                   2 * n)
+    rng = np.random.default_rng(seed)
+    th = rng.normal(size=len(ts._excs)) * 0.4
+    th[::5] = 0.0
+    V0 = rng.normal(size=(batch, ts.nB, ts.nA))
+    V0 /= np.linalg.norm(V0, axis=(1, 2), keepdims=True)
+    ct = rng.normal(size=V0.shape)
+    f = lambda a: torch.as_tensor(a, device=card).to(dtype)
+    return ts.device_tables(dtype, device=card), f(th), f(V0), f(ct)
+
+
+def _scan_plain(tabs, th, V0, ct):
+    """sim/strings.py::_ApplyRevStr on the card: V, W (the cotangent of
+    V0) and dtheta."""
+    from esoo_torch.sim import strings
+    v, t = V0.clone().requires_grad_(), th.clone().requires_grad_()
+    V = strings._ApplyRevStr.apply(v, t, *strings.gate_fields(tabs))
+    torch.autograd.backward(V, ct)
+    return V.detach(), v.grad, t.grad
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,parts,batch,route", [
+    (4, (2, 2), 1, None), (6, (3, 2), 3, None), (8, (4, 4), 1, None),
+    (8, (4, 4), 3, None), (6, (3, 2), 3, "global"), (9, (4, 4), 1, None)])
+def test_gate_scan_kernel_matches_plain(card, dtype, n, parts, batch, route):
+    """Both directions against _ApplyRevStr: V, W and dtheta, on the route
+    of _plan (n = 9, (4, 4): the global route backward, and forward at
+    float64) or forced onto the global route at a small shape."""
+    from esoo_torch.ops import gate_scan
+    tabs, th, V0, ct = _scan_inputs(n, parts, dtype, batch, card)
+    c, s = torch.cos(th), torch.sin(th)
+    gate_scan.reset_launch_counts()
+    V = gate_scan._forward(V0, c, s, tabs, route)
+    W, dth = gate_scan._backward(V, ct, c, s, tabs, route)
+    torch.cuda.synchronize()
+    plan = gate_scan._plan(V0.shape[1], V0.shape[2], dtype)
+    routes = [route or plan[d]["route"] for d in ("fwd", "bwd")]
+    counts = gate_scan.route_launch_counts()
+    assert counts["fwd"] == counts["bwd"] == 1
+    assert counts["global"] == routes.count("global")
+    V_ref, W_ref, dth_ref = _scan_plain(tabs, th, V0, ct)
+    _close(V, V_ref)
+    _close(W, W_ref)
+    _close(dth.sum(0), dth_ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gate_scan_autograd_and_repeats(card, dtype):
+    """apply_rev_str through autograd (one launch a direction, states with
+    two leading axes) against the plain version; two calls agree bit for
+    bit; an all-zero theta leaves the states exactly."""
+    from esoo_torch.ops import gate_scan
+    tabs, th, V0, ct = _scan_inputs(6, (3, 3), dtype, 4, card, seed=1)
+    V0, ct = V0.reshape(2, 2, *V0.shape[1:]), ct.reshape(2, 2, *ct.shape[1:])
+    runs = []
+    for _ in range(2):
+        gate_scan.reset_launch_counts()
+        v, t = V0.clone().requires_grad_(), th.clone().requires_grad_()
+        V = gate_scan.apply_rev_str(v, t, tabs)
+        torch.autograd.backward(V, ct)
+        torch.cuda.synchronize()
+        assert gate_scan.route_launch_counts()["fwd"] == 1
+        assert gate_scan.route_launch_counts()["bwd"] == 1
+        runs.append((V.detach(), v.grad, t.grad))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    for got, ref in zip(runs[0], _scan_plain(tabs, th, V0, ct)):
+        _close(got, ref)
+    zero = torch.zeros_like(th)
+    assert torch.equal(gate_scan.apply_rev_str(V0, zero, tabs), V0)
+
+
+def test_gate_scan_plan_matches_the_kernel(card):
+    from esoo_torch.ops import gate_scan
+    lib = gate_scan._lib()
+    for nB, nA in ((6, 6), (15, 20), (70, 70), (126, 126), (3432, 3432)):
+        assert lib.esoo_gate_scan_threads(nA * nB) == \
+            gate_scan._threads(nA * nB)
+        for item in (4, 8):
+            for bufs in (0, 2, 4):
+                assert lib.esoo_gate_scan_smem_bytes(nA, nB, item, bufs) == \
+                    gate_scan._smem_bytes(nB, nA, item, bufs)
+
+
+def test_gate_scan_refuses_what_it_does_not_take(card):
+    from esoo_torch.ops import gate_scan
+    tabs, th, V0, _ = _scan_inputs(4, (2, 2), torch.float32, 1, card)
+    with pytest.raises(TypeError):
+        gate_scan.apply_rev_str(V0.double(), th, tabs)
+    with pytest.raises(ValueError, match="do not agree"):
+        gate_scan.apply_rev_str(V0[..., :-1], th, tabs)
+    with pytest.raises(ValueError, match="CUDA device"):
+        gate_scan.apply_rev_str(V0, th.cpu(), tabs)
+
+
+def test_sector_vqe_on_the_card_never_runs_the_plain_scan(card, monkeypatch):
+    """FusedOptOrbVQE on H2 6-31G at float64: every gate scan on the card
+    goes through the kernels, one forward and one backward launch an
+    L-BFGS evaluation, and the energy is the CPU's."""
+    from esoo_torch import FusedOptOrbVQE, HartreeFock, UCCSD
+    from esoo_torch.chem import MoleculeDriver
+    from esoo_torch.ops import gate_scan
+    from esoo_torch.sim import strings
+    p = MoleculeDriver(atom="H 0 0 0; H 0 0 0.735", basis="6-31g").run()
+    energies = {}
+    for device in ("cpu", "cuda"):
+        if device == "cuda":
+            def refuse(*args):
+                raise AssertionError("the plain gate scan ran on the card")
+            monkeypatch.setattr(strings._ApplyRevStr, "apply", refuse)
+        gate_scan.reset_launch_counts()
+        r = FusedOptOrbVQE(
+            4, UCCSD(2, (1, 1), initial_state=HartreeFock(2, (1, 1))),
+            problem=p, dtype=torch.float64, device=device
+        ).compute_minimum_energy()
+        energies[device] = r.eigenvalue
+    counts = gate_scan.route_launch_counts()
+    assert counts["bwd"] > 0 and counts["fwd"] >= counts["bwd"]
+    assert counts["bwd"] >= r.stage_stats["lbfgs_evaluations"]
+    assert abs(energies["cuda"] - energies["cpu"]) <= 1e-8
