@@ -27,7 +27,10 @@ Phases, one JSON line each:
             one launch a direction) against _ApplyRevStr at
             GATE_SCAN_SHAPES (V, W and dtheta; two calls bit for bit;
             theta = 0 the identity), each direction timed beside its
-            bound and the plain version;
+            bound and the plain version; the same for the full-space
+            Pauli-rotation scan K8 (csrc/prot_scan.cu) against _ProtScan
+            at PROT_SCAN_SHAPES and the pairs gate scan
+            (csrc/pair_scan.cu) against _ApplyRev at PAIR_SCAN_SHAPES;
   main path FusedOptOrbVQE on H4 cc-pVTZ (m=56 -> 8 spin orbitals,
             UCCSD, f32) with the launch counts zeroed before and read
             after; energy gates against the reference values; per-step
@@ -73,7 +76,9 @@ Phases, one JSON line each:
             energy JAX_H8_12_FULL_F64, the sector solver's first outer
             energy within 1e-4 of the full path's, E at or above the exact
             sector ground energy at the final orbitals, every transform
-            launch one-pass; E, the outer trace, the solve's wall, peak
+            launch one-pass, the plain _ProtScan never on the card and
+            one K8 launch a direction an L-BFGS evaluation; E, the outer
+            trace, the solve's wall, peak
             memory, one L-BFGS evaluation's wall, device ms and launches,
             BB iterations and seconds, L-BFGS evaluations per solve, and
             the card's busy share over a one-outer-iteration solve;
@@ -130,8 +135,10 @@ Phases, one JSON line each:
             on the sector with ESOO_SECTOR_KERNEL=pairs, the launch
             counts zeroed before and read after; gates: E within 5e-4 of
             JAX_H8_12_FULL_F64 and of the string kernel's solve, the
-            one-pass transform only; one L-BFGS evaluation on each kernel
-            and the busy share; (b) `pairs_oracle`: H8 cc-pVTZ -> 16 (4,900
+            one-pass transform only, the plain _ApplyRev never on the
+            card and one pairs-scan launch a direction an L-BFGS
+            evaluation; one L-BFGS evaluation on each kernel and the
+            busy share; (b) `pairs_oracle`: H8 cc-pVTZ -> 16 (4,900
             determinants, 360 parameters) at f64, pairs against strings
             (state, energy, gradient, RDMs; 1e-10 relative) and the dense
             Hamiltonian's lowest eigenvalue against SectorCI's Davidson
@@ -189,7 +196,8 @@ machine), sector_mesh with (c): H8 -> 32 on 'sharded-compact' tables
 over the mesh, one outer iteration, beside the unsharded one-card
 compact solve (first outer energies within 1e-5, each card's peak).
 The main paths of the H4 VQE and SSVQE and the H8 demo must have
-launched the gate scan kernels.
+launched the gate scan kernels, the full path the Pauli-rotation scan
+kernels and the pairs path the pairs scan kernels.
 Then the kernel table line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises (non-zero exit, no
 result line); so does a machine without CUDA.  Imports nothing of JAX or
@@ -542,6 +550,44 @@ GATE_SCAN_SHAPES = (("h4", 4, (2, 2), "float32", 1),
 # each), the update (6) forward; M, S, V_{k-1}, perm(V_{k-1}), the dtheta
 # term and its sum, and W's update (6 + 6 + 6 + 5 + 2 + 6) backward
 GATE_SCAN_OPS = {"fwd": 12, "bwd": 31}
+# the full-space Pauli-rotation scan K8's shapes, (name, circuit, dtype,
+# states): the H8 -> 12 full path's UCCSD(6, (4, 4)) (640 rotations on
+# 4,096 amplitudes) at float32 with one state and two (a stacked SSVQE),
+# H4 -> 8's UCCSD(4, (2, 2)) (160 on 256) at float64, 300 seeded random
+# Pauli strings on 10 qubits at complex64, and the H8 -> 16 demo's
+# UCCSD(8, (4, 4)) (2,688 on 65,536) at float32, which takes the global
+# route and the sqrt(K)-chunked backward
+PROT_SCAN_SHAPES = (("h8_12", ("uccsd", 6, (4, 4)), "float32", 1),
+                    ("h8_12_b2", ("uccsd", 6, (4, 4)), "float32", 2),
+                    ("h4_8_f64", ("uccsd", 4, (2, 2)), "float64", 1),
+                    ("random_n10_c64", ("random", 10, 300), "complex64", 1),
+                    ("h8_16", ("uccsd", 8, (4, 4)), "float32", 1))
+# floating-point operations an amplitude and rotation that the scan needs
+# (an FMA counts two).  The factor f_k is +-1 or +-i and the sign
+# (-1)^popcount a sign flip, so their products are sign flips and swaps
+# and count none; s f_k, c and the 1/2 of dang are applied once a
+# rotation (to the block sums), not an amplitude.  Forward: c v and the
+# FMA of (s f_k) v[e ^ x] (1 + 2 real; 2 + 4 complex).  Backward: W's
+# update, c W and an FMA (1 + 2; 2 + 4), and the two inner products
+# Re<W, FS P s_k> and Re<W, s_k>, an FMA into a running sum each (2 + 2
+# real; 4 + 4 complex: Re(conj(w) u) = w.re u.re + w.im u.im)
+PROT_SCAN_OPS = {False: {"fwd": 3, "bwd": 7}, True: {"fwd": 6, "bwd": 14}}
+# the pairs gate scan's shapes, (name, n, (na, nb), dtype, states): the
+# H8 -> 12 pairs path's sector (225 determinants, 92 gates) at float32,
+# the pairs oracle's H8 -> 16 (4,900, 360 gates) at float64, and n = 9 at
+# (4, 4) (15,876, 560 gates) at float64, which takes the global route
+# both ways
+PAIR_SCAN_SHAPES = (("h8_12", 6, (4, 4), "float32", 1),
+                    ("h8_16_f64", 8, (4, 4), "float64", 1),
+                    ("n9_44_f64", 9, (4, 4), "float64", 1))
+# floating-point operations that the pairs scan needs a touched amplitude
+# (SFIELD[k, i] != 0) and gate (an FMA counts two).  An untouched one keeps
+# its value and needs none; SFIELD is 0 or +-1, so ce is 1 or c and the
+# products by S are sign flips; s and c of dtheta apply once a gate, to
+# the block sums.  Forward: c v and an FMA (1 + 2).  Backward: v_{k-1}
+# (1 + 2), dtheta's two running sums (2 + 2) and w's update (1 + 2).
+# The count is of this run's data: the touched amplitudes of SFIELD.
+PAIR_SCAN_OPS = {"fwd": 3, "bwd": 10}
 
 # published H100 peaks (NVIDIA data sheets): memory bytes/s and the
 # float32 CUDA-core FLOP/s (the kernels use no tensor cores)
@@ -553,19 +599,55 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
+def _wrappers() -> tuple:
+    """Every kernel wrapper module: K1/K2 (ops/gemm.py), the string gate
+    scan K3 (ops/gate_scan.py), the Pauli-rotation scan K8
+    (ops/prot_scan.py) and the pairs gate scan (ops/pair_scan.py)."""
+    from esoo_torch.ops import gate_scan, gemm, pair_scan, prot_scan
+    return gemm, gate_scan, prot_scan, pair_scan
+
+
 def reset_launch_counts() -> None:
-    """Zero every kernel wrapper's launch count: K1/K2 (ops/gemm.py) and
-    the gate scan (ops/gate_scan.py)."""
-    from esoo_torch.ops import gate_scan, gemm
-    gemm.reset_launch_counts()
-    gate_scan.reset_launch_counts()
+    """Zero every kernel wrapper's launch count."""
+    for mod in _wrappers():
+        mod.reset_launch_counts()
 
 
 def launch_counts() -> dict:
     """Every kernel wrapper's launches since the last reset, by the name
     of its row in the kernels line."""
-    from esoo_torch.ops import gate_scan, gemm
-    return {**gemm.launch_counts(), **gate_scan.launch_counts()}
+    out = {}
+    for mod in _wrappers():
+        out.update(mod.launch_counts())
+    return out
+
+
+class PlainScanWatch:
+    """Counts the calls of a plain scan's autograd Function (`fn.apply`)
+    on CUDA tensors while the `with` block runs: the gate that the card's
+    paths go through the kernels instead."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
+
+    def __enter__(self):
+        self.own = vars(self.fn).get("apply")
+        apply = self.fn.apply
+
+        def watched(*args):
+            if args[0].is_cuda:
+                self.calls += 1
+            return apply(*args)
+
+        self.fn.apply = watched
+        return self
+
+    def __exit__(self, *exc):
+        if self.own is None:
+            del self.fn.apply
+        else:
+            self.fn.apply = self.own
+        return False
 
 
 def nvidia_smi() -> str:
@@ -897,6 +979,8 @@ def phase_kernels(card: str) -> dict:
                 _transform_shard(checks, mm, ml, nn, (bw, fl32))
                 for mm, ml, nn in MESH_SHARD_SHAPES}
     scan = _gate_scan_kernels(checks, (bw, fl32))
+    prot = _prot_scan_kernels(checks, (bw, fl32))
+    pair = _pair_scan_kernels(checks, (bw, fl32))
     mh = 112
     Mh = mh ** 3
     bounded = [(k1, k1_bytes, k1_flops), (k2, k2_bytes, k2_flops)]
@@ -918,7 +1002,9 @@ def phase_kernels(card: str) -> dict:
                    bytes=nbytes, flops=flops)
     (k1_h8, chain_h8), (k1_h8_16, chain_h8_16) = at_casscf[14], at_casscf[16]
     emit("kernels", kernels=["gemm.matmul", "gemm.rotate_two_body_cuda",
-                             "gate_scan.apply_rev_str"],
+                             "gate_scan.apply_rev_str",
+                             "prot_scan.apply_prot_scan",
+                             "pair_scan.apply_rev_pairs"],
          checks=checks, tolerance="f32 atol 5e-6*max(1,max|ref|); "
          "f64 1e-12*max(1,max|ref|)", peak_bytes_per_s=bw,
          peak_f32_flops=fl32, matmul=k1, rotate_two_body_cuda=k2,
@@ -928,7 +1014,8 @@ def phase_kernels(card: str) -> dict:
          matmul_stage1_m112_sweep=k1_sweep, at_n2_shapes=at_n2,
          rotate_two_body_cuda_m112_n6=at_full,
          rotate_two_body_cuda_m112_n8=at_demo,
-         rotate_two_body_shard=at_shard, gate_scan=scan,
+         rotate_two_body_shard=at_shard, gate_scan=scan, prot_scan=prot,
+         pair_scan=pair,
          timing=f"ms: median over 50 calls after 5 warm-up of CUDA events "
          f"around each call, the calls queued behind a device spin (no host "
          f"launch gaps); kernel_ms: profiler kernel time per call; "
@@ -950,27 +1037,77 @@ def phase_kernels(card: str) -> dict:
             # launches); ms, plain_ms and bound_ms both directions
             "gate_scan.apply_rev_str": dict(
                 scan["h8_16"], **{f"at_{k}": v for k, v in scan.items()
-                                  if k != "h8_16"})}
+                                  if k != "h8_16"}),
+            # one scan forward and backward at the H8 -> 12 full and pairs
+            # paths' shapes, one state (an L-BFGS evaluation's two
+            # launches); the other shapes nested
+            "prot_scan.apply_prot_scan": dict(
+                prot["h8_12"], **{f"at_{k}": v for k, v in prot.items()
+                                  if k != "h8_12"}),
+            "pair_scan.apply_rev_pairs": dict(
+                pair["h8_12"], **{f"at_{k}": v for k, v in pair.items()
+                                  if k != "h8_12"})}
+
+
+def _hold_scan(checks: list, row: str, name: str, dtype, x0, theta, ct,
+               *, wrapper, plain, fwd, bwd, match: str, nbytes: dict,
+               ops: dict, rate: float, bw: float, desc: str, info: dict,
+               reps: tuple = (5, 3)) -> dict:
+    """One scan kernel held at one shape.  `wrapper(x, theta)`, the row's
+    wrapper as the main path calls it, runs through autograd against
+    `plain(x, theta)` on the same seeded inputs (x0, theta with every
+    fifth entry exactly 0, the cotangent ct): the states, the cotangent
+    of x0 and dtheta within check_close's tolerance at `dtype` (5e-6 at
+    f32, 1e-12 at f64, of max(1, max|ref|)); two wrapper calls bit for
+    bit; the wrapper at theta = 0 leaves x0 bit for bit.  Each direction's
+    launcher (`fwd`, `bwd`: the launches the wrapper makes) is timed
+    (time_ms, and its kernel time under the profiler, `match`_fwd and
+    _bwd) beside the plain forward and forward + backward (event_ms, host
+    launch gaps included, since their thousands of launches fill the
+    launch queue and time_ms cannot queue them behind a spin; and their
+    kernels' device time, `reps` calls each) and the bound (_scan_bound
+    of `nbytes` and `ops`).  No single PyTorch call computes a scan:
+    library_ms is null.  `info` goes into the check and the record."""
+    import torch
+
+    def through(fn):
+        x, t = x0.clone().requires_grad_(), theta.clone().requires_grad_()
+        y = fn(x, t)
+        torch.autograd.backward(y, ct)
+        return y.detach(), x.grad, t.grad
+
+    got, again = through(wrapper), through(wrapper)
+    zero = wrapper(x0, torch.zeros_like(theta))
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, h) for g, h in zip(got, again)):
+        raise AssertionError(f"{row} {name}: two calls differ")
+    if not torch.equal(zero, x0):
+        raise AssertionError(f"{row} {name}: theta = 0 moved the state")
+    errs = {what: check_close(g, r, dtype, f"{row} {name} {what}")
+            for what, g, r in zip(("state", "cotangent", "dtheta"), got,
+                                  through(plain))}
+    checks.append(dict(kernel=row, shape=name, err=errs,
+                       repeat_bit_identical=True, **info))
+    return _scan_bound(dict(
+        fwd_ms=time_ms(fwd), bwd_ms=time_ms(bwd),
+        fwd_kernel_ms=kernel_ms(fwd, match=f"{match}_fwd"),
+        bwd_kernel_ms=kernel_ms(bwd, match=f"{match}_bwd"),
+        plain_fwd_ms=event_ms(lambda: plain(x0, theta), reps=reps[0]),
+        plain_ms=event_ms(lambda: through(plain), reps=reps[0]),
+        plain_kernel_ms=kernel_ms(lambda: through(plain), reps=reps[1]),
+        library_ms=None, max_abs_err=max(errs.values()), **info,
+        shape=desc), nbytes, ops, bw, rate)
 
 
 def _gate_scan_kernels(checks: list, peak: tuple) -> dict:
-    """The string gate scan K3 (ops/gate_scan.py, csrc/gate_scan.cu) at
-    GATE_SCAN_SHAPES against the plain sim/strings.py::_ApplyRevStr on
-    the same seeded inputs (every fifth theta exactly 0, ADAPT's padded
-    slots): the states V, the cotangent W of V0 and dtheta within
-    check_close's tolerance (5e-6 at f32, 1e-12 at f64, of max(1,
-    max|ref|)); two calls bit for bit; a scan at theta = 0 leaves V0 bit
-    for bit.  Each direction timed (time_ms, and its kernel time under
-    the profiler) beside the plain forward and forward + backward
-    (autograd through _ApplyRevStr; event_ms, host launch gaps included,
-    since its thousands of launches fill the launch queue and time_ms
-    cannot queue them behind a spin; and its kernels' device time) and
-    the bound: the bytes a direction
-    must move (the factored tables, c and s, the states in and out, and
-    the backward's (B, K) partials) at the card's rate, or its
-    operations (GATE_SCAN_OPS) at the float32 rate (float64 at half),
-    whichever is longer.  No single PyTorch call computes the scan:
-    library_ms is null."""
+    """The string gate scan K3 (ops/gate_scan.py::apply_rev_str,
+    csrc/gate_scan.cu) at GATE_SCAN_SHAPES, held by _hold_scan against
+    the plain sim/strings.py::_ApplyRevStr (every fifth theta 0, as
+    ADAPT's padded slots).  The bound: the bytes a direction must move
+    (the factored tables, c and s, the states in and out, and the
+    backward's (B, K) partials) at the card's rate, or its operations
+    (GATE_SCAN_OPS) at the float32 rate (float64 at half), whichever is
+    longer."""
     import numpy as np
     import torch
     from esoo_torch.ops import gate_scan
@@ -997,71 +1134,199 @@ def _gate_scan_kernels(checks: list, peak: tuple) -> dict:
         c, s = torch.cos(th), torch.sin(th)
         plan = gate_scan._plan(nB, nA, dtype)
         fields = strings.gate_fields(tabs)     # the plain version's input
-
-        def fwd():
-            return gate_scan._forward(V0, c, s, tabs)
-
-        V = fwd()
-
-        def bwd():
-            return gate_scan._backward(V, ct, c, s, tabs)
-
-        def plain_fwd():
-            return strings._ApplyRevStr.apply(V0, th, *fields)
-
-        def plain():
-            v, t = V0.clone().requires_grad_(), th.clone().requires_grad_()
-            Vp = strings._ApplyRevStr.apply(v, t, *fields)
-            torch.autograd.backward(Vp, ct)
-            return Vp.detach(), v.grad, t.grad
-
-        W, parts_k = bwd()
-        V2, (W2, parts2) = fwd(), bwd()
-        zero = gate_scan._forward(V0, torch.ones_like(c), torch.zeros_like(s),
-                                  tabs)
-        torch.cuda.synchronize()
-        if not (torch.equal(V, V2) and torch.equal(W, W2)
-                and torch.equal(parts_k, parts2)):
-            raise AssertionError(f"gate scan {name}: two calls differ")
-        if not torch.equal(zero, V0):
-            raise AssertionError(f"gate scan {name}: theta = 0 moved V0")
-        V_ref, W_ref, dth_ref = plain()
-        errs = {what: check_close(got, ref, dtype, f"gate scan {name} {what}")
-                for what, got, ref in (("V", V, V_ref), ("W", W, W_ref),
-                                       ("dtheta", parts_k.sum(0), dth_ref))}
-        routes = {d: plan[d]["route"] for d in ("fwd", "bwd")}
-        checks.append(dict(kernel="gate_scan.apply_rev_str", shape=name,
-                           n=n, particles=parts, states=B, nB=nB, nA=nA,
-                           gates=K, dtype=dt, routes=routes, err=errs,
-                           repeat_bit_identical=True))
-
+        V = gate_scan._forward(V0, c, s, tabs)
         item = V0.element_size()
         nd = nB * nA
         tables = K * (nA + nB) * (4 + 4 * item) + 2 * K * item
-        nbytes = {"fwd": tables + 2 * B * nd * item,
-                  "bwd": tables + 3 * B * nd * item + B * K * item}
-        rate = fl32 if dtype == torch.float32 else fl32 / 2
-        ops = {d: GATE_SCAN_OPS[d] * B * nd * K for d in ("fwd", "bwd")}
-        t_bytes = sum(nbytes.values()) / bw * 1e3
-        t_ops = sum(ops.values()) / rate * 1e3
-        rec = dict(
-            fwd_ms=time_ms(fwd), bwd_ms=time_ms(bwd),
-            fwd_kernel_ms=kernel_ms(fwd, match="gate_scan_fwd"),
-            bwd_kernel_ms=kernel_ms(bwd, match="gate_scan_bwd"),
-            plain_fwd_ms=event_ms(plain_fwd, reps=5),
-            plain_ms=event_ms(plain, reps=5),
-            plain_kernel_ms=kernel_ms(plain, reps=3), library_ms=None,
-            max_abs_err=max(errs.values()), routes=routes,
-            threads=plan["threads"], smem_bytes={d: plan[d]["smem"]
-                                                for d in ("fwd", "bwd")},
-            bytes=nbytes, operations=ops,
-            fwd_bound_ms=max(nbytes["fwd"] / bw, ops["fwd"] / rate) * 1e3,
-            bwd_bound_ms=max(nbytes["bwd"] / bw, ops["bwd"] / rate) * 1e3,
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            shape=f"UCCSD({n}, {parts}): {B} x ({nB}, {nA}), {K} gates, {dt}")
-        rec["ms"] = rec["fwd_ms"] + rec["bwd_ms"]
-        out[name] = rec
+        out[name] = _hold_scan(
+            checks, "gate_scan.apply_rev_str", name, dtype, V0, th, ct,
+            wrapper=lambda x, t: gate_scan.apply_rev_str(x, t, tabs),
+            plain=lambda x, t: strings._ApplyRevStr.apply(x, t, *fields),
+            fwd=lambda: gate_scan._forward(V0, c, s, tabs),
+            bwd=lambda: gate_scan._backward(V, ct, c, s, tabs),
+            match="gate_scan",
+            nbytes={"fwd": tables + 2 * B * nd * item,
+                    "bwd": tables + 3 * B * nd * item + B * K * item},
+            ops={d: GATE_SCAN_OPS[d] * B * nd * K for d in ("fwd", "bwd")},
+            rate=fl32 if dtype == torch.float32 else fl32 / 2, bw=bw,
+            desc=f"UCCSD({n}, {parts}): {B} x ({nB}, {nA}), {K} gates, "
+            f"{dt}",
+            info=dict(n=n, particles=parts, states=B, nB=nB, nA=nA,
+                      gates=K, dtype=dt, threads=plan["threads"],
+                      routes={d: plan[d]["route"] for d in ("fwd", "bwd")},
+                      smem_bytes={d: plan[d]["smem"]
+                                  for d in ("fwd", "bwd")}))
+    return out
+
+
+def _scan_bound(rec: dict, nbytes: dict, ops: dict, bw: float,
+                rate: float) -> dict:
+    """A scan's bound fields: each direction's bytes at the card's memory
+    rate or its operations at `rate`, whichever is longer, and both
+    directions together (bound_ms, bound_by)."""
+    t_bytes = sum(nbytes.values()) / bw * 1e3
+    t_ops = sum(ops.values()) / rate * 1e3
+    rec.update(bytes=nbytes, operations=ops,
+               fwd_bound_ms=max(nbytes["fwd"] / bw, ops["fwd"] / rate) * 1e3,
+               bwd_bound_ms=max(nbytes["bwd"] / bw, ops["bwd"] / rate) * 1e3,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    rec["ms"] = rec["fwd_ms"] + rec["bwd_ms"]
+    return rec
+
+
+def _prot_scan_run(spec):
+    """The _ScanRun of a PROT_SCAN_SHAPES circuit and its qubit count."""
+    import importlib
+    from esoo_torch.sim import HartreeFock, QuantumCircuit, UCCSD
+    TV = importlib.import_module("esoo_torch.sim.statevector")
+    import numpy as np
+    kind, n, arg = spec
+    if kind == "uccsd":
+        qc, nq = UCCSD(n, arg, initial_state=HartreeFock(n, arg)), 2 * n
+    else:
+        qc, nq = QuantumCircuit(n), n
+        for x, z in np.random.default_rng(n).integers(0, 1 << n,
+                                                      size=(arg, 2)):
+            qc.pauli_rot(qc.parameter(), int(x), int(z))
+    return TV._ScanRun([g for g in qc.gates if g.name == "prot"]), nq
+
+
+def _prot_scan_kernels(checks: list, peak: tuple) -> dict:
+    """The full-space Pauli-rotation scan K8
+    (ops/prot_scan.py::apply_prot_scan, csrc/prot_scan.cu) at
+    PROT_SCAN_SHAPES, held by _hold_scan against the plain
+    sim/statevector.py::_ProtScan (the tolerance of the real type: 5e-6
+    at float32 and complex64).  The forward launcher timed writes the
+    reverse mode's checkpoints, as on the main path.  The bound: the
+    bytes a direction must move (the masks, factors, c and s, the states
+    in and out, and the backward's (B, K) partials) at the card's rate,
+    or its operations (PROT_SCAN_OPS) at the float32 rate (float64 at
+    half), whichever is longer."""
+    import importlib
+
+    import numpy as np
+    import torch
+    from esoo_torch.ops import prot_scan
+    TV = importlib.import_module("esoo_torch.sim.statevector")
+    bw, fl32 = peak
+    out = {}
+    for name, spec, dt, B in PROT_SCAN_SHAPES:
+        dtype = getattr(torch, dt)
+        cplx = dtype.is_complex
+        rd = torch.float32 if dtype in (torch.float32, torch.complex64) \
+            else torch.float64
+        run, nq = _prot_scan_run(spec)
+        K, dim = len(run.xs), 1 << nq
+        rng = np.random.default_rng(K)
+        ang = rng.normal(size=K) * 0.4
+        ang[::5] = 0.0
+
+        def draw():
+            a = rng.normal(size=(B, dim))
+            return a + 1j * rng.normal(size=a.shape) if cplx else a
+
+        S0 = draw()
+        S0 /= np.linalg.norm(S0, axis=1, keepdims=True)
+        CT = draw()
+        S0, CT = (torch.as_tensor(a, device="cuda").to(dtype)
+                  for a in (S0, CT))
+        ang = torch.as_tensor(ang, device="cuda").to(rd)
+        tabs = run.tables(dim, dtype, "cuda")
+        c, s = torch.cos(ang / 2), torch.sin(ang / 2)
+        gates = [tabs["x"], tabs["z"], tabs["f"], c, s]
+        plan = prot_scan._plan(dim, B, K, dtype)
+        stride = plan["stride"]
+        _, ckpt = prot_scan._forward(S0, gates, stride, True)
+        FS = tabs["f"][:, None] * TV._prot_signs(run.xs, run.zs, dim,
+                                                 "cuda").to(dtype)
+        item, ritem = S0.element_size(), ang.element_size()
+        tables = K * (16 + item + 2 * ritem)
+        big = K * dim > 1 << 24                # the plain scan's 20k launches
+        out[name] = _hold_scan(
+            checks, "prot_scan.apply_prot_scan", name, rd, S0, ang, CT,
+            wrapper=lambda x, a: prot_scan.apply_prot_scan(x, a, tabs),
+            plain=lambda x, a: TV._ProtScan.apply(x, a, FS, run.dims, nq),
+            fwd=lambda: prot_scan._forward(S0, gates, stride, True),
+            bwd=lambda: prot_scan._backward(ckpt, CT, gates, stride),
+            match="prot_scan",
+            nbytes={"fwd": tables + 2 * B * dim * item,
+                    "bwd": tables + 3 * B * dim * item + B * K * ritem},
+            ops={d: PROT_SCAN_OPS[cplx][d] * B * dim * K
+                 for d in ("fwd", "bwd")},
+            rate=fl32 if rd == torch.float32 else fl32 / 2, bw=bw,
+            desc=f"{B} x {dim} amplitudes ({nq} qubits), {K} rotations, "
+            f"{dt}",
+            info=dict(qubits=nq, states=B, rotations=K, dtype=dt,
+                      threads=plan["threads"], stride=stride,
+                      checkpoints=plan["checkpoints"],
+                      routes={d: plan[d]["route"] for d in ("fwd", "bwd")},
+                      smem_bytes={d: plan[d]["smem"]
+                                  for d in ("fwd", "bwd")}),
+            reps=(3, 1) if big else (5, 3))
+        del FS, ckpt
+    return out
+
+
+def _pair_scan_kernels(checks: list, peak: tuple) -> dict:
+    """The pairs gate scan (ops/pair_scan.py::apply_rev_pairs,
+    csrc/pair_scan.cu) at PAIR_SCAN_SHAPES, held by _hold_scan against
+    the plain sim/sector.py::_ApplyRev (padded states, every fifth theta
+    0).  The bound: the bytes a direction must move (PARTNER as int32
+    and SFIELD, c and s, the states in and out, the backward's (B, K)
+    partials) at the card's rate, or its operations (PAIR_SCAN_OPS at
+    each gate's touched amplitudes) at the float32 rate (float64 at
+    half), whichever is longer."""
+    import numpy as np
+    import torch
+    from esoo_torch.ops import pair_scan
+    from esoo_torch.sim import HartreeFock, UCCSD
+    from esoo_torch.sim.sector import SectorUCC, _ApplyRev
+    bw, fl32 = peak
+    sectors, out = {}, {}
+    for name, n, parts, dt, B in PAIR_SCAN_SHAPES:
+        dtype = getattr(torch, dt)
+        if (n, parts) not in sectors:
+            sectors[n, parts] = SectorUCC(
+                UCCSD(n, parts, initial_state=HartreeFock(n, parts)), 2 * n,
+                kernel="pairs")
+        sec = sectors[n, parts]
+        K, nn = len(sec._excs), sec.dim + 1
+        P = torch.as_tensor(sec._PARTNER, device="cuda")
+        SF = torch.as_tensor(sec._SFIELD, device="cuda").to(dtype)
+        rng = np.random.default_rng(n)
+        th = rng.normal(size=K) * 0.4
+        th[::5] = 0.0
+        v0 = rng.normal(size=(B, nn))
+        v0[:, -1] = 0.0
+        v0 /= np.linalg.norm(v0, axis=1, keepdims=True)
+        ct = rng.normal(size=v0.shape)
+        th, v0, ct = (torch.as_tensor(a, device="cuda").to(dtype)
+                      for a in (th, v0, ct))
+        c, s = torch.cos(th), torch.sin(th)
+        plan = pair_scan._plan(nn, dtype)
+        v = pair_scan._forward(v0, c, s, P, SF)
+        item = v0.element_size()
+        tables = K * nn * (4 + item) + 2 * K * item
+        touched = int(np.count_nonzero(sec._SFIELD))
+        out[name] = _hold_scan(
+            checks, "pair_scan.apply_rev_pairs", name, dtype, v0, th, ct,
+            wrapper=lambda x, t: pair_scan.apply_rev_pairs(x, t, P, SF),
+            plain=lambda x, t: _ApplyRev.apply(x, t, P, SF),
+            fwd=lambda: pair_scan._forward(v0, c, s, P, SF),
+            bwd=lambda: pair_scan._backward(v, ct, c, s, P, SF),
+            match="pair_scan",
+            nbytes={"fwd": tables + 2 * B * nn * item,
+                    "bwd": tables + 3 * B * nn * item + B * K * item},
+            ops={d: PAIR_SCAN_OPS[d] * B * touched for d in ("fwd", "bwd")},
+            rate=fl32 if dtype == torch.float32 else fl32 / 2, bw=bw,
+            desc=f"UCCSD({n}, {parts}) pairs: {B} x {nn}, {K} gates, {dt}",
+            info=dict(n=n, particles=parts, states=B, determinants=sec.dim,
+                      gates=K, touched=touched, dtype=dt,
+                      threads=plan["threads"],
+                      routes={d: plan[d]["route"] for d in ("fwd", "bwd")},
+                      smem_bytes={d: plan[d]["smem"]
+                                  for d in ("fwd", "bwd")}))
     return out
 
 
@@ -1941,11 +2206,17 @@ def phase_full(problem) -> dict:
     energy of the same solver on the sector within 1e-4 of the full
     path's (the same unitary from the same U0); (c) E at or above the
     exact sector ground energy at the final orbitals, less 1e-6; (d)
-    every transform launch on the one-pass route.  Then one L-BFGS
-    evaluation's wall, device time and launches at the final state, and
-    the card's busy share over a one-outer-iteration solve."""
+    every transform launch on the one-pass route; (e) the plain scan
+    `_ProtScan` never ran on the card (solve and evaluation), and the
+    solve launched the Pauli-rotation scan kernels (backward at least
+    once an L-BFGS evaluation); (f) one L-BFGS evaluation launches them
+    once a direction.  Then one L-BFGS evaluation's wall, device time and
+    launches at the final state, and the card's busy share over a
+    one-outer-iteration solve."""
+    import importlib
+
     import torch
-    from esoo_torch.ops import gemm
+    from esoo_torch.ops import gemm, prot_scan
     from esoo_torch.orbital_optimization import kernels as K
     from esoo_torch.orbital_optimization.stiefel import value_and_grad
     from esoo_torch.sim.rdm import rdm_energy
@@ -1961,14 +2232,18 @@ def phase_full(problem) -> dict:
 
     held_bytes = torch.cuda.memory_allocated()   # earlier phases' too
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    r = solver.compute_minimum_energy()
-    torch.cuda.synchronize()
-    solve_s = time.perf_counter() - t0
-    launches = launch_counts()
+    watch = PlainScanWatch(
+        importlib.import_module("esoo_torch.sim.statevector")._ProtScan)
+    with watch:
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = solver.compute_minimum_energy()
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        launches = launch_counts()
     routes = gemm.route_launch_counts()
+    scan_routes = prot_scan.route_launch_counts()
     peak_bytes = torch.cuda.max_memory_allocated()
     E, trace, stats = r.eigenvalue, r.energy_convergence_list, r.stage_stats
 
@@ -1984,14 +2259,18 @@ def phase_full(problem) -> dict:
                                        K.rotate_two_body(solver._g_sp, U))
     vag = value_and_grad(lambda th: rdm_energy(
         solver._compiled.state_fn(th, f32), h_so, g_so))
-    vag(theta)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(10):
+    with watch:
         vag(theta)
-    torch.cuda.synchronize()
-    eval_wall_ms = (time.perf_counter() - t0) / 10 * 1e3
-    eval_ms, eval_events = device_profile(lambda: vag(theta), reps=3)
+        torch.cuda.synchronize()
+        prot_scan.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            vag(theta)
+        torch.cuda.synchronize()
+        eval_wall_ms = (time.perf_counter() - t0) / 10 * 1e3
+        eval_scan = {k: v / 10
+                     for k, v in prot_scan.route_launch_counts().items()}
+        eval_ms, eval_events = device_profile(lambda: vag(theta), reps=3)
 
     # the card's busy share over a one-outer-iteration solve (a whole
     # solve would hold a million profiler events)
@@ -2013,6 +2292,15 @@ def phase_full(problem) -> dict:
             and launches["gemm.matmul"] == 0 and routes["chain"] == 0):
         failed.append(f"(d) launches {launches}, routes {routes}: the "
                       f"one-pass transform only")
+    if not (watch.calls == 0 and scan_routes["bwd"] >= 1
+            and scan_routes["fwd"] >= scan_routes["bwd"]
+            >= stats["lbfgs_evaluations"]):
+        failed.append(f"(e) the plain scan ran {watch.calls} times on the "
+                      f"card; the kernels {scan_routes} for "
+                      f"{stats['lbfgs_evaluations']} L-BFGS evaluations")
+    if not (eval_scan["fwd"] == eval_scan["bwd"] == 1):
+        failed.append(f"(f) an L-BFGS evaluation launched the scan kernels "
+                      f"{eval_scan}, not once a direction")
     emit("full", problem="H8 cc-pVTZ m=112 -> 12 spin orbitals, (4, 4) "
          "electrons, UCCSD(6, (4, 4)) from HF, simulation='full', 4,096 "
          "amplitudes, f32, maxiter 10, tol 1e-5", energy=E,
@@ -2027,10 +2315,12 @@ def phase_full(problem) -> dict:
          lbfgs_evaluation_wall_ms=eval_wall_ms,
          lbfgs_evaluation_device_ms=eval_ms,
          lbfgs_evaluation_device_events=eval_events,
+         lbfgs_evaluation_prot_scan_launches=eval_scan,
          busy_window=dict(maxiter=1, wall_s=window_s, device_busy_s=busy_s,
                           device_busy_share=busy_s / window_s),
          launches=launches, transform_route_launches=routes,
-         gates_failed=failed)
+         prot_scan_route_launches=scan_routes,
+         plain_scan_calls_on_card=watch.calls, gates_failed=failed)
     if failed:
         raise AssertionError("H8 full-space gates failed: "
                              + "; ".join(failed))
@@ -2786,8 +3076,12 @@ def phase_pairs(problem) -> dict:
     launch counts zeroed just before the solve and read just after;
     gates: E within PAIRS_TOL of JAX_H8_12_FULL_F64 and of the same
     solver on the string kernel, solved in the phase, and every transform
-    launch one-pass.  One L-BFGS evaluation's wall, device ms and launches
-    on each kernel, and the busy share over a one-outer-iteration solve.
+    launch one-pass; the plain scan `_ApplyRev` never ran on the card
+    (solve and evaluations), the solve launched the pairs scan kernels
+    (backward at least once an L-BFGS evaluation), and one evaluation
+    launches them once a direction.  One L-BFGS evaluation's wall, device
+    ms and launches on each kernel (and its scan kernels' launches), and
+    the busy share over a one-outer-iteration solve.
     (b) The oracle at full width, float64: H8 cc-pVTZ -> 16 (4,900
     determinants, UCCSD with 360 parameters) at the integrals rotated by
     a seeded partial unitary, pairs against strings at seeded theta
@@ -2803,7 +3097,7 @@ def phase_pairs(problem) -> dict:
     import torch
     import esoo_torch as T
     from esoo_torch.initializations.ci import enumerate_determinants
-    from esoo_torch.ops import gemm
+    from esoo_torch.ops import gate_scan, gemm, pair_scan
     from esoo_torch.orbital_optimization import kernels as K
     from esoo_torch.orbital_optimization.stiefel import value_and_grad
     from esoo_torch.sim import SectorCI
@@ -2824,14 +3118,17 @@ def phase_pairs(problem) -> dict:
     sec = solver._sector
     held_bytes = torch.cuda.memory_allocated()   # earlier phases' too
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    r = solver.compute_minimum_energy()
-    torch.cuda.synchronize()
-    solve_s = time.perf_counter() - t0
-    launches = launch_counts()
+    watch = PlainScanWatch(S._ApplyRev)
+    with watch:
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = solver.compute_minimum_energy()
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        launches = launch_counts()
     routes = gemm.route_launch_counts()
+    scan_routes = pair_scan.route_launch_counts()
     peak_bytes = torch.cuda.max_memory_allocated()
     E, stats = r.eigenvalue, r.stage_stats
 
@@ -2846,19 +3143,24 @@ def phase_pairs(problem) -> dict:
     theta = torch.as_tensor(r.optimal_point, device=dev)
     h_so, g_so = K.expand_spin_tensors(*solver._rotate(U))
     evaluation = {}
-    for name, s in (("pairs", sec), ("strings", strings._sector)):
+    for name, s, wrapper in (("pairs", sec, pair_scan),
+                             ("strings", strings._sector, gate_scan)):
         vals = s.build_values(h_so, g_so)
         vag = value_and_grad(s.energy_values)
-        vag(theta, vals)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(10):
+        with watch:
             vag(theta, vals)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / 10 * 1e3
-        dms, events = device_profile(lambda: vag(theta, vals), reps=3)
+            torch.cuda.synchronize()
+            wrapper.reset_launch_counts()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                vag(theta, vals)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) / 10 * 1e3
+            scan = {k: v / 10
+                    for k, v in wrapper.route_launch_counts().items()}
+            dms, events = device_profile(lambda: vag(theta, vals), reps=3)
         evaluation[name] = dict(wall_ms=wall_ms, device_ms=dms,
-                                device_events=events)
+                                device_events=events, scan_launches=scan)
     window_s, busy_s = busy_share(pairs_solver(maxiter=1)
                                   .compute_minimum_energy)
 
@@ -2875,6 +3177,17 @@ def phase_pairs(problem) -> dict:
             and launches["gemm.matmul"] == 0 and routes["chain"] == 0):
         failed.append(f"(a) launches {launches}, routes {routes}: the "
                       f"one-pass transform only")
+    if not (watch.calls == 0 and scan_routes["bwd"] >= 1
+            and scan_routes["fwd"] >= scan_routes["bwd"]
+            >= stats["lbfgs_evaluations"]):
+        failed.append(f"(a) the plain scan ran {watch.calls} times on the "
+                      f"card; the kernels {scan_routes} for "
+                      f"{stats['lbfgs_evaluations']} L-BFGS evaluations")
+    for name, ev in evaluation.items():
+        if not ev["scan_launches"]["fwd"] == ev["scan_launches"]["bwd"] == 1:
+            failed.append(f"(a) an L-BFGS evaluation on the {name} kernel "
+                          f"launched its scan kernels "
+                          f"{ev['scan_launches']}, not once a direction")
     solves = r.outer_iterations + 1
     emit("pairs", problem="H8 cc-pVTZ m=112 -> 12 spin orbitals, (4, 4) "
          "electrons, UCCSD(6, (4, 4)) from HF (92 parameters, 225 "
@@ -2893,7 +3206,8 @@ def phase_pairs(problem) -> dict:
          busy_window=dict(maxiter=1, wall_s=window_s, device_busy_s=busy_s,
                           device_busy_share=busy_s / window_s),
          launches=launches, transform_route_launches=routes,
-         gates_failed=failed)
+         pair_scan_route_launches=scan_routes,
+         plain_scan_calls_on_card=watch.calls, gates_failed=failed)
     if failed:
         raise AssertionError("pairs gates failed: " + "; ".join(failed))
 
@@ -3845,7 +4159,20 @@ def main() -> int:
                    "esoo_torch/csrc/gate_scan.cu",
                    {"backward_replaces": "esoo_tpu/sim/strings.py:324",
                     "library": "none: no single PyTorch call computes the "
-                    "scan; plain_ms (_ApplyRevStr) is for reference"})}
+                    "scan; plain_ms (_ApplyRevStr) is for reference"}),
+               # K8 and the pairs scan: lax.scans in the JAX package too
+               "prot_scan.apply_prot_scan": (
+                   "esoo_tpu/sim/statevector.py:287",
+                   "esoo_torch/csrc/prot_scan.cu",
+                   {"scan_replaces": "esoo_tpu/sim/statevector.py:256",
+                    "library": "none: no single PyTorch call computes the "
+                    "scan; plain_ms (_ProtScan) is for reference"}),
+               "pair_scan.apply_rev_pairs": (
+                   "esoo_tpu/sim/sector.py:141",
+                   "esoo_torch/csrc/pair_scan.cu",
+                   {"backward_replaces": "esoo_tpu/sim/sector.py:161",
+                    "library": "none: no single PyTorch call computes the "
+                    "scan; plain_ms (_ApplyRev) is for reference"})}
     # launches: the main paths' runs, each with the counts zeroed just
     # before it; the numbers are at the row's `shape`, other shapes nested
     for name, (replaces, source, extra) in sources.items():
@@ -3858,10 +4185,15 @@ def main() -> int:
             plain_ms=rec.pop("plain_ms"), bound_ms=rec.pop("bound_ms"),
             bound_by=rec.pop("bound_by"), library_ms=rec.pop("library_ms"),
             **extra, **rec))
-    # the sector paths' L-BFGS evaluations ran the gate scan kernels
-    for path in ("vqe_h4", "ssvqe_h4", "example_H8_scale_demo"):
-        if paths[path]["gate_scan.apply_rev_str"] <= 0:
-            raise AssertionError(f"the gate scan kernels never launched on "
+    # the sector paths' L-BFGS evaluations ran the gate scan kernels; the
+    # full-space and pairs paths' theirs
+    for path, name in (("vqe_h4", "gate_scan.apply_rev_str"),
+                       ("ssvqe_h4", "gate_scan.apply_rev_str"),
+                       ("example_H8_scale_demo", "gate_scan.apply_rev_str"),
+                       ("vqe_full_h8_n12", "prot_scan.apply_prot_scan"),
+                       ("vqe_pairs_h8_n12", "pair_scan.apply_rev_pairs")):
+        if paths[path][name] <= 0:
+            raise AssertionError(f"the {name} kernels never launched on "
                                  f"the {path} path: {paths[path]}")
     emit("done", total_s=time.perf_counter() - t_start)
     print(json.dumps({"kernels": table}), flush=True)

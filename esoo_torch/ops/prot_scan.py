@@ -1,0 +1,294 @@
+"""The full-space Pauli-rotation scan K8 as hand-written CUDA kernels
+(csrc/prot_scan.cu).
+
+Counterpart of esoo_tpu/sim/statevector.py:287 `_apply_prot_scan` (a
+lax.scan over :256 `_scan_gates`, in sqrt(K) jax.checkpoint chunks past
+`_REMAT_RESIDUAL_BUDGET` elements): a run of K Pauli rotations on the
+(..., 2^N) statevector, one kernel launch forward and one backward.
+
+  * `apply_prot_scan(state, ang, tabs)`: a torch.autograd.Function
+    whose forward is one launch of `prot_scan_fwd` (writing the
+    checkpoints of the reverse mode when a gradient is needed) and whose
+    backward is one launch of `prot_scan_bwd` plus the sum of its (B, K)
+    dang partials.  `tabs` are the run's tables on the state's device
+    (sim/statevector.py::_ScanRun.tables): on the card the (K,) int64 bit
+    masks "x", "z" and the (K,) factors "f" (+-1 at the real dtype for a
+    real state; -i i^y at the complex dtype for a complex one), from
+    which the kernel forms each sign (-1)^popcount((c ^ x) & z) in
+    registers, reading no (K, 2^N) table.
+  * `_plan(dim, B, K, dtype)`: the route of each direction, "smem" (the
+    ping-pong buffers in shared memory) or "global" (in an L2-resident
+    scratch), mirroring the kernel's smem_bytes and block_threads, and
+    the checkpoint stride (every state while K * B * dim is within
+    sim/statevector.py's _REMAT_RESIDUAL_BUDGET, else every isqrt(K)-th,
+    the plain version's chunks); a shape that neither route takes raises.
+
+The plain version is sim/statevector.py::_ProtScan.  `apply_prot_scan`
+runs it for tensors on the CPU (on the CPU tables' (K, 2^N) sign table
+"FS" and flip axes "dims"); for CUDA tensors it launches the kernels or
+raises.  `apply_prot_scan.launches` counts the kernel launches (one a
+direction), split by direction and route in `route_launch_counts`.
+
+Bound on an H100: the K-step serial dependence (see csrc/prot_scan.cu);
+a direction's operations (7.9 and 18.4 MFLOP at H8 -> 12 in float32)
+take 0.12 and 0.27 us at 67 TFLOP/s, its bytes (~51 KB) 15 ns.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import importlib
+import math
+
+import torch
+
+from . import _build
+
+_KERNEL_DTYPES = (torch.float32, torch.float64, torch.complex64,
+                  torch.complex128)
+_TAGS = {torch.float32: "f32", torch.float64: "f64", torch.complex64: "c64",
+         torch.complex128: "c128"}
+_REAL = {torch.float32: torch.float32, torch.float64: torch.float64,
+         torch.complex64: torch.float32, torch.complex128: torch.float64}
+# csrc/prot_scan.cu's constants, mirrored by _plan
+_MAX_THREADS = 512               # kMaxThreads
+_MAX_WARPS = _MAX_THREADS // 32  # kMaxWarps
+_SMEM_LIMIT = 232448             # kMaxSmem: shared memory a block may use
+_BUFFERS = 2                     # kBuffers: state or W ping-pong
+_MAX_DIM = 1 << 30               # kMaxDim: 32-bit amplitude indices
+_ROUTES = ("smem", "global")     # the kernel's route argument 0, 1
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("prot_scan")
+    ints = [ctypes.c_int] * 5                # B K dim stride route
+    for tag in _TAGS.values():
+        fwd = getattr(lib, f"esoo_prot_scan_fwd_{tag}")
+        fwd.restype = ctypes.c_int
+        fwd.argtypes = [ctypes.c_void_p] * 9 + ints + [ctypes.c_void_p]
+        bwd = getattr(lib, f"esoo_prot_scan_bwd_{tag}")
+        bwd.restype = ctypes.c_int
+        bwd.argtypes = [ctypes.c_void_p] * 11 + ints + [ctypes.c_void_p]
+    lib.esoo_prot_scan_smem_bytes.restype = ctypes.c_longlong
+    lib.esoo_prot_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.esoo_prot_scan_threads.restype = ctypes.c_int
+    lib.esoo_prot_scan_threads.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _threads(dim: int) -> int:
+    """The kernel's block size (block_threads): dim rounded up to a warp,
+    at most _MAX_THREADS."""
+    return min(_MAX_THREADS, -(-dim // 32) * 32)
+
+
+def _smem_bytes(dim: int, itemsize: int, bufs: int) -> int:
+    """The kernel's dynamic shared memory (smem_bytes): `bufs` state
+    buffers of dim amplitudes (0 on the global route) and 2 x _MAX_WARPS
+    8-byte dang warp sums."""
+    return itemsize * bufs * dim + 8 * 2 * _MAX_WARPS
+
+
+def _statevector():
+    """The sim/statevector.py module (the package's `statevector` name is
+    its function), imported at first use: it imports this module.  The
+    wrapper takes its plain _ProtScan and _REMAT_RESIDUAL_BUDGET."""
+    return importlib.import_module("..sim.statevector", __package__)
+
+
+def _stride(K: int, numel: int) -> int:
+    """The checkpoint stride of the reverse mode: 1 (every rotation's
+    input state) while K * numel is within sim/statevector.py's
+    _REMAT_RESIDUAL_BUDGET, else isqrt(K) (_ProtScan.forward's chunks)."""
+    if K * numel <= _statevector()._REMAT_RESIDUAL_BUDGET:
+        return 1
+    return max(1, math.isqrt(K))
+
+
+def _plan(dim: int, B: int, K: int, dtype: torch.dtype) -> dict:
+    """Each direction's route for B states of dim amplitudes through K
+    rotations: {"threads": the block size, "stride": the checkpoint
+    stride, "checkpoints": their count, "fwd"/"bwd": {"route", "smem"
+    (bytes)}}.  The two buffers stay in shared memory when they fit; else
+    in a (B, 2, dim) scratch in device memory; dim past 2^30 (32-bit
+    indices) raises ValueError."""
+    if dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"the Pauli-rotation scan kernel takes float32, "
+                        f"float64, complex64 or complex128, got {dtype}")
+    if dim < 2 or dim & (dim - 1) or B < 1 or K < 1:
+        raise ValueError(f"Pauli-rotation scan: {B} states of {dim} "
+                         f"amplitudes (a power of two, at least 2) through "
+                         f"{K} rotations")
+    if dim > _MAX_DIM:
+        raise ValueError(f"the Pauli-rotation scan kernel takes no route "
+                         f"for {dim} amplitudes: its indices are 32-bit "
+                         f"(at most {_MAX_DIM})")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    stride = _stride(K, B * dim)
+    plan = {"threads": _threads(dim), "stride": stride,
+            "checkpoints": -(-K // stride)}
+    smem = _smem_bytes(dim, itemsize, _BUFFERS)
+    route = "smem" if smem <= _SMEM_LIMIT else "global"
+    if route == "global":
+        smem = _smem_bytes(dim, itemsize, 0)
+    for direction in ("fwd", "bwd"):
+        plan[direction] = dict(route=route, smem=smem)
+    return plan
+
+
+def _check(state: torch.Tensor, ang: torch.Tensor, xs: torch.Tensor,
+           zs: torch.Tensor, factor: torch.Tensor) -> None:
+    dev = state.device
+    if dev.type != "cuda" or any(t.device != dev for t in (ang, xs, zs,
+                                                           factor)):
+        raise ValueError(f"Pauli-rotation scan: state on {dev}, angles on "
+                         f"{ang.device}, masks on {xs.device} and "
+                         f"{zs.device}, factors on {factor.device}; all "
+                         "must be on one CUDA device (or all on the CPU)")
+    if state.dtype not in _KERNEL_DTYPES or factor.dtype != state.dtype \
+            or ang.dtype != _REAL[state.dtype]:
+        raise TypeError(f"the Pauli-rotation scan kernel takes float32, "
+                        f"float64, complex64 or complex128 states, factors "
+                        f"of their type and angles of their real type, got "
+                        f"{state.dtype}, {factor.dtype} and {ang.dtype}")
+    K = int(ang.shape[0])
+    dim = int(state.shape[-1]) if state.dim() else 0
+    if ang.dim() != 1 or any(tuple(t.shape) != (K,) for t in (xs, zs,
+                                                              factor)) \
+            or xs.dtype != torch.int64 or zs.dtype != torch.int64 \
+            or not (xs.is_contiguous() and zs.is_contiguous()):
+        raise ValueError(
+            f"Pauli-rotation scan: angles {tuple(ang.shape)}, masks "
+            f"{tuple(xs.shape)} {xs.dtype} and {tuple(zs.shape)} "
+            f"{zs.dtype}, factors {tuple(factor.shape)} do not agree: (K,) "
+            "each, the masks contiguous int64")
+    if dim < 2 or dim & (dim - 1) or dim.bit_length() - 1 > 63:
+        raise ValueError(f"Pauli-rotation scan: a state of {dim} "
+                         "amplitudes; 2^N with 1 <= N <= 63")
+
+
+def _launch(direction: str, B: int, dim: int, K: int, dtype,
+            gates: list, tensors: list, stride: int,
+            route: str = None) -> None:
+    """One launch of prot_scan_<direction> on B states of dim amplitudes:
+    `gates` are x, z, factor, c, s, and `tensors` the state arguments
+    after them (forward: s0, out, ckpt or None; backward: ckpt, ct, w0,
+    dang, rec or None).  `route` overrides the plan's (the card tests
+    force the global route at small shapes)."""
+    route = route or _plan(dim, B, K, dtype)[direction]["route"]
+    dev = gates[0].device
+    scratch = torch.empty(B * _BUFFERS * dim, dtype=dtype, device=dev) \
+        if route == "global" else None
+    fn = getattr(_lib(), f"esoo_prot_scan_{direction}_{_TAGS[dtype]}")
+    args = gates + tensors + [scratch]
+    with torch.cuda.device(dev):
+        rc = fn(*(None if t is None else t.data_ptr() for t in args),
+                B, K, dim, stride, _ROUTES.index(route),
+                torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"Pauli-rotation scan {direction} kernel launch "
+                           f"failed: CUDA error {rc}")
+    apply_prot_scan.launches += 1
+    apply_prot_scan.direction_launches[direction] += 1
+    apply_prot_scan.route_launches[route] += 1
+
+
+def _forward(S: torch.Tensor, gates: list, stride: int = None,
+             checkpoints: bool = False, route: str = None) -> tuple:
+    """One prot_scan_fwd launch on contiguous (B, dim) states S with
+    `gates` = [x, z, factor, c, s]: (the states after all K rotations,
+    the (B, ceil(K / stride), dim) checkpoints or None)."""
+    B, dim = S.shape
+    K = int(gates[0].shape[0])
+    stride = stride or _plan(dim, B, K, S.dtype)["stride"]
+    out = torch.empty_like(S)
+    ckpt = torch.empty((B, -(-K // stride), dim), dtype=S.dtype,
+                       device=S.device) if checkpoints else None
+    _launch("fwd", B, dim, K, S.dtype, gates, [S, out, ckpt], stride, route)
+    return out, ckpt
+
+
+def _backward(ckpt: torch.Tensor, W: torch.Tensor, gates: list,
+              stride: int, route: str = None) -> tuple:
+    """One prot_scan_bwd launch from the forward's checkpoints and the
+    cotangent W (B, dim): (the cotangent of the input states, the (B, K)
+    dang partials)."""
+    B, dim = W.shape
+    K = int(gates[0].shape[0])
+    w0 = torch.empty_like(W)
+    dang = torch.empty((B, K), dtype=gates[3].dtype, device=W.device)
+    rec = torch.empty((B, stride - 1, dim), dtype=W.dtype,
+                      device=W.device) if stride > 1 else None
+    _launch("bwd", B, dim, K, W.dtype, gates, [ckpt, W, w0, dang, rec],
+            stride, route)
+    return w0, dang
+
+
+class _ProtScanKernel(torch.autograd.Function):
+    """The kernels at the autograd boundary of the plain _ProtScan:
+    forward one launch, backward one launch and the (B, K) sum; dang sums
+    over the leading batch axes of the state."""
+
+    @staticmethod
+    def forward(ctx, state, ang, xs, zs, factor):
+        shape = state.shape
+        S = state.reshape(-1, shape[-1]).contiguous()
+        c = torch.cos(ang / 2).contiguous()
+        sn = torch.sin(ang / 2).contiguous()
+        gates = [xs, zs, factor.contiguous(), c, sn]
+        grad = any(ctx.needs_input_grad[:2])
+        stride = _plan(S.shape[1], S.shape[0], int(ang.shape[0]),
+                       S.dtype)["stride"]
+        out, ckpt = _forward(S, gates, stride, checkpoints=grad)
+        if grad:
+            ctx.save_for_backward(ckpt, *gates)
+            ctx.stride = stride
+        return out.reshape(shape)
+
+    @staticmethod
+    def backward(ctx, ct):
+        ckpt, *gates = ctx.saved_tensors
+        W = ct.reshape(-1, ct.shape[-1]).contiguous()
+        w0, dang = _backward(ckpt, W, gates, ctx.stride)
+        return w0.reshape(ct.shape), dang.sum(0), None, None, None
+
+
+def apply_prot_scan(state: torch.Tensor, ang: torch.Tensor,
+                    tabs: dict) -> torch.Tensor:
+    """The K Pauli rotations exp(-i ang_k / 2 P_k) of the run whose tables
+    on the state's device are `tabs` (sim/statevector.py::
+    _ScanRun.tables) applied to `state` (..., 2^N), differentiable in
+    state and ang.  CUDA tensors launch csrc/prot_scan.cu on the masks
+    and factors (raises on what it does not take); CPU tensors run the
+    plain sim/statevector.py::_ProtScan on the sign table."""
+    if int(ang.shape[0]) == 0:
+        return state
+    if state.device.type == "cpu" and ang.device.type == "cpu":
+        return _statevector()._ProtScan.apply(
+            state, ang, tabs["FS"], tabs["dims"],
+            int(state.shape[-1]).bit_length() - 1)
+    _check(state, ang, tabs["x"], tabs["z"], tabs["f"])
+    return _ProtScanKernel.apply(state, ang, tabs["x"], tabs["z"],
+                                 tabs["f"])
+
+
+def reset_launch_counts() -> None:
+    apply_prot_scan.launches = 0
+    apply_prot_scan.direction_launches = {"fwd": 0, "bwd": 0}
+    apply_prot_scan.route_launches = dict.fromkeys(_ROUTES, 0)
+
+
+def launch_counts() -> dict:
+    return {"prot_scan.apply_prot_scan": apply_prot_scan.launches}
+
+
+def route_launch_counts() -> dict:
+    """The scan's launches by direction ("fwd", "bwd") and by route
+    ("smem", "global")."""
+    return {**apply_prot_scan.direction_launches,
+            **apply_prot_scan.route_launches}
+
+
+reset_launch_counts()

@@ -14,7 +14,9 @@ Two kernels simulate it, as in the JAX package:
     'auto''s fallback when the sector does not factorize): each gate is
     one gather and a few multiply-adds over the (nd + 1,) amplitude vector,
         v' = (1 + (cos th - 1) |S|) v + S sin th v[PARTNER],
-    with a reversible backward, and the Hamiltonian is the sparse
+    with a reversible backward (on the card the hand kernels of
+    ops/pair_scan.py, one launch a direction; on the CPU the plain
+    `_ApplyRev`), and the Hamiltonian is the sparse
     Slater-Condon value triple (diag, s_val, d_val) over the pairs of
     initializations/ci.py::slater_condon_structure, applied through
     padded per-row neighbour tables.
@@ -37,6 +39,7 @@ import torch
 
 from ..initializations.ci import (enumerate_determinants,
                                   slater_condon_structure)
+from ..ops import pair_scan as _pair_scan
 from . import strings as _strings
 from .sharded_strings import ShardedStringTables
 
@@ -644,10 +647,8 @@ class SectorUCC:
         tabs = self._tabs(tables, theta)
         V0 = V0.to(theta.dtype)
         if self.kernel == "pairs":
-            if int(theta.shape[0]) == 0:
-                return V0
-            return _ApplyRev.apply(V0, theta, tabs["PARTNER"],
-                                   tabs["SFIELD"])
+            return _pair_scan.apply_rev_pairs(V0, theta, tabs["PARTNER"],
+                                              tabs["SFIELD"])
         return _strings.apply_gates(V0, theta, _replicated(tabs))
 
     def apply(self, v0: torch.Tensor, theta: torch.Tensor,

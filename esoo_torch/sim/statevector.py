@@ -19,11 +19,14 @@ statevector, as in the JAX package:
   f = +1 if |x&z| % 4 == 1 else -1          (odd-Y Pauli, real state)
 
 Other circuits run on complex64/complex128.  A run of at least
-`_SCAN_THRESHOLD` Pauli rotations (a UCC ansatz is nothing else) goes
-through `_ProtScan`: all K angles at once, a per-gate table FS_k =
-f_k * sign_k built once per compiled circuit, dtype and device, and per
-gate one flip, two products and one fused multiply-add.  Its backward
-reads each gate's saved input state (the numerics of the JAX package's
+`_SCAN_THRESHOLD` Pauli rotations (a UCC ansatz is nothing else) is a
+`_ScanRun`.  On the card it launches the hand kernels of
+ops/prot_scan.py (csrc/prot_scan.cu, one launch a direction, the signs
+formed from the (K,) masks).  On the CPU it goes through `_ProtScan`, the
+plain version: all K angles at once, a per-gate table FS_k = f_k *
+sign_k built once per compiled circuit, dtype and device, and per gate
+one flip, two products and one fused multiply-add.  Both read each
+gate's input state in reverse mode (the numerics of the JAX package's
 lax.scan residuals), in sqrt(K) recomputed chunks past
 `_REMAT_RESIDUAL_BUDGET` elements.
 """
@@ -36,6 +39,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..ops import prot_scan as _prot_scan
 from ..utils.config import complex_dtype, real_dtype, resolve_device
 from .circuit import QuantumCircuit
 
@@ -416,8 +420,9 @@ class _ProtScan(torch.autograd.Function):
 class _ScanRun:
     """A run of at least _SCAN_THRESHOLD Pauli rotations (the JAX
     package's _apply_prot_scan, real and complex): its host arrays, and
-    its device tables per (dtype, device), built once; calling it
-    applies the run through _ProtScan."""
+    its device tables per (dim, dtype, device), built once; calling it
+    applies the run through ops/prot_scan.py's wrapper (the hand kernels
+    on the card, the plain _ProtScan on the CPU)."""
 
     def __init__(self, gates):
         (self.xs, self.zs, self.ys, self.idx, self.mult,
@@ -425,38 +430,52 @@ class _ScanRun:
         self.dims = [_flip_dims(x) for x in self.xs]
         self._tables = {}
 
-    def tables(self, dim: int, dtype: torch.dtype, device) -> tuple:
-        """(FS (K, dim) at `dtype`, idx, mult, off) on `device`."""
+    def _factor(self, dtype: torch.dtype) -> np.ndarray:
+        """f_k: -i i^y_k on the complex path, +-1 on the real one."""
+        if dtype.is_complex:
+            return -1j * np.power(1j, self.ys % 4)
+        if np.any(self.ys % 2 == 0):
+            raise ValueError("even-Y Pauli rotation leaves the real subspace")
+        return np.where(self.ys % 4 == 1, 1.0, -1.0)
+
+    def tables(self, dim: int, dtype: torch.dtype, device) -> dict:
+        """The run's tables on `device`: idx, mult, off, and on the CPU
+        the plain scan's (K, dim) FS = f_k * sign_k at `dtype` and its
+        flip axes dims; elsewhere the kernel's (K,) int64 masks x, z and
+        factors f at `dtype`, no (K, dim) table."""
+        device = torch.device(device)
         key = (dim, dtype, str(device))
         hit = self._tables.get(key)
         if hit is None:
-            sign = _prot_signs(self.xs, self.zs, dim, device)
-            if dtype.is_complex:
-                factor = -1j * np.power(1j, self.ys % 4)
-            else:
-                if np.any(self.ys % 2 == 0):
-                    raise ValueError(
-                        "even-Y Pauli rotation leaves the real subspace")
-                factor = np.where(self.ys % 4 == 1, 1.0, -1.0)
+            if int(np.max(self.xs | self.zs, initial=0)) >= dim:
+                raise ValueError(f"a Pauli rotation's mask reaches past a "
+                                 f"state of {dim} amplitudes")
+            factor = torch.as_tensor(self._factor(dtype),
+                                     device=device).to(dtype)
             rd = _real_of(dtype)
-            FS = (torch.as_tensor(factor, device=device).to(dtype)[:, None]
-                  * sign.to(dtype))
-            hit = (FS, torch.as_tensor(self.idx, device=device),
-                   torch.as_tensor(self.mult, device=device).to(rd),
-                   torch.as_tensor(self.off, device=device).to(rd))
+            hit = dict(idx=torch.as_tensor(self.idx, device=device),
+                       mult=torch.as_tensor(self.mult, device=device).to(rd),
+                       off=torch.as_tensor(self.off, device=device).to(rd))
+            if device.type == "cpu":
+                sign = _prot_signs(self.xs, self.zs, dim, device)
+                hit.update(FS=factor[:, None] * sign.to(dtype),
+                           dims=self.dims)
+            else:
+                hit.update(x=torch.as_tensor(self.xs, device=device),
+                           z=torch.as_tensor(self.zs, device=device),
+                           f=factor)
             self._tables[key] = hit
         return hit
 
     def __call__(self, state: torch.Tensor, params: torch.Tensor
                  ) -> torch.Tensor:
-        FS, idx, mult, off = self.tables(state.shape[-1], state.dtype,
-                                         state.device)
+        tabs = self.tables(state.shape[-1], state.dtype, state.device)
+        mult, off = tabs["mult"], tabs["off"]
         if params.numel():
-            ang = mult * params.to(mult.dtype)[idx] + off
+            ang = mult * params.to(mult.dtype)[tabs["idx"]] + off
         else:
             ang = off
-        return _ProtScan.apply(state, ang, FS, self.dims,
-                               _num_qubits(state))
+        return _prot_scan.apply_prot_scan(state, ang, tabs)
 
 
 def _plan(gates) -> list:

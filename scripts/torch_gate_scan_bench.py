@@ -1,8 +1,11 @@
-"""The string gate scan's paths end to end on one NVIDIA GPU: the H4 main
-path and the H8 -> 16 scale demo, with their L-BFGS evaluations.
+"""The gate scans' paths end to end on one NVIDIA GPU: the string scan's
+H4 main path and H8 -> 16 scale demo, and the H8 -> 12 paths of the
+full-space Pauli-rotation scan and of the pairs scan, with their L-BFGS
+evaluations.
 
     python3 scripts/torch_gate_scan_bench.py [--root CHECKOUT] [--tag NAME]
                                              [--h8-cache FILE] [--out DIR]
+                                             [--paths h4,h8_16,full,pairs]
 
 --root runs the esoo_torch package (and examples/) of another checkout,
 so that two versions are compared in one call on one card (run parent,
@@ -20,11 +23,16 @@ Per path:
   * h8_16: examples/torch_H8_scale_demo.py --maxiter 1 (H8 cc-pVTZ
     m=112 -> 16, UCCSD with 360 parameters, 4,900 determinants, float32):
     its solve_s and energy;
+  * full: FusedOptOrbVQE(simulation='full') on H8 cc-pVTZ m=112 -> 12
+    (640 Pauli rotations on 4,096 amplitudes, float32, chip_smoke.py's
+    full phase settings): the solve's wall, energy and evaluations;
+  * pairs: the same on the sector with ESOO_SECTOR_KERNEL=pairs (225
+    determinants, 92 gates);
 and for each, at the solve's final state, one L-BFGS evaluation (value
-and gradient of the sector energy): its wall (host clock over 5,
-synchronized), device ms and device events a call (torch.profiler, 3
-calls), the gate scan kernels' launches a call (0 where the checkout has
-none), and the busy share over 3 evaluations.
+and gradient of the energy): its wall (host clock over 5, synchronized),
+device ms and device events a call (torch.profiler, 3 calls), each scan
+kernel's launches a call (the wrappers the checkout has), and the busy
+share over 3 evaluations.  The default --paths is h4,h8_16.
 """
 
 from __future__ import annotations
@@ -40,29 +48,37 @@ import time
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _evaluation(C, vag, theta, vals) -> dict:
+def _scan_wrappers() -> list:
+    """The scan kernel wrappers of the checkout under test (a checkout
+    before a kernel lacks its module)."""
+    import importlib
+    out = []
+    for name in ("gate_scan", "prot_scan", "pair_scan"):
+        try:
+            out.append(importlib.import_module(f"esoo_torch.ops.{name}"))
+        except ImportError:
+            pass
+    return out
+
+
+def _evaluation(C, vag, *args) -> dict:
     import torch
-    try:
-        from esoo_torch.ops import gate_scan
-    except ImportError:                    # a checkout before the kernels
-        gate_scan = None
-    vag(theta, vals)
+    wrappers = _scan_wrappers()
+    vag(*args)
     torch.cuda.synchronize()
-    if gate_scan is not None:
-        gate_scan.reset_launch_counts()
+    for w in wrappers:
+        w.reset_launch_counts()
     t0 = time.perf_counter()
     for _ in range(5):
-        vag(theta, vals)
+        vag(*args)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / 5 * 1e3
-    scan = 0 if gate_scan is None else \
-        gate_scan.launch_counts()["gate_scan.apply_rev_str"] / 5
-    device_ms, events = C.device_profile(lambda: vag(theta, vals), reps=3)
-    window_s, busy_s = C.busy_share(
-        lambda: [vag(theta, vals) for _ in range(3)])
+    scans = {k: v / 5 for w in wrappers for k, v in w.launch_counts().items()}
+    device_ms, events = C.device_profile(lambda: vag(*args), reps=3)
+    window_s, busy_s = C.busy_share(lambda: [vag(*args) for _ in range(3)])
     return dict(evaluation_wall_ms=wall_ms, evaluation_device_ms=device_ms,
                 evaluation_device_events=events,
-                evaluation_gate_scan_launches=scan,
+                evaluation_scan_launches=scans,
                 evaluations_busy_share=busy_s / window_s)
 
 
@@ -97,17 +113,66 @@ def h4(C) -> dict:
                 **_at_final_state(C, solver, r))
 
 
-def h8_16(C, root: str, cache: str) -> dict:
-    import torch
+def _h8(C, cache: str):
+    """The H8 cc-pVTZ problem, pickled to `cache` on the first run and
+    loaded on the next."""
     from esoo_torch.chem import MoleculeDriver
     if cache and os.path.exists(cache):
         with open(cache, "rb") as f:
-            problem = pickle.load(f)
+            return pickle.load(f)
+    problem = MoleculeDriver(atom=C.H8_GEOM, basis="cc-pvtz").run()
+    if cache:
+        with open(cache, "wb") as f:
+            pickle.dump(problem, f)
+    return problem
+
+
+def _h8_12(C, problem, simulation: str) -> dict:
+    """chip_smoke.py's full or pairs phase solve (H8 cc-pVTZ -> 12, f32,
+    maxiter 10), then one L-BFGS evaluation at its final state."""
+    import torch
+    from esoo_torch.orbital_optimization import kernels as K
+    from esoo_torch.orbital_optimization.stiefel import value_and_grad
+    from esoo_torch.sim.rdm import rdm_energy
+    f32 = torch.float32
+    solver = C._full_solver(problem, simulation, f32, "cuda",
+                            **C.H8_FULL_KW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = solver.compute_minimum_energy()
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    U = torch.as_tensor(r.optimal_partial_unitary, device="cuda")
+    theta = torch.as_tensor(r.optimal_point, device="cuda")
+    h_so, g_so = K.expand_spin_tensors(*solver._rotate(U))
+    if simulation == "full":
+        ev = _evaluation(C, value_and_grad(lambda th: rdm_energy(
+            solver._compiled.state_fn(th, f32), h_so, g_so)), theta)
     else:
-        problem = MoleculeDriver(atom=C.H8_GEOM, basis="cc-pvtz").run()
-        if cache:
-            with open(cache, "wb") as f:
-                pickle.dump(problem, f)
+        sec = solver._sector
+        ev = _evaluation(C, value_and_grad(sec.energy_values), theta,
+                         sec.build_values(h_so, g_so))
+    return dict(energy=r.eigenvalue, solve_s=solve_s,
+                outer_iterations=r.outer_iterations,
+                lbfgs_evaluations=r.stage_stats["lbfgs_evaluations"],
+                lbfgs_s=r.stage_stats["lbfgs_s"],
+                bb_s=r.stage_stats["bb_s"], **ev)
+
+
+def full(C, problem) -> dict:
+    return _h8_12(C, problem, "full")
+
+
+def pairs(C, problem) -> dict:
+    os.environ["ESOO_SECTOR_KERNEL"] = "pairs"
+    try:
+        return _h8_12(C, problem, "sector")
+    finally:
+        del os.environ["ESOO_SECTOR_KERNEL"]
+
+
+def h8_16(C, root: str, problem) -> dict:
+    import torch
     main = runpy.run_path(os.path.join(root, "examples",
                                        "torch_H8_scale_demo.py"),
                           run_name="torch_H8_scale_demo")["main"]
@@ -127,7 +192,9 @@ def main() -> int:
     ap.add_argument("--tag", default="this")
     ap.add_argument("--h8-cache", default="")
     ap.add_argument("--out", default=os.path.join(HERE, "build"))
+    ap.add_argument("--paths", default="h4,h8_16")
     args = ap.parse_args()
+    paths = args.paths.split(",")
     root = os.path.abspath(args.root)
     sys.path.insert(0, HERE)
     import chip_smoke as C                 # timing helpers of this checkout
@@ -142,8 +209,12 @@ def main() -> int:
     if not esoo_torch.__file__.startswith(root):
         raise AssertionError(f"imported {esoo_torch.__file__}, not {root}")
     card = C.nvidia_smi()
-    rec = {"tag": args.tag, "root": args.root, "card": card,
-           "h4": h4(C), "h8_16": h8_16(C, root, args.h8_cache)}
+    rec = {"tag": args.tag, "root": args.root, "card": card}
+    h8 = _h8(C, args.h8_cache) if set(paths) - {"h4"} else None
+    runs = {"h4": lambda: h4(C), "h8_16": lambda: h8_16(C, root, h8),
+            "full": lambda: full(C, h8), "pairs": lambda: pairs(C, h8)}
+    for name in paths:
+        rec[name] = runs[name]()
     line = json.dumps(rec)
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, f"gate_scan_bench_{args.tag}.json"),

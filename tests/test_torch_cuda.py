@@ -4,8 +4,8 @@ GPU and skip without one; run them there with
 
     pytest -m cuda tests/test_torch_cuda.py
 
-Tolerances: float32 5e-6 * max(1, max|ref|) (the JAX package's GEMM
-test); float64 1e-12 * max(1, max|ref|)."""
+Tolerances: float32 and complex64 5e-6 * max(1, max|ref|) (the JAX
+package's GEMM test); float64 and complex128 1e-12 * max(1, max|ref|)."""
 
 import ctypes
 
@@ -26,8 +26,8 @@ def card():
 
 
 def _close(out, ref):
-    tol = (5e-6 if ref.dtype == torch.float32 else 1e-12) * max(
-        1.0, float(ref.abs().max()))
+    single = ref.dtype in (torch.float32, torch.complex64)
+    tol = (5e-6 if single else 1e-12) * max(1.0, float(ref.abs().max()))
     assert float((out - ref).abs().max()) <= tol
 
 
@@ -713,6 +713,331 @@ def test_sector_vqe_on_the_card_never_runs_the_plain_scan(card, monkeypatch):
         ).compute_minimum_energy()
         energies[device] = r.eigenvalue
     counts = gate_scan.route_launch_counts()
+    assert counts["bwd"] > 0 and counts["fwd"] >= counts["bwd"]
+    assert counts["bwd"] >= r.stage_stats["lbfgs_evaluations"]
+    assert abs(energies["cuda"] - energies["cpu"]) <= 1e-8
+
+
+# -- the full-space Pauli-rotation scan K8 (csrc/prot_scan.cu) ----------------
+
+def _prot_inputs(nq, kind, dtype, batch, card, K=None, seed=0):
+    """A run of Pauli rotations on nq qubits: "uccsd" (UCCSD(nq / 2,
+    ...) from HF, odd-Y strings, a real state) or "random" (K seeded
+    strings, every Y count; a complex state), as a sim/statevector.py
+    _ScanRun, its tables on the card at `dtype` (the masks x, z and the
+    factors f), angles (every fifth one exactly 0), states (batch, 2^nq)
+    and a cotangent."""
+    import importlib
+    from esoo_torch.sim import HartreeFock, QuantumCircuit, UCCSD
+    TV = importlib.import_module("esoo_torch.sim.statevector")
+    rng = np.random.default_rng(seed)
+    if kind == "uccsd":
+        n = nq // 2
+        parts = ((n + 1) // 2, n // 2)
+        qc = UCCSD(n, parts, initial_state=HartreeFock(n, parts))
+    else:
+        qc = QuantumCircuit(nq)
+        for x, z in rng.integers(0, 1 << nq, size=(K, 2)):
+            qc.pauli_rot(qc.parameter(), int(x), int(z))
+    run = TV._ScanRun([g for g in qc.gates if g.name == "prot"])
+    rd = torch.float32 if dtype in (torch.float32, torch.complex64) \
+        else torch.float64
+    ang = rng.normal(size=len(run.xs))
+    ang[::5] = 0.0
+
+    def draw():
+        a = rng.normal(size=(batch, 1 << nq))
+        if dtype.is_complex:
+            a = a + 1j * rng.normal(size=a.shape)
+        return torch.as_tensor(a, device=card).to(dtype)
+
+    s0 = draw()
+    s0 = s0 / torch.linalg.vector_norm(s0, dim=1, keepdim=True)
+    return run.tables(1 << nq, dtype, card), \
+        torch.as_tensor(ang, device=card).to(rd), s0, draw(), run
+
+
+def _prot_plain(tabs, ang, s0, ct, run):
+    """sim/statevector.py::_ProtScan on the card: out, the cotangent of
+    the states and d/d ang."""
+    import importlib
+    TV = importlib.import_module("esoo_torch.sim.statevector")
+    dim = s0.shape[-1]
+    FS = tabs["f"][:, None] * TV._prot_signs(run.xs, run.zs, dim,
+                                     s0.device).to(s0.dtype)
+    s, a = s0.clone().requires_grad_(), ang.clone().requires_grad_()
+    out = TV._ProtScan.apply(s, a, FS, [TV._flip_dims(v) for v in run.xs],
+                             dim.bit_length() - 1)
+    torch.autograd.backward(out, ct)
+    return out.detach(), s.grad, a.grad
+
+
+@pytest.mark.parametrize("route", [None, "global"])
+@pytest.mark.parametrize("nq,kind,dtype,batch,K", [
+    (8, "uccsd", torch.float64, 1, None), (8, "uccsd", torch.float32, 2, None),
+    (12, "uccsd", torch.float32, 1, None),
+    (6, "random", torch.complex64, 2, 60),
+    (7, "random", torch.complex128, 1, 70)])
+def test_prot_scan_kernel_matches_plain(card, nq, kind, dtype, batch, K,
+                                        route):
+    """Both directions against _ProtScan: the state, its input cotangent
+    and dang, on the route of _plan (smem at these sizes) or forced onto
+    the global route."""
+    from esoo_torch.ops import prot_scan
+    tabs, ang, s0, ct, run = _prot_inputs(nq, kind, dtype, batch, card, K)
+    c, s = torch.cos(ang / 2), torch.sin(ang / 2)
+    g = [tabs["x"], tabs["z"], tabs["f"], c, s]
+    plan = prot_scan._plan(s0.shape[1], batch, len(ang), dtype)
+    prot_scan.reset_launch_counts()
+    out, ckpt = prot_scan._forward(s0, g, plan["stride"], True, route)
+    w0, dang = prot_scan._backward(ckpt, ct, g, plan["stride"], route)
+    torch.cuda.synchronize()
+    counts = prot_scan.route_launch_counts()
+    assert counts["fwd"] == counts["bwd"] == 1
+    assert counts["global"] == (2 if route == "global" else 0)
+    ref = _prot_plain(tabs, ang, s0, ct, run)
+    _close(out, ref[0])
+    _close(w0, ref[1])
+    _close(dang.sum(0), ref[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex128])
+def test_prot_scan_chunked_regime_matches_plain(card, dtype, monkeypatch):
+    """Past _REMAT_RESIDUAL_BUDGET (set low) the kernels keep every
+    isqrt(K)-th state and re-run each chunk in the backward; the plain
+    scan chunks alike."""
+    import importlib
+    from esoo_torch.ops import prot_scan
+    TV = importlib.import_module("esoo_torch.sim.statevector")
+    monkeypatch.setattr(TV, "_REMAT_RESIDUAL_BUDGET", 1 << 10)
+    kind = "uccsd" if not dtype.is_complex else "random"
+    tabs, ang, s0, ct, run = _prot_inputs(8, kind, dtype, 2, card, 90)
+    assert prot_scan._plan(256, 2, len(ang), dtype)["stride"] > 1
+    a = ang.clone().requires_grad_()
+    s = s0.clone().requires_grad_()
+    out = prot_scan.apply_prot_scan(s, a, tabs)
+    torch.autograd.backward(out, ct)
+    ref = _prot_plain(tabs, ang, s0, ct, run)
+    for got, want in zip((out.detach(), s.grad, a.grad), ref):
+        _close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex64])
+def test_prot_scan_autograd_and_repeats(card, dtype):
+    """apply_prot_scan through autograd (one launch a direction, states
+    with two leading axes) against the plain version; two calls agree bit
+    for bit; all-zero angles leave the states exactly."""
+    from esoo_torch.ops import prot_scan
+    kind = "uccsd" if not dtype.is_complex else "random"
+    tabs, ang, s0, ct, run = _prot_inputs(8, kind, dtype, 4, card, 64,
+                                          seed=1)
+    runs = []
+    for _ in range(2):
+        prot_scan.reset_launch_counts()
+        s = s0.reshape(2, 2, -1).clone().requires_grad_()
+        a = ang.clone().requires_grad_()
+        out = prot_scan.apply_prot_scan(s, a, tabs)
+        torch.autograd.backward(out, ct.reshape(2, 2, -1))
+        torch.cuda.synchronize()
+        counts = prot_scan.route_launch_counts()
+        assert counts["fwd"] == counts["bwd"] == 1
+        runs.append((out.detach().reshape(4, -1), s.grad.reshape(4, -1),
+                     a.grad))
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+    for got, want in zip(runs[0], _prot_plain(tabs, ang, s0, ct, run)):
+        _close(got, want)
+    zero = torch.zeros_like(ang)
+    assert torch.equal(prot_scan.apply_prot_scan(s0, zero, tabs), s0)
+
+
+def test_prot_scan_plan_matches_the_kernel(card):
+    from esoo_torch.ops import prot_scan
+    lib = prot_scan._lib()
+    for nq in (1, 4, 8, 12, 14, 16):
+        dim = 1 << nq
+        assert lib.esoo_prot_scan_threads(dim) == prot_scan._threads(dim)
+        for item in (4, 8, 16):
+            for bufs in (0, 2):
+                assert lib.esoo_prot_scan_smem_bytes(dim, item, bufs) == \
+                    prot_scan._smem_bytes(dim, item, bufs)
+
+
+def test_prot_scan_refuses_what_it_does_not_take(card):
+    from esoo_torch.ops import prot_scan
+    tabs, ang, s0, _, _ = _prot_inputs(8, "uccsd", torch.float32, 1, card)
+    with pytest.raises(TypeError):
+        prot_scan.apply_prot_scan(s0.double(), ang, tabs)
+    with pytest.raises(ValueError, match="do not agree"):
+        prot_scan.apply_prot_scan(s0, ang, dict(tabs, x=tabs["x"][:-1]))
+    with pytest.raises(ValueError, match="CUDA device"):
+        prot_scan.apply_prot_scan(s0, ang.cpu(), tabs)
+
+
+def _h4_631g():
+    from esoo_torch.chem import MoleculeDriver
+    return MoleculeDriver(atom="H 0 0 0; H 0 0 1.23; H 0 0 2.46; "
+                          "H 0 0 3.69", basis="6-31g").run()
+
+
+def test_full_space_vqe_on_the_card_never_runs_the_plain_scan(card,
+                                                               monkeypatch):
+    """FusedOptOrbVQE(simulation='full') on H4 6-31G -> 8 at float64 (160
+    rotations on 256 amplitudes): every scan on the card goes through the
+    kernels, one forward and one backward launch an L-BFGS evaluation,
+    and the energy is the CPU's."""
+    import importlib
+    from esoo_torch import FusedOptOrbVQE, HartreeFock, UCCSD
+    from esoo_torch.ops import prot_scan
+    TV = importlib.import_module("esoo_torch.sim.statevector")
+    p = _h4_631g()
+    energies = {}
+    for device in ("cpu", "cuda"):
+        if device == "cuda":
+            def refuse(*args):
+                raise AssertionError("the plain Pauli-rotation scan ran on "
+                                     "the card")
+            monkeypatch.setattr(TV._ProtScan, "apply", refuse)
+        prot_scan.reset_launch_counts()
+        r = FusedOptOrbVQE(
+            8, UCCSD(4, (2, 2), initial_state=HartreeFock(4, (2, 2))),
+            problem=p, simulation="full", maxiter=3, dtype=torch.float64,
+            device=device).compute_minimum_energy()
+        energies[device] = r.eigenvalue
+    counts = prot_scan.route_launch_counts()
+    assert counts["bwd"] > 0 and counts["fwd"] >= counts["bwd"]
+    assert counts["bwd"] >= r.stage_stats["lbfgs_evaluations"]
+    assert abs(energies["cuda"] - energies["cpu"]) <= 1e-8
+
+
+# -- the pairs gate scan (csrc/pair_scan.cu) ----------------------------------
+
+def _pair_inputs(n, parts, dtype, batch, card, seed=0):
+    """A UCCSD(n, parts) pairs sector's PARTNER/SFIELD on the card, theta
+    (every fifth one exactly 0), padded states (batch, nd + 1) and a
+    cotangent."""
+    sec = _pairs_sector(n, parts)
+    rng = np.random.default_rng(seed)
+    th = rng.normal(size=len(sec._excs)) * 0.4
+    th[::5] = 0.0
+    v0 = rng.normal(size=(batch, sec.dim + 1))
+    v0[:, -1] = 0.0
+    v0 /= np.linalg.norm(v0, axis=1, keepdims=True)
+    ct = rng.normal(size=v0.shape)
+    f = lambda a: torch.as_tensor(a, device=card).to(dtype)
+    P = torch.as_tensor(sec._PARTNER, device=card)
+    return P, f(sec._SFIELD), f(th), f(v0), f(ct)
+
+
+def _pair_plain(P, S, th, v0, ct):
+    """sim/sector.py::_ApplyRev on the card: v, the cotangent of v0 and
+    dtheta."""
+    from esoo_torch.sim import sector
+    v, t = v0.clone().requires_grad_(), th.clone().requires_grad_()
+    out = sector._ApplyRev.apply(v, t, P, S)
+    torch.autograd.backward(out, ct)
+    return out.detach(), v.grad, t.grad
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,parts,batch,route", [
+    (4, (2, 2), 1, None), (6, (3, 2), 3, None), (8, (4, 4), 1, None),
+    (6, (3, 2), 3, "global"), (9, (4, 4), 1, None)])
+def test_pair_scan_kernel_matches_plain(card, dtype, n, parts, batch, route):
+    """Both directions against _ApplyRev: v, w and dtheta, on the route of
+    _plan (n = 9, (4, 4): the global route backward, and forward at
+    float64) or forced onto the global route at a small shape."""
+    from esoo_torch.ops import pair_scan
+    P, S, th, v0, ct = _pair_inputs(n, parts, dtype, batch, card)
+    c, s = torch.cos(th), torch.sin(th)
+    pair_scan.reset_launch_counts()
+    out = pair_scan._forward(v0, c, s, P, S, route)
+    w0, dth = pair_scan._backward(out, ct, c, s, P, S, route)
+    torch.cuda.synchronize()
+    plan = pair_scan._plan(v0.shape[1], dtype)
+    routes = [route or plan[d]["route"] for d in ("fwd", "bwd")]
+    counts = pair_scan.route_launch_counts()
+    assert counts["fwd"] == counts["bwd"] == 1
+    assert counts["global"] == routes.count("global")
+    ref = _pair_plain(P, S, th, v0, ct)
+    _close(out, ref[0])
+    _close(w0, ref[1])
+    _close(dth.sum(0), ref[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pair_scan_autograd_and_repeats(card, dtype):
+    """apply_rev_pairs through autograd (one launch a direction, states
+    with two leading axes) against the plain version; two calls agree bit
+    for bit; an all-zero theta leaves the states exactly."""
+    from esoo_torch.ops import pair_scan
+    P, S, th, v0, ct = _pair_inputs(6, (3, 3), dtype, 4, card, seed=1)
+    runs = []
+    for _ in range(2):
+        pair_scan.reset_launch_counts()
+        v = v0.reshape(2, 2, -1).clone().requires_grad_()
+        t = th.clone().requires_grad_()
+        out = pair_scan.apply_rev_pairs(v, t, P, S)
+        torch.autograd.backward(out, ct.reshape(2, 2, -1))
+        torch.cuda.synchronize()
+        counts = pair_scan.route_launch_counts()
+        assert counts["fwd"] == counts["bwd"] == 1
+        runs.append((out.detach().reshape(4, -1), v.grad.reshape(4, -1),
+                     t.grad))
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+    for got, want in zip(runs[0], _pair_plain(P, S, th, v0, ct)):
+        _close(got, want)
+    zero = torch.zeros_like(th)
+    assert torch.equal(pair_scan.apply_rev_pairs(v0, zero, P, S), v0)
+
+
+def test_pair_scan_plan_matches_the_kernel(card):
+    from esoo_torch.ops import pair_scan
+    lib = pair_scan._lib()
+    for n in (1, 37, 226, 4901, 15877, 44101):
+        assert lib.esoo_pair_scan_threads(n) == pair_scan._threads(n)
+        for item in (4, 8):
+            for bufs in (0, 2, 4):
+                assert lib.esoo_pair_scan_smem_bytes(n, item, bufs) == \
+                    pair_scan._smem_bytes(n, item, bufs)
+
+
+def test_pair_scan_refuses_what_it_does_not_take(card):
+    from esoo_torch.ops import pair_scan
+    P, S, th, v0, _ = _pair_inputs(4, (2, 2), torch.float32, 1, card)
+    with pytest.raises(TypeError):
+        pair_scan.apply_rev_pairs(v0.double(), th, P, S)
+    with pytest.raises(ValueError, match="do not agree"):
+        pair_scan.apply_rev_pairs(v0[..., :-1], th, P, S)
+    with pytest.raises(ValueError, match="CUDA device"):
+        pair_scan.apply_rev_pairs(v0, th.cpu(), P, S)
+
+
+def test_pairs_vqe_on_the_card_never_runs_the_plain_scan(card, monkeypatch):
+    """FusedOptOrbVQE on H4 6-31G -> 8 with ESOO_SECTOR_KERNEL=pairs at
+    float64: every scan on the card goes through the kernels, one forward
+    and one backward launch an L-BFGS evaluation, and the energy is the
+    CPU's."""
+    from esoo_torch import FusedOptOrbVQE, HartreeFock, UCCSD
+    from esoo_torch.ops import pair_scan
+    from esoo_torch.sim import sector
+    monkeypatch.setenv("ESOO_SECTOR_KERNEL", "pairs")
+    p = _h4_631g()
+    energies = {}
+    for device in ("cpu", "cuda"):
+        if device == "cuda":
+            def refuse(*args):
+                raise AssertionError("the plain pairs scan ran on the card")
+            monkeypatch.setattr(sector._ApplyRev, "apply", refuse)
+        pair_scan.reset_launch_counts()
+        s = FusedOptOrbVQE(
+            8, UCCSD(4, (2, 2), initial_state=HartreeFock(4, (2, 2))),
+            problem=p, maxiter=3, dtype=torch.float64, device=device)
+        assert s._sector.kernel == "pairs"
+        r = s.compute_minimum_energy()
+        energies[device] = r.eigenvalue
+    counts = pair_scan.route_launch_counts()
     assert counts["bwd"] > 0 and counts["fwd"] >= counts["bwd"]
     assert counts["bwd"] >= r.stage_stats["lbfgs_evaluations"]
     assert abs(energies["cuda"] - energies["cpu"]) <= 1e-8
