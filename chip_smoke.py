@@ -541,7 +541,8 @@ MESH_SHARD_SHAPES = ((112, 28, 14), (56, 14, 4))
 # sectors of the H4 main path (nd = 36, 26 gates) and of the H8 -> 16
 # demo (nd = 4,900, 360 gates; one state, and two as SSVQE stacks them)
 # at float32, their type on the card, and n = 9 at (4, 4) (nd = 15,876,
-# 560 gates) at float64, which takes the global route both ways
+# 560 gates) at float64, whose backward (V and W, 254 KB) takes the
+# global route
 GATE_SCAN_SHAPES = (("h4", 4, (2, 2), "float32", 1),
                     ("h8_16", 8, (4, 4), "float32", 1),
                     ("h8_16_b2", 8, (4, 4), "float32", 2),
@@ -551,16 +552,22 @@ GATE_SCAN_SHAPES = (("h4", 4, (2, 2), "float32", 1),
 # term and its sum, and W's update (6 + 6 + 6 + 5 + 2 + 6) backward
 GATE_SCAN_OPS = {"fwd": 12, "bwd": 31}
 # the full-space Pauli-rotation scan K8's shapes, (name, circuit, dtype,
-# states): the H8 -> 12 full path's UCCSD(6, (4, 4)) (640 rotations on
-# 4,096 amplitudes) at float32 with one state and two (a stacked SSVQE),
-# H4 -> 8's UCCSD(4, (2, 2)) (160 on 256) at float64, 300 seeded random
-# Pauli strings on 10 qubits at complex64, and the H8 -> 16 demo's
-# UCCSD(8, (4, 4)) (2,688 on 65,536) at float32, which takes the global
-# route and the sqrt(K)-chunked backward
+# states): the H8 -> 12 full path's UCCSD(6, (4, 4)) (640 rotations in 92
+# groups of one X mask on 4,096 amplitudes) at float32 with one state and
+# two (a stacked SSVQE), H4 -> 8's UCCSD(4, (2, 2)) (160 in 26 on 256) at
+# float64, and the same under the parity mapper, seeded random Pauli
+# strings (groups of one) at complex64 on 10 qubits (300) and at
+# complex128 on 13 (200; shared memory holds its 128 KB state since the
+# scan works in place), and the H8 -> 16 demo's UCCSD(8, (4, 4)) (2,688
+# in 360 on 65,536) at float32, which takes the global route and the
+# sqrt(G)-chunked backward
 PROT_SCAN_SHAPES = (("h8_12", ("uccsd", 6, (4, 4)), "float32", 1),
                     ("h8_12_b2", ("uccsd", 6, (4, 4)), "float32", 2),
                     ("h4_8_f64", ("uccsd", 4, (2, 2)), "float64", 1),
+                    ("h4_8_parity_f64", ("parity", 4, (2, 2)), "float64", 1),
                     ("random_n10_c64", ("random", 10, 300), "complex64", 1),
+                    ("random_n13_c128", ("random", 13, 200), "complex128",
+                     1),
                     ("h8_16", ("uccsd", 8, (4, 4)), "float32", 1))
 # floating-point operations an amplitude and rotation that the scan needs
 # (an FMA counts two).  The factor f_k is +-1 or +-i and the sign
@@ -732,8 +739,9 @@ def device_profile(fn, reps: int = 20, match: str = ""):
     whose name contains `match` (torch.profiler/CUPTI): the kernels'
     durations alone, without the gaps between kernels that `time_ms`
     includes.  A profiling window in which CUPTI delivered no device
-    event at all (seen now and then on the card, for any kernel) is
-    taken again, at most twice."""
+    event matching `match` (seen now and then on the card, for any
+    kernel, with no event at all or only others') is taken again, at
+    most twice."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -743,10 +751,9 @@ def device_profile(fn, reps: int = 20, match: str = ""):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = _device_events(prof)
-        if events:
+        times = [t for name, t in _device_events(prof) if match in name]
+        if times:
             break
-    times = [t for name, t in events if match in name]
     if not times:
         raise AssertionError(f"profiler recorded no device kernel "
                              f"matching {match!r}")
@@ -1132,9 +1139,11 @@ def _gate_scan_kernels(checks: list, peak: tuple) -> dict:
         th, V0, ct = (torch.as_tensor(a, device="cuda").to(dtype)
                       for a in (th, V0, ct))
         c, s = torch.cos(th), torch.sin(th)
-        plan = gate_scan._plan(nB, nA, dtype)
+        plan = gate_scan._plan(nB, nA, dtype, *tabs["GREC"].shape)
         fields = strings.gate_fields(tabs)     # the plain version's input
         V = gate_scan._forward(V0, c, s, tabs)
+        rec = tabs["GREC"].cpu()
+        pairs = (rec[:, 0].long() * rec[:, 1].long()).sum()
         item = V0.element_size()
         nd = nB * nA
         tables = K * (nA + nB) * (4 + 4 * item) + 2 * K * item
@@ -1153,7 +1162,10 @@ def _gate_scan_kernels(checks: list, peak: tuple) -> dict:
             f"{dt}",
             info=dict(n=n, particles=parts, states=B, nB=nB, nA=nA,
                       gates=K, dtype=dt, threads=plan["threads"],
+                      touched_pairs=int(pairs), record_words=plan["words"],
                       routes={d: plan[d]["route"] for d in ("fwd", "bwd")},
+                      ring_stages={d: plan[d]["stages"]
+                                   for d in ("fwd", "bwd")},
                       smem_bytes={d: plan[d]["smem"]
                                   for d in ("fwd", "bwd")}))
     return out
@@ -1182,8 +1194,12 @@ def _prot_scan_run(spec):
     TV = importlib.import_module("esoo_torch.sim.statevector")
     import numpy as np
     kind, n, arg = spec
-    if kind == "uccsd":
-        qc, nq = UCCSD(n, arg, initial_state=HartreeFock(n, arg)), 2 * n
+    if kind in ("uccsd", "parity"):
+        from esoo_torch.ops import ParityMapper
+        mp = ParityMapper() if kind == "parity" else None
+        qc = UCCSD(n, arg, qubit_mapper=mp,
+                   initial_state=HartreeFock(n, arg, qubit_mapper=mp))
+        nq = 2 * n
     else:
         qc, nq = QuantumCircuit(n), n
         for x, z in np.random.default_rng(n).integers(0, 1 << n,
@@ -1234,8 +1250,9 @@ def _prot_scan_kernels(checks: list, peak: tuple) -> dict:
         ang = torch.as_tensor(ang, device="cuda").to(rd)
         tabs = run.tables(dim, dtype, "cuda")
         c, s = torch.cos(ang / 2), torch.sin(ang / 2)
-        gates = [tabs["x"], tabs["z"], tabs["f"], c, s]
-        plan = prot_scan._plan(dim, B, K, dtype)
+        gates = [tabs["x"], tabs["z"], tabs["f"], c, s, tabs["groups"]]
+        lengths = torch.diff(tabs["groups"]).tolist()
+        plan = prot_scan._plan(dim, B, K, dtype, len(lengths))
         stride = plan["stride"]
         _, ckpt = prot_scan._forward(S0, gates, stride, True)
         FS = tabs["f"][:, None] * TV._prot_signs(run.xs, run.zs, dim,
@@ -1258,8 +1275,10 @@ def _prot_scan_kernels(checks: list, peak: tuple) -> dict:
             desc=f"{B} x {dim} amplitudes ({nq} qubits), {K} rotations, "
             f"{dt}",
             info=dict(qubits=nq, states=B, rotations=K, dtype=dt,
+                      groups=len(lengths), longest_group=max(lengths),
                       threads=plan["threads"], stride=stride,
                       checkpoints=plan["checkpoints"],
+                      window=plan["window"],
                       routes={d: plan[d]["route"] for d in ("fwd", "bwd")},
                       smem_bytes={d: plan[d]["smem"]
                                   for d in ("fwd", "bwd")}),

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops import gate_scan as _gate_scan
 from .sim import strings as _strings
 
 
@@ -40,8 +41,10 @@ def string_tables_from_numpy(host: dict, *, dtype: torch.dtype,
     port's device tables: index tables int64, float and operator-stack
     tables at `dtype`; on the CPU also the per-gate (K, nd) fields of
     strings.gate_fields under "M", "S" and "flat", which only the plain
-    gate scan reads (the card's kernels form them from the factored
-    tables).  The host-only string bitmasks A/B are dropped."""
+    gate scan reads; elsewhere the gate scan kernel's packed per-gate
+    lists under "GREC" (ops/gate_scan.py::records of strings.gate_lists),
+    which the card's kernels read instead.  The host-only string bitmasks
+    A/B are dropped."""
     out = {}
     for k, a in host.items():
         if k in ("A", "B"):
@@ -58,6 +61,9 @@ def string_tables_from_numpy(host: dict, *, dtype: torch.dtype,
                                      device=device).to(dtype)
     if torch.device(device).type == "cpu":
         out["M"], out["S"], out["flat"] = _strings.gate_fields(out)
+    elif "PA" in host:
+        out["GREC"] = torch.as_tensor(
+            _gate_scan.records(_strings.gate_lists(host)), device=device)
     return out
 
 

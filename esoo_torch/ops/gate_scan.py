@@ -9,13 +9,20 @@ matrix, one kernel launch forward and one backward.
     forward is one launch of `gate_scan_fwd` and whose backward is one
     launch of `gate_scan_bwd` plus the sum of its (B, K) dtheta partials.
     `tabs` is the sector's string tables dict (sim/sector.py
-    device_tables): the kernel reads the factored per-gate tables PA, PB
-    (as int32 copies, cached once per tables dict), AD AR UD UR BD BR VD
-    VR, and never the (K, nd) fields M, S, flat.
-  * `_plan(nB, nA, dtype)`: the route of each direction, "smem" (the
-    state's ping-pong buffers in shared memory) or "global" (in an
-    L2-resident scratch), mirroring the kernel's smem_bytes and
-    block_threads; a shape that neither route takes raises.
+    device_tables): on the card the kernel reads only "GREC", each gate's
+    domain lists packed by `records` (convert.string_tables_from_numpy
+    builds it from sim/strings.py::gate_lists), and visits only the pairs
+    each gate touches, never the (K, nd) fields M, S, flat.
+  * `records(lists)`: the (K, words) int32 gate records, one a gate:
+    [nda, ndb, LA, LB, 1 / nda as float32 bits, 0, 0, 0 | DA | QA | FA |
+    DB | QB | FB | 0 ...], each list padded to its side's largest count
+    (LA, LB), the sign factors as sign bits (0 for +1, 0x80000000 for
+    -1), words a multiple of 4 (16 bytes, for the kernel's bulk copies).
+  * `_plan(nB, nA, dtype, K, words)`: the route of each direction, "smem"
+    (the state, updated in place, in shared memory) or "global" (in
+    place in the output tensor; the backward's V in a scratch), and the
+    depth of the ring of gate records, mirroring the kernel's smem_bytes
+    and block_threads; a shape that neither route takes raises.
 
 The plain version is sim/strings.py::_ApplyRevStr.  `apply_rev_str` runs
 it for tensors on the CPU; for CUDA tensors it launches the kernels or
@@ -31,8 +38,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import weakref
 
+import numpy as np
 import torch
 
 from . import _build
@@ -42,30 +49,56 @@ _KERNEL_DTYPES = (torch.float32, torch.float64)
 _MAX_THREADS = 512               # kMaxThreads
 _MAX_WARPS = _MAX_THREADS // 32  # kMaxWarps
 _SMEM_LIMIT = 232448             # kMaxSmem: shared memory a block may use
-_FWD_BUFFERS = 2                 # kFwdBuffers: V ping-pong
-_BWD_BUFFERS = 4                 # kBwdBuffers: V and W ping-pong
+_FWD_BUFFERS = 1                 # kFwdBuffers: V, in place
+_BWD_BUFFERS = 2                 # kBwdBuffers: V and W, in place
+_MAX_STAGES = 32                 # kMaxStages: records in flight, at most
+_MIN_STAGES = 4                  # kMinStages: or all K gates when fewer
+_HEADER = 8                      # kHeader: nda ndb LA LB 1/nda 0 0 0
 _ROUTES = ("smem", "global")     # the kernel's route argument 0, 1
-_FLOAT_KEYS = ("AD", "AR", "UD", "UR", "BD", "BR", "VD", "VR")
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gate_scan")
-    tables = [ctypes.c_void_p] * 12          # PA PB AD .. VR c s
-    ints = [ctypes.c_int] * 5                # B K nA nB route
+    ints = [ctypes.c_int] * 7                # B K nA nB words stages route
     for fn in (lib.esoo_gate_scan_fwd_f32, lib.esoo_gate_scan_fwd_f64):
         fn.restype = ctypes.c_int
-        fn.argtypes = tables + [ctypes.c_void_p] * 3 + ints + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + ints + [ctypes.c_void_p]
     for fn in (lib.esoo_gate_scan_bwd_f32, lib.esoo_gate_scan_bwd_f64):
         fn.restype = ctypes.c_int
-        fn.argtypes = tables + [ctypes.c_void_p] * 5 + ints + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + ints + [ctypes.c_void_p]
     lib.esoo_gate_scan_smem_bytes.restype = ctypes.c_longlong
-    lib.esoo_gate_scan_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.esoo_gate_scan_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.esoo_gate_scan_threads.restype = ctypes.c_int
     lib.esoo_gate_scan_threads.argtypes = [ctypes.c_int]
     return lib
+
+
+def _words(LA: int, LB: int) -> int:
+    """A record's int32 words: the header and three lists a side, rounded
+    up to a multiple of 4."""
+    return -(-(_HEADER + 3 * (LA + LB)) // 4) * 4
+
+
+def records(lists: dict) -> np.ndarray:
+    """The (K, words) int32 gate records of sim/strings.py::gate_lists'
+    lists: [nda, ndb, LA, LB, 1 / nda (float32 bits), 0, 0, 0 | DA | QA |
+    FA | DB | QB | FB | 0 ...], FA and FB as sign bits."""
+    K, LA = lists["DA"].shape
+    LB = lists["DB"].shape[1]
+    rec = np.zeros((K, _words(LA, LB)), dtype=np.int32)
+    nda = np.asarray(lists["NDA"])
+    rec[:, 0], rec[:, 1], rec[:, 2], rec[:, 3] = nda, lists["NDB"], LA, LB
+    rec[:, 4] = (np.float32(1) / nda.astype(np.float32)).view(np.int32)
+    at = _HEADER
+    for key, width in (("DA", LA), ("QA", LA), ("FA", LA), ("DB", LB),
+                       ("QB", LB), ("FB", LB)):
+        block = np.asarray(lists[key])
+        if key[0] == "F":
+            block = np.where(block < 0, np.int32(-2 ** 31), np.int32(0))
+        rec[:, at:at + width] = block
+        at += width
+    return rec
 
 
 def _threads(nd: int) -> int:
@@ -74,71 +107,60 @@ def _threads(nd: int) -> int:
     return min(_MAX_THREADS, -(-nd // 32) * 32)
 
 
-def _smem_bytes(nB: int, nA: int, itemsize: int, bufs: int) -> int:
-    """The kernel's dynamic shared memory (smem_bytes): `bufs` state
-    buffers of nd values (0 on the global route), the two-stage table
-    ring of 4 (nA + nB) values a stage, 2 x _MAX_WARPS dtheta warp sums,
-    and the ring's int32 partner maps (nA + nB a stage)."""
-    ns = nA + nB
-    return itemsize * (bufs * nA * nB + 8 * ns + 2 * _MAX_WARPS) + 4 * 2 * ns
+def _smem_bytes(nB: int, nA: int, itemsize: int, bufs: int, words: int,
+                stages: int) -> int:
+    """The kernel's dynamic shared memory (smem_bytes): the ring of
+    `stages` records of `words` int32, its _MAX_STAGES 8-byte mbarriers,
+    2 x _MAX_WARPS dtheta warp sums, and `bufs` state buffers of nd
+    values (0 on the global route)."""
+    return 4 * words * stages + 8 * _MAX_STAGES + \
+        itemsize * (2 * _MAX_WARPS + bufs * nA * nB)
 
 
-def _plan(nB: int, nA: int, dtype: torch.dtype) -> dict:
-    """Each direction's route for states of shape (nB, nA): {"threads":
-    the block size, "fwd"/"bwd": {"route", "smem" (bytes)}}.  The state
-    stays in shared memory when its buffers fit; else in a (B, buffers,
-    nd) scratch in device memory, when the table ring alone fits; else
-    ValueError."""
+def _stages(nB: int, nA: int, itemsize: int, bufs: int, K: int,
+            words: int) -> int:
+    """The ring's depth beside `bufs` state buffers: as many records as
+    fit, at most K and _MAX_STAGES."""
+    free = _SMEM_LIMIT - _smem_bytes(nB, nA, itemsize, bufs, 0, 0)
+    return min(K, _MAX_STAGES, max(free, 0) // (4 * words))
+
+
+def _plan(nB: int, nA: int, dtype: torch.dtype, K: int = _MAX_STAGES,
+          words: int = None) -> dict:
+    """Each direction's route for states of shape (nB, nA) through K gates
+    whose records have `words` int32 (by default the widest, every string
+    of both sides in each list): {"threads": the block size, "words",
+    "fwd"/"bwd": {"route", "stages" (the ring's depth), "smem" (bytes)}}.
+    The state stays in shared memory when its buffers fit beside a ring
+    of at least min(K, _MIN_STAGES) records; else in place in device
+    memory, when that ring alone fits; else ValueError."""
     if dtype not in _KERNEL_DTYPES:
         raise TypeError(f"the gate scan kernel takes float32 or float64, "
                         f"got {dtype}")
-    if min(nB, nA) < 1:
-        raise ValueError(f"empty gate scan shape (nB, nA)=({nB}, {nA})")
+    if min(nB, nA, K) < 1:
+        raise ValueError(f"empty gate scan shape (nB, nA)=({nB}, {nA}), "
+                         f"{K} gates")
     itemsize = torch.empty((), dtype=dtype).element_size()
+    words = _words(nA, nB) if words is None else words
     nd = nA * nB
-    plan = {"threads": _threads(nd)}
+    least = min(K, _MIN_STAGES)
+    plan = {"threads": _threads(nd), "words": words}
     for direction, bufs in (("fwd", _FWD_BUFFERS), ("bwd", _BWD_BUFFERS)):
-        smem = _smem_bytes(nB, nA, itemsize, bufs)
-        if smem <= _SMEM_LIMIT:
-            plan[direction] = dict(route="smem", smem=smem)
-            continue
-        smem = _smem_bytes(nB, nA, itemsize, 0)
-        if smem > _SMEM_LIMIT or bufs * nd >= 2 ** 31:
+        for route in _ROUTES:
+            state = bufs if route == "smem" else 0
+            stages = _stages(nB, nA, itemsize, state, K, words)
+            if stages >= least:
+                break
+        if stages < least or bufs * nd >= 2 ** 31:
             raise ValueError(
                 f"the gate scan kernel takes no route for (nB, nA) = ({nB}, "
-                f"{nA}) at {dtype}: its table ring needs {smem} bytes of "
-                f"shared memory (at most {_SMEM_LIMIT})")
-        plan[direction] = dict(route="global", smem=smem)
+                f"{nA}) at {dtype}: a ring of {least} gate records of "
+                f"{4 * words} bytes does not fit its {_SMEM_LIMIT} bytes of "
+                "shared memory")
+        plan[direction] = dict(
+            route=route, stages=stages,
+            smem=_smem_bytes(nB, nA, itemsize, state, words, stages))
     return plan
-
-
-# int32 copies of the partner maps, once per tables dict: id(PA) ->
-# (a weak reference to PA, PA as int32, PB as int32)
-_INDEX32 = {}
-
-
-def _index32(tabs: dict) -> tuple:
-    key = tabs["PA"]
-    got = _INDEX32.get(id(key))
-    if got is None or got[0]() is not key:
-        got = (weakref.ref(key), key.to(torch.int32).contiguous(),
-               tabs["PB"].to(torch.int32).contiguous())
-        _INDEX32[id(key)] = got
-        weakref.finalize(key, _INDEX32.pop, id(key), None)
-    return got[1:]
-
-
-def _tables(tabs: dict, c: torch.Tensor, s: torch.Tensor, dev,
-            dtype) -> list:
-    """The kernel's table arguments: PA PB AD .. VR c s."""
-    pa, pb = _index32(tabs)
-    tables = [pa, pb, *(tabs[k].to(dtype).contiguous() for k in _FLOAT_KEYS),
-              c, s]
-    for t in tables:
-        if t.device != dev:
-            raise ValueError(f"gate scan: a table on {t.device}, the state "
-                             f"on {dev}; all must be on one CUDA device")
-    return tables
 
 
 def _check(V0: torch.Tensor, theta: torch.Tensor, tabs: dict) -> None:
@@ -158,29 +180,45 @@ def _check(V0: torch.Tensor, theta: torch.Tensor, tabs: dict) -> None:
             f"gate scan: states {tuple(V0.shape)} (..., nB, nA), theta "
             f"{tuple(theta.shape)}, PA {tuple(tabs['PA'].shape)} and PB "
             f"{tuple(tabs['PB'].shape)} do not agree")
+    rec = tabs.get("GREC")
+    if rec is None or rec.device != V0.device or rec.dtype != torch.int32 \
+            or rec.dim() != 2 or rec.shape[0] != K or rec.shape[1] % 4:
+        raise ValueError(
+            "gate scan: the tables hold no gate records \"GREC\" (K, words) "
+            f"int32 on {V0.device} (convert.string_tables_from_numpy "
+            "builds them on the card)")
 
 
 def _launch(direction: str, V: torch.Tensor, tensors: list,
             c: torch.Tensor, s: torch.Tensor, tabs: dict,
             route: str = None) -> None:
     """One launch of gate_scan_<direction> on B contiguous (B, nB, nA)
-    states: `tensors` are its state arguments after the tables (forward:
-    V0, out; backward: V, W, w0, dth).  `route` overrides the plan's (the
-    card tests force the global route at small shapes)."""
+    states: `tensors` are its state arguments after the records, c and s
+    (forward: V0, out; backward: V, W, w0, dth).  `route` overrides the
+    plan's (the card tests force the global route at small shapes)."""
     B, nB, nA = V.shape
-    K = int(c.shape[0])
-    route = route or _plan(nB, nA, V.dtype)[direction]["route"]
-    bufs = _FWD_BUFFERS if direction == "fwd" else _BWD_BUFFERS
-    scratch = torch.empty(B * bufs * nA * nB, dtype=V.dtype,
-                          device=V.device) if route == "global" else None
-    lib = _lib()
-    fn = getattr(lib, f"esoo_gate_scan_{direction}_"
+    rec = tabs["GREC"]
+    K, words = (int(n) for n in rec.shape)
+    plan = _plan(nB, nA, V.dtype, K, words)[direction]
+    if route is not None and route != plan["route"]:
+        bufs = (_FWD_BUFFERS if direction == "fwd" else _BWD_BUFFERS) \
+            if route == "smem" else 0
+        plan = dict(route=route, stages=_stages(nB, nA, V.element_size(),
+                                                bufs, K, words))
+    route = plan["route"]
+    if c.device != V.device or s.device != V.device:
+        raise ValueError(f"gate scan: c and s on {c.device}, the state on "
+                         f"{V.device}; all must be on one CUDA device")
+    scratch = torch.empty_like(V) \
+        if route == "global" and direction == "bwd" else None
+    fn = getattr(_lib(), f"esoo_gate_scan_{direction}_"
                  f"{'f32' if V.dtype == torch.float32 else 'f64'}")
-    args = _tables(tabs, c, s, V.device, V.dtype) + tensors
+    if direction == "bwd":
+        tensors = tensors + [scratch]
+    args = [rec, c, s] + tensors
     with torch.cuda.device(V.device):
-        rc = fn(*(t.data_ptr() for t in args),
-                None if scratch is None else scratch.data_ptr(), B, K, nA,
-                nB, _ROUTES.index(route),
+        rc = fn(*(None if t is None else t.data_ptr() for t in args), B, K,
+                nA, nB, words, plan["stages"], _ROUTES.index(route),
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gate scan {direction} kernel launch failed: "

@@ -12,16 +12,22 @@ lax.scan over :256 `_scan_gates`, in sqrt(K) jax.checkpoint chunks past
     backward is one launch of `prot_scan_bwd` plus the sum of its (B, K)
     dang partials.  `tabs` are the run's tables on the state's device
     (sim/statevector.py::_ScanRun.tables): on the card the (K,) int64 bit
-    masks "x", "z" and the (K,) factors "f" (+-1 at the real dtype for a
+    masks "x", "z", the (K,) factors "f" (+-1 at the real dtype for a
     real state; -i i^y at the complex dtype for a complex one), from
     which the kernel forms each sign (-1)^popcount((c ^ x) & z) in
-    registers, reading no (K, 2^N) table.
-  * `_plan(dim, B, K, dtype)`: the route of each direction, "smem" (the
-    ping-pong buffers in shared memory) or "global" (in an L2-resident
-    scratch), mirroring the kernel's smem_bytes and block_threads, and
-    the checkpoint stride (every state while K * B * dim is within
-    sim/statevector.py's _REMAT_RESIDUAL_BUDGET, else every isqrt(K)-th,
-    the plain version's chunks); a shape that neither route takes raises.
+    registers, reading no (K, 2^N) table, and the (G + 1,) int32 offsets
+    "groups" of `group_offsets`.
+  * `group_offsets(xs)`: the run cut into groups, maximal runs of
+    consecutive rotations with equal X mask, at most _MAX_GROUP long.  A
+    thread of the kernel applies a whole group to its pair of amplitudes
+    {e, e ^ x} in registers, one barrier a group.
+  * `_plan(dim, B, K, dtype, G)`: the route of each direction, "smem"
+    (the state in shared memory, updated in place) or "global" (in place
+    in the output tensor, L2-resident), mirroring the kernel's smem_bytes
+    and block_threads, the rotations staged in shared memory at a time
+    (the window), and the checkpoint stride in groups (every group while
+    G * B * dim is within sim/statevector.py's _REMAT_RESIDUAL_BUDGET,
+    else every isqrt(G)-th); a shape that neither route takes raises.
 
 The plain version is sim/statevector.py::_ProtScan.  `apply_prot_scan`
 runs it for tensors on the CPU (on the CPU tables' (K, 2^N) sign table
@@ -29,9 +35,9 @@ runs it for tensors on the CPU (on the CPU tables' (K, 2^N) sign table
 raises.  `apply_prot_scan.launches` counts the kernel launches (one a
 direction), split by direction and route in `route_launch_counts`.
 
-Bound on an H100: the K-step serial dependence (see csrc/prot_scan.cu);
-a direction's operations (7.9 and 18.4 MFLOP at H8 -> 12 in float32)
-take 0.12 and 0.27 us at 67 TFLOP/s, its bytes (~51 KB) 15 ns.
+Bound on an H100: the serial dependence (see csrc/prot_scan.cu); a
+direction's operations (7.9 and 18.4 MFLOP at H8 -> 12 in float32) take
+0.12 and 0.27 us at 67 TFLOP/s, its bytes (~51 KB) 15 ns.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import functools
 import importlib
 import math
 
+import numpy as np
 import torch
 
 from . import _build
@@ -55,7 +62,8 @@ _REAL = {torch.float32: torch.float32, torch.float64: torch.float64,
 _MAX_THREADS = 512               # kMaxThreads
 _MAX_WARPS = _MAX_THREADS // 32  # kMaxWarps
 _SMEM_LIMIT = 232448             # kMaxSmem: shared memory a block may use
-_BUFFERS = 2                     # kBuffers: state or W ping-pong
+_BUFFERS = 1                     # kBuffers: the state or W, in place
+_MAX_GROUP = 8                   # kMaxGroup: rotations a group, at most
 _MAX_DIM = 1 << 30               # kMaxDim: 32-bit amplitude indices
 _ROUTES = ("smem", "global")     # the kernel's route argument 0, 1
 
@@ -63,7 +71,7 @@ _ROUTES = ("smem", "global")     # the kernel's route argument 0, 1
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("prot_scan")
-    ints = [ctypes.c_int] * 5                # B K dim stride route
+    ints = [ctypes.c_int] * 7        # B K G dim stride window route
     for tag in _TAGS.values():
         fwd = getattr(lib, f"esoo_prot_scan_fwd_{tag}")
         fwd.restype = ctypes.c_int
@@ -72,23 +80,57 @@ def _lib() -> ctypes.CDLL:
         bwd.restype = ctypes.c_int
         bwd.argtypes = [ctypes.c_void_p] * 11 + ints + [ctypes.c_void_p]
     lib.esoo_prot_scan_smem_bytes.restype = ctypes.c_longlong
-    lib.esoo_prot_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.esoo_prot_scan_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.esoo_prot_scan_threads.restype = ctypes.c_int
     lib.esoo_prot_scan_threads.argtypes = [ctypes.c_int]
     return lib
 
 
+def group_offsets(xs) -> np.ndarray:
+    """The (G + 1,) int32 offsets of the groups of a run of rotations
+    with X masks `xs`: maximal runs of consecutive rotations with equal x,
+    cut after _MAX_GROUP rotations; the order is never changed."""
+    xs = np.asarray(xs, dtype=np.int64)
+    cuts = [0]
+    for k in range(1, len(xs)):
+        if xs[k] != xs[k - 1] or k - cuts[-1] == _MAX_GROUP:
+            cuts.append(k)
+    cuts.append(len(xs))
+    return np.asarray(cuts, dtype=np.int32)
+
+
 def _threads(dim: int) -> int:
-    """The kernel's block size (block_threads): dim rounded up to a warp,
-    at most _MAX_THREADS."""
-    return min(_MAX_THREADS, -(-dim // 32) * 32)
+    """The kernel's block size (block_threads): a thread a pair of
+    amplitudes, dim / 2 rounded up to a warp, at most _MAX_THREADS."""
+    return min(_MAX_THREADS, -(-(dim // 2) // 32) * 32)
 
 
-def _smem_bytes(dim: int, itemsize: int, bufs: int) -> int:
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _rotation_bytes(itemsize: int, realsize: int) -> int:
+    """A staged rotation's shared memory: its Rot (the two factors with s
+    folded in, c and the 32-bit z mask, rounded up to 16 bytes), its Fac
+    (the two factors) and s."""
+    return _round16(2 * itemsize + realsize + 4) + 2 * itemsize + realsize
+
+
+def _smem_bytes(dim: int, itemsize: int, realsize: int, bufs: int,
+                window: int) -> int:
     """The kernel's dynamic shared memory (smem_bytes): `bufs` state
-    buffers of dim amplitudes (0 on the global route) and 2 x _MAX_WARPS
-    8-byte dang warp sums."""
-    return itemsize * bufs * dim + 8 * 2 * _MAX_WARPS
+    buffers of dim amplitudes (0 on the global route; rounded up to 16
+    bytes), `window` staged rotations, and 2 x _MAX_GROUP x 2 x
+    _MAX_WARPS 8-byte dang warp sums."""
+    return _round16(itemsize * bufs * dim) + window * _rotation_bytes(
+        itemsize, realsize) + 8 * 2 * _MAX_GROUP * 2 * _MAX_WARPS
+
+
+def _window(K: int, free: int, itemsize: int, realsize: int) -> int:
+    """The rotations staged at a time in `free` bytes: all K (rounded up
+    to 4) when they fit, else as many multiples of 4 as fit."""
+    fit = free // _rotation_bytes(itemsize, realsize) // 4 * 4
+    return min(-(-K // 4) * 4, max(fit, 0))
 
 
 def _statevector():
@@ -98,55 +140,68 @@ def _statevector():
     return importlib.import_module("..sim.statevector", __package__)
 
 
-def _stride(K: int, numel: int) -> int:
-    """The checkpoint stride of the reverse mode: 1 (every rotation's
-    input state) while K * numel is within sim/statevector.py's
-    _REMAT_RESIDUAL_BUDGET, else isqrt(K) (_ProtScan.forward's chunks)."""
-    if K * numel <= _statevector()._REMAT_RESIDUAL_BUDGET:
+def _stride(G: int, numel: int) -> int:
+    """The checkpoint stride of the reverse mode, in groups: 1 (every
+    group's input state) while G * numel is within sim/statevector.py's
+    _REMAT_RESIDUAL_BUDGET, else isqrt(G) (_ProtScan.forward's chunks,
+    counted in groups)."""
+    if G * numel <= _statevector()._REMAT_RESIDUAL_BUDGET:
         return 1
-    return max(1, math.isqrt(K))
+    return max(1, math.isqrt(G))
 
 
-def _plan(dim: int, B: int, K: int, dtype: torch.dtype) -> dict:
+def _plan(dim: int, B: int, K: int, dtype: torch.dtype,
+          G: int = None) -> dict:
     """Each direction's route for B states of dim amplitudes through K
-    rotations: {"threads": the block size, "stride": the checkpoint
-    stride, "checkpoints": their count, "fwd"/"bwd": {"route", "smem"
-    (bytes)}}.  The two buffers stay in shared memory when they fit; else
-    in a (B, 2, dim) scratch in device memory; dim past 2^30 (32-bit
-    indices) raises ValueError."""
+    rotations in G groups (K groups of one by default): {"threads": the
+    block size, "groups": G, "stride": the checkpoint stride in groups,
+    "checkpoints": their count, "window": the rotations staged in shared
+    memory at a time, "fwd"/"bwd": {"route", "smem" (bytes)}}.  The state
+    (or W) stays in shared memory when it fits beside a window of at
+    least min(K, _MAX_GROUP) rotations; else it is updated in place in
+    the output tensor; dim past 2^30 (32-bit indices) raises
+    ValueError."""
     if dtype not in _KERNEL_DTYPES:
         raise TypeError(f"the Pauli-rotation scan kernel takes float32, "
                         f"float64, complex64 or complex128, got {dtype}")
-    if dim < 2 or dim & (dim - 1) or B < 1 or K < 1:
+    G = K if G is None else G
+    if dim < 2 or dim & (dim - 1) or B < 1 or K < 1 or not 1 <= G <= K:
         raise ValueError(f"Pauli-rotation scan: {B} states of {dim} "
                          f"amplitudes (a power of two, at least 2) through "
-                         f"{K} rotations")
+                         f"{K} rotations in {G} groups")
     if dim > _MAX_DIM:
         raise ValueError(f"the Pauli-rotation scan kernel takes no route "
                          f"for {dim} amplitudes: its indices are 32-bit "
                          f"(at most {_MAX_DIM})")
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    stride = _stride(K, B * dim)
-    plan = {"threads": _threads(dim), "stride": stride,
-            "checkpoints": -(-K // stride)}
-    smem = _smem_bytes(dim, itemsize, _BUFFERS)
-    route = "smem" if smem <= _SMEM_LIMIT else "global"
-    if route == "global":
-        smem = _smem_bytes(dim, itemsize, 0)
+    item = torch.empty((), dtype=dtype).element_size()
+    ritem = torch.empty((), dtype=_REAL[dtype]).element_size()
+    stride = _stride(G, B * dim)
+    plan = {"threads": _threads(dim), "groups": G, "stride": stride,
+            "checkpoints": -(-G // stride)}
+    least = min(-(-K // 4) * 4, _MAX_GROUP)
+    for route, bufs in (("smem", _BUFFERS), ("global", 0)):
+        fixed = _smem_bytes(dim, item, ritem, bufs, 0)
+        window = _window(K, _SMEM_LIMIT - fixed, item, ritem)
+        if window >= least:
+            break
+    plan["window"] = window
+    smem = _smem_bytes(dim, item, ritem, bufs, window)
     for direction in ("fwd", "bwd"):
         plan[direction] = dict(route=route, smem=smem)
     return plan
 
 
 def _check(state: torch.Tensor, ang: torch.Tensor, xs: torch.Tensor,
-           zs: torch.Tensor, factor: torch.Tensor) -> None:
+           zs: torch.Tensor, factor: torch.Tensor,
+           groups: torch.Tensor) -> None:
     dev = state.device
     if dev.type != "cuda" or any(t.device != dev for t in (ang, xs, zs,
-                                                           factor)):
+                                                           factor, groups)):
         raise ValueError(f"Pauli-rotation scan: state on {dev}, angles on "
                          f"{ang.device}, masks on {xs.device} and "
-                         f"{zs.device}, factors on {factor.device}; all "
-                         "must be on one CUDA device (or all on the CPU)")
+                         f"{zs.device}, factors on {factor.device}, groups "
+                         f"on {groups.device}; all must be on one CUDA "
+                         "device (or all on the CPU)")
     if state.dtype not in _KERNEL_DTYPES or factor.dtype != state.dtype \
             or ang.dtype != _REAL[state.dtype]:
         raise TypeError(f"the Pauli-rotation scan kernel takes float32, "
@@ -158,34 +213,43 @@ def _check(state: torch.Tensor, ang: torch.Tensor, xs: torch.Tensor,
     if ang.dim() != 1 or any(tuple(t.shape) != (K,) for t in (xs, zs,
                                                               factor)) \
             or xs.dtype != torch.int64 or zs.dtype != torch.int64 \
-            or not (xs.is_contiguous() and zs.is_contiguous()):
+            or not (xs.is_contiguous() and zs.is_contiguous()) \
+            or groups.dtype != torch.int32 or groups.dim() != 1 \
+            or not 2 <= groups.shape[0] <= K + 1:
         raise ValueError(
             f"Pauli-rotation scan: angles {tuple(ang.shape)}, masks "
             f"{tuple(xs.shape)} {xs.dtype} and {tuple(zs.shape)} "
-            f"{zs.dtype}, factors {tuple(factor.shape)} do not agree: (K,) "
-            "each, the masks contiguous int64")
+            f"{zs.dtype}, factors {tuple(factor.shape)}, group offsets "
+            f"{tuple(groups.shape)} {groups.dtype} do not agree: (K,) "
+            "each, the masks contiguous int64, the offsets (G + 1,) int32")
     if dim < 2 or dim & (dim - 1) or dim.bit_length() - 1 > 63:
         raise ValueError(f"Pauli-rotation scan: a state of {dim} "
                          "amplitudes; 2^N with 1 <= N <= 63")
 
 
-def _launch(direction: str, B: int, dim: int, K: int, dtype,
-            gates: list, tensors: list, stride: int,
-            route: str = None) -> None:
+def _launch(direction: str, B: int, dim: int, dtype, gates: list,
+            tensors: list, stride: int, route: str = None,
+            window: int = None) -> None:
     """One launch of prot_scan_<direction> on B states of dim amplitudes:
-    `gates` are x, z, factor, c, s, and `tensors` the state arguments
-    after them (forward: s0, out, ckpt or None; backward: ckpt, ct, w0,
-    dang, rec or None).  `route` overrides the plan's (the card tests
-    force the global route at small shapes)."""
-    route = route or _plan(dim, B, K, dtype)[direction]["route"]
-    dev = gates[0].device
-    scratch = torch.empty(B * _BUFFERS * dim, dtype=dtype, device=dev) \
-        if route == "global" else None
+    `gates` are x, z, factor, c, s and the group offsets, and `tensors`
+    the state arguments after them (forward: s0, out, ckpt or None;
+    backward: ckpt, ct, w0, dang, rec or None).  `route` and `window`
+    override the plan's (the card tests force the global route, and a
+    window that the run outgrows, at small shapes)."""
+    K, G = int(gates[0].shape[0]), int(gates[5].shape[0]) - 1
+    plan = _plan(dim, B, K, dtype, G)
+    route = route or plan[direction]["route"]
+    item = torch.empty((), dtype=dtype).element_size()
+    ritem = torch.empty((), dtype=_REAL[dtype]).element_size()
+    fixed = _smem_bytes(dim, item, ritem, _BUFFERS if route == "smem" else 0,
+                        0)
+    window = window or _window(K, _SMEM_LIMIT - fixed, item, ritem)
     fn = getattr(_lib(), f"esoo_prot_scan_{direction}_{_TAGS[dtype]}")
-    args = gates + tensors + [scratch]
+    args = gates + tensors
+    dev = gates[0].device
     with torch.cuda.device(dev):
         rc = fn(*(None if t is None else t.data_ptr() for t in args),
-                B, K, dim, stride, _ROUTES.index(route),
+                B, K, G, dim, stride, window, _ROUTES.index(route),
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"Pauli-rotation scan {direction} kernel launch "
@@ -196,22 +260,24 @@ def _launch(direction: str, B: int, dim: int, K: int, dtype,
 
 
 def _forward(S: torch.Tensor, gates: list, stride: int = None,
-             checkpoints: bool = False, route: str = None) -> tuple:
+             checkpoints: bool = False, route: str = None,
+             window: int = None) -> tuple:
     """One prot_scan_fwd launch on contiguous (B, dim) states S with
-    `gates` = [x, z, factor, c, s]: (the states after all K rotations,
-    the (B, ceil(K / stride), dim) checkpoints or None)."""
+    `gates` = [x, z, factor, c, s, group offsets]: (the states after all
+    K rotations, the (B, ceil(G / stride), dim) checkpoints or None)."""
     B, dim = S.shape
-    K = int(gates[0].shape[0])
-    stride = stride or _plan(dim, B, K, S.dtype)["stride"]
+    K, G = int(gates[0].shape[0]), int(gates[5].shape[0]) - 1
+    stride = stride or _plan(dim, B, K, S.dtype, G)["stride"]
     out = torch.empty_like(S)
-    ckpt = torch.empty((B, -(-K // stride), dim), dtype=S.dtype,
+    ckpt = torch.empty((B, -(-G // stride), dim), dtype=S.dtype,
                        device=S.device) if checkpoints else None
-    _launch("fwd", B, dim, K, S.dtype, gates, [S, out, ckpt], stride, route)
+    _launch("fwd", B, dim, S.dtype, gates, [S, out, ckpt], stride, route,
+            window)
     return out, ckpt
 
 
 def _backward(ckpt: torch.Tensor, W: torch.Tensor, gates: list,
-              stride: int, route: str = None) -> tuple:
+              stride: int, route: str = None, window: int = None) -> tuple:
     """One prot_scan_bwd launch from the forward's checkpoints and the
     cotangent W (B, dim): (the cotangent of the input states, the (B, K)
     dang partials)."""
@@ -221,8 +287,8 @@ def _backward(ckpt: torch.Tensor, W: torch.Tensor, gates: list,
     dang = torch.empty((B, K), dtype=gates[3].dtype, device=W.device)
     rec = torch.empty((B, stride - 1, dim), dtype=W.dtype,
                       device=W.device) if stride > 1 else None
-    _launch("bwd", B, dim, K, W.dtype, gates, [ckpt, W, w0, dang, rec],
-            stride, route)
+    _launch("bwd", B, dim, W.dtype, gates, [ckpt, W, w0, dang, rec], stride,
+            route, window)
     return w0, dang
 
 
@@ -232,15 +298,15 @@ class _ProtScanKernel(torch.autograd.Function):
     over the leading batch axes of the state."""
 
     @staticmethod
-    def forward(ctx, state, ang, xs, zs, factor):
+    def forward(ctx, state, ang, xs, zs, factor, groups):
         shape = state.shape
         S = state.reshape(-1, shape[-1]).contiguous()
         c = torch.cos(ang / 2).contiguous()
         sn = torch.sin(ang / 2).contiguous()
-        gates = [xs, zs, factor.contiguous(), c, sn]
+        gates = [xs, zs, factor.contiguous(), c, sn, groups]
         grad = any(ctx.needs_input_grad[:2])
-        stride = _plan(S.shape[1], S.shape[0], int(ang.shape[0]),
-                       S.dtype)["stride"]
+        stride = _plan(S.shape[1], S.shape[0], int(ang.shape[0]), S.dtype,
+                       int(groups.shape[0]) - 1)["stride"]
         out, ckpt = _forward(S, gates, stride, checkpoints=grad)
         if grad:
             ctx.save_for_backward(ckpt, *gates)
@@ -252,7 +318,7 @@ class _ProtScanKernel(torch.autograd.Function):
         ckpt, *gates = ctx.saved_tensors
         W = ct.reshape(-1, ct.shape[-1]).contiguous()
         w0, dang = _backward(ckpt, W, gates, ctx.stride)
-        return w0.reshape(ct.shape), dang.sum(0), None, None, None
+        return w0.reshape(ct.shape), dang.sum(0), None, None, None, None
 
 
 def apply_prot_scan(state: torch.Tensor, ang: torch.Tensor,
@@ -260,18 +326,19 @@ def apply_prot_scan(state: torch.Tensor, ang: torch.Tensor,
     """The K Pauli rotations exp(-i ang_k / 2 P_k) of the run whose tables
     on the state's device are `tabs` (sim/statevector.py::
     _ScanRun.tables) applied to `state` (..., 2^N), differentiable in
-    state and ang.  CUDA tensors launch csrc/prot_scan.cu on the masks
-    and factors (raises on what it does not take); CPU tensors run the
-    plain sim/statevector.py::_ProtScan on the sign table."""
+    state and ang.  CUDA tensors launch csrc/prot_scan.cu on the masks,
+    factors and group offsets (raises on what it does not take); CPU
+    tensors run the plain sim/statevector.py::_ProtScan on the sign
+    table."""
     if int(ang.shape[0]) == 0:
         return state
     if state.device.type == "cpu" and ang.device.type == "cpu":
         return _statevector()._ProtScan.apply(
             state, ang, tabs["FS"], tabs["dims"],
             int(state.shape[-1]).bit_length() - 1)
-    _check(state, ang, tabs["x"], tabs["z"], tabs["f"])
+    _check(state, ang, tabs["x"], tabs["z"], tabs["f"], tabs["groups"])
     return _ProtScanKernel.apply(state, ang, tabs["x"], tabs["z"],
-                                 tabs["f"])
+                                 tabs["f"], tabs["groups"])
 
 
 def reset_launch_counts() -> None:

@@ -441,8 +441,9 @@ class _ScanRun:
     def tables(self, dim: int, dtype: torch.dtype, device) -> dict:
         """The run's tables on `device`: idx, mult, off, and on the CPU
         the plain scan's (K, dim) FS = f_k * sign_k at `dtype` and its
-        flip axes dims; elsewhere the kernel's (K,) int64 masks x, z and
-        factors f at `dtype`, no (K, dim) table."""
+        flip axes dims; elsewhere the kernel's (K,) int64 masks x, z,
+        factors f at `dtype` and (G + 1,) int32 group offsets groups
+        (ops/prot_scan.py::group_offsets), no (K, dim) table."""
         device = torch.device(device)
         key = (dim, dtype, str(device))
         hit = self._tables.get(key)
@@ -463,7 +464,10 @@ class _ScanRun:
             else:
                 hit.update(x=torch.as_tensor(self.xs, device=device),
                            z=torch.as_tensor(self.zs, device=device),
-                           f=factor)
+                           f=factor,
+                           groups=torch.as_tensor(
+                               _prot_scan.group_offsets(self.xs),
+                               device=device))
             self._tables[key] = hit
         return hit
 

@@ -239,6 +239,34 @@ def gate_fields(tabs: dict):
     return M, S, flat
 
 
+def gate_lists(tabs: dict) -> dict:
+    """Each gate's domain as compressed lists, the card's gate scan tables
+    (ops/gate_scan.py::records packs them for csrc/gate_scan.cu), built on
+    the host from the factored tables PA PB AD BD UD VD (arrays or CPU
+    tensors): for gate k, DA[k, :NDA[k]] its alpha strings (AD[k] = 1)
+    and DB[k, :NDB[k]] its beta strings, ascending, FA and FB their sign
+    factors (UD and VD there, +-1), QA and QB their partners (PA and PB
+    there); int32, padded with 0 to the largest count.  build_string_tables
+    proves each domain a product set disjoint from its range, so gate k
+    touches exactly the pairs (DB[j], DA[i]) <-> (QB[j], QA[i]), and the
+    lists rebuild every factored table (AR = 1 at QA, UR = FA there)."""
+    PA, PB, AD, BD, UD, VD = (np.asarray(tabs[k]) for k in (
+        "PA", "PB", "AD", "BD", "UD", "VD"))
+    out = {}
+    for side, P, D, U in (("A", PA, AD, UD), ("B", PB, BD, VD)):
+        dom = [np.flatnonzero(row) for row in D]
+        width = max(len(d) for d in dom)
+        lists = {key: np.zeros((len(dom), width), dtype=np.int32)
+                 for key in ("D", "Q", "F")}
+        for k, d in enumerate(dom):
+            lists["D"][k, :len(d)] = d
+            lists["Q"][k, :len(d)] = P[k, d]
+            lists["F"][k, :len(d)] = U[k, d]
+        out.update({key + side: a for key, a in lists.items()})
+        out["ND" + side] = np.array([len(d) for d in dom], dtype=np.int32)
+    return out
+
+
 def _perm(V: torch.Tensor, flat_k: torch.Tensor) -> torch.Tensor:
     """V[pB][:, pA] for one gate (the JAX package's EB V EA^T), over the
     last two axes."""

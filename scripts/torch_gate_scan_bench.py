@@ -5,7 +5,8 @@ evaluations.
 
     python3 scripts/torch_gate_scan_bench.py [--root CHECKOUT] [--tag NAME]
                                              [--h8-cache FILE] [--out DIR]
-                                             [--paths h4,h8_16,full,pairs]
+                                             [--paths h4,h8_16,full,pairs,
+                                                      kernels]
 
 --root runs the esoo_torch package (and examples/) of another checkout,
 so that two versions are compared in one call on one card (run parent,
@@ -33,6 +34,12 @@ and gradient of the energy): its wall (host clock over 5, synchronized),
 device ms and device events a call (torch.profiler, 3 calls), each scan
 kernel's launches a call (the wrappers the checkout has), and the busy
 share over 3 evaluations.  The default --paths is h4,h8_16.
+  * kernels: the string gate scan's and the Pauli-rotation scan's kernel
+    rows, each at its shapes (GATE_SCAN_SHAPES, PROT_SCAN_SHAPES) as the
+    kernels phase of the checkout's own chip_smoke.py holds and times
+    them (its wrappers' calls match its own kernels): each row's time a
+    direction (CUDA events and the profiler's kernel time), bound and
+    max_abs_err.
 """
 
 from __future__ import annotations
@@ -186,6 +193,29 @@ def h8_16(C, root: str, problem) -> dict:
                 **_at_final_state(C, solver, r))
 
 
+_ROW_KEYS = ("shape", "routes", "ms", "fwd_ms", "bwd_ms", "fwd_kernel_ms",
+             "bwd_kernel_ms", "bound_ms", "bound_by", "max_abs_err",
+             "plain_kernel_ms", "groups", "window", "ring_stages")
+
+
+def kernels(root: str) -> dict:
+    """The K3 and K8 rows of the kernels phase of `root`'s chip_smoke.py
+    (loaded under another name beside this checkout's), their timing
+    fields."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_under_test", os.path.join(root, "chip_smoke.py"))
+    S = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(S)
+    peak = S.peaks(S.nvidia_smi())
+    checks = []
+    rows = {"gate_scan": S._gate_scan_kernels(checks, peak),
+            "prot_scan": S._prot_scan_kernels(checks, peak)}
+    return {kernel: {name: {k: v for k, v in row.items() if k in _ROW_KEYS}
+                     for name, row in shapes.items()}
+            for kernel, shapes in rows.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
@@ -210,9 +240,11 @@ def main() -> int:
         raise AssertionError(f"imported {esoo_torch.__file__}, not {root}")
     card = C.nvidia_smi()
     rec = {"tag": args.tag, "root": args.root, "card": card}
-    h8 = _h8(C, args.h8_cache) if set(paths) - {"h4"} else None
+    h8 = _h8(C, args.h8_cache) if set(paths) - {"h4", "kernels"} \
+        else None
     runs = {"h4": lambda: h4(C), "h8_16": lambda: h8_16(C, root, h8),
-            "full": lambda: full(C, h8), "pairs": lambda: pairs(C, h8)}
+            "full": lambda: full(C, h8), "pairs": lambda: pairs(C, h8),
+            "kernels": lambda: kernels(root)}
     for name in paths:
         rec[name] = runs[name]()
     line = json.dumps(rec)

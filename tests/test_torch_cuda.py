@@ -619,11 +619,14 @@ def _scan_plain(tabs, th, V0, ct):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n,parts,batch,route", [
     (4, (2, 2), 1, None), (6, (3, 2), 3, None), (8, (4, 4), 1, None),
-    (8, (4, 4), 3, None), (6, (3, 2), 3, "global"), (9, (4, 4), 1, None)])
+    (8, (4, 4), 3, None), (6, (3, 2), 3, "global"), (9, (4, 4), 1, None),
+    (6, (3, 3), 2, None), (8, (4, 4), 1, "global")])
 def test_gate_scan_kernel_matches_plain(card, dtype, n, parts, batch, route):
     """Both directions against _ApplyRevStr: V, W and dtheta, on the route
-    of _plan (n = 9, (4, 4): the global route backward, and forward at
-    float64) or forced onto the global route at a small shape."""
+    of _plan (n = 9, (4, 4): shared memory both ways at float32, the
+    global route backward at float64; H4's 26 records all staged at the
+    start, H8 -> 16's 360 through a ring of 32) or forced onto the global
+    route."""
     from esoo_torch.ops import gate_scan
     tabs, th, V0, ct = _scan_inputs(n, parts, dtype, batch, card)
     c, s = torch.cos(th), torch.sin(th)
@@ -674,10 +677,14 @@ def test_gate_scan_plan_matches_the_kernel(card):
     for nB, nA in ((6, 6), (15, 20), (70, 70), (126, 126), (3432, 3432)):
         assert lib.esoo_gate_scan_threads(nA * nB) == \
             gate_scan._threads(nA * nB)
+        words = gate_scan._words(nA, nB)
         for item in (4, 8):
-            for bufs in (0, 2, 4):
-                assert lib.esoo_gate_scan_smem_bytes(nA, nB, item, bufs) == \
-                    gate_scan._smem_bytes(nB, nA, item, bufs)
+            for bufs in (0, 1, 2):
+                for stages in (1, 4, 26, 32):
+                    assert lib.esoo_gate_scan_smem_bytes(
+                        nA * nB, item, bufs, words, stages) == \
+                        gate_scan._smem_bytes(nB, nA, item, bufs, words,
+                                              stages)
 
 
 def test_gate_scan_refuses_what_it_does_not_take(card):
@@ -689,6 +696,9 @@ def test_gate_scan_refuses_what_it_does_not_take(card):
         gate_scan.apply_rev_str(V0[..., :-1], th, tabs)
     with pytest.raises(ValueError, match="CUDA device"):
         gate_scan.apply_rev_str(V0, th.cpu(), tabs)
+    no_records = {k: v for k, v in tabs.items() if k != "GREC"}
+    with pytest.raises(ValueError, match="GREC"):
+        gate_scan.apply_rev_str(V0, th, no_records)
 
 
 def test_sector_vqe_on_the_card_never_runs_the_plain_scan(card, monkeypatch):
@@ -722,19 +732,23 @@ def test_sector_vqe_on_the_card_never_runs_the_plain_scan(card, monkeypatch):
 
 def _prot_inputs(nq, kind, dtype, batch, card, K=None, seed=0):
     """A run of Pauli rotations on nq qubits: "uccsd" (UCCSD(nq / 2,
-    ...) from HF, odd-Y strings, a real state) or "random" (K seeded
-    strings, every Y count; a complex state), as a sim/statevector.py
-    _ScanRun, its tables on the card at `dtype` (the masks x, z and the
-    factors f), angles (every fifth one exactly 0), states (batch, 2^nq)
-    and a cotangent."""
+    ...) from HF, odd-Y strings, a real state; groups of 2 and 8 equal X
+    masks), "parity" (the same under the parity mapper) or "random" (K
+    seeded strings, every Y count, groups of one; a complex state), as a
+    sim/statevector.py _ScanRun, its tables on the card at `dtype` (the
+    masks x, z, the factors f and the group offsets), angles (every fifth
+    one exactly 0), states (batch, 2^nq) and a cotangent."""
     import importlib
     from esoo_torch.sim import HartreeFock, QuantumCircuit, UCCSD
     TV = importlib.import_module("esoo_torch.sim.statevector")
     rng = np.random.default_rng(seed)
-    if kind == "uccsd":
+    if kind in ("uccsd", "parity"):
+        from esoo_torch.ops import ParityMapper
         n = nq // 2
         parts = ((n + 1) // 2, n // 2)
-        qc = UCCSD(n, parts, initial_state=HartreeFock(n, parts))
+        mapper = ParityMapper() if kind == "parity" else None
+        qc = UCCSD(n, parts, qubit_mapper=mapper,
+                   initial_state=HartreeFock(n, parts, qubit_mapper=mapper))
     else:
         qc = QuantumCircuit(nq)
         for x, z in rng.integers(0, 1 << nq, size=(K, 2)):
@@ -777,17 +791,22 @@ def _prot_plain(tabs, ang, s0, ct, run):
     (8, "uccsd", torch.float64, 1, None), (8, "uccsd", torch.float32, 2, None),
     (12, "uccsd", torch.float32, 1, None),
     (6, "random", torch.complex64, 2, 60),
-    (7, "random", torch.complex128, 1, 70)])
+    (7, "random", torch.complex128, 1, 70),
+    (8, "parity", torch.float64, 2, None),
+    (13, "random", torch.complex128, 1, 40),
+    (14, "uccsd", torch.float32, 1, None)])
 def test_prot_scan_kernel_matches_plain(card, nq, kind, dtype, batch, K,
                                         route):
     """Both directions against _ProtScan: the state, its input cotangent
-    and dang, on the route of _plan (smem at these sizes) or forced onto
-    the global route."""
+    and dang, on the route of _plan (smem at these sizes: one buffer, in
+    place; complex128 at 13 qubits) or forced onto the global route (in
+    place in the output)."""
     from esoo_torch.ops import prot_scan
     tabs, ang, s0, ct, run = _prot_inputs(nq, kind, dtype, batch, card, K)
     c, s = torch.cos(ang / 2), torch.sin(ang / 2)
-    g = [tabs["x"], tabs["z"], tabs["f"], c, s]
-    plan = prot_scan._plan(s0.shape[1], batch, len(ang), dtype)
+    g = [tabs["x"], tabs["z"], tabs["f"], c, s, tabs["groups"]]
+    plan = prot_scan._plan(s0.shape[1], batch, len(ang), dtype,
+                           len(tabs["groups"]) - 1)
     prot_scan.reset_launch_counts()
     out, ckpt = prot_scan._forward(s0, g, plan["stride"], True, route)
     w0, dang = prot_scan._backward(ckpt, ct, g, plan["stride"], route)
@@ -801,6 +820,29 @@ def test_prot_scan_kernel_matches_plain(card, nq, kind, dtype, batch, K,
     _close(dang.sum(0), ref[2])
 
 
+@pytest.mark.parametrize("route", ["smem", "global"])
+@pytest.mark.parametrize("kind,dtype", [("uccsd", torch.float64),
+                                        ("random", torch.complex64)])
+def test_prot_scan_reloads_a_window_the_run_outgrows(card, kind, dtype,
+                                                     route):
+    """A window of 8 staged rotations, which the 160 (UCCSD) or 90
+    (random) outgrow: the kernels restage it at group boundaries, forward
+    and backward (and in the chunked regime's re-run), and agree with
+    the plain scan."""
+    from esoo_torch.ops import prot_scan
+    tabs, ang, s0, ct, run = _prot_inputs(8, kind, dtype, 2, card, 90)
+    c, s = torch.cos(ang / 2), torch.sin(ang / 2)
+    g = [tabs["x"], tabs["z"], tabs["f"], c, s, tabs["groups"]]
+    for stride in (1, 3):
+        out, ckpt = prot_scan._forward(s0, g, stride, True, route, 8)
+        w0, dang = prot_scan._backward(ckpt, ct, g, stride, route, 8)
+        torch.cuda.synchronize()
+        ref = _prot_plain(tabs, ang, s0, ct, run)
+        _close(out, ref[0])
+        _close(w0, ref[1])
+        _close(dang.sum(0), ref[2])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.complex128])
 def test_prot_scan_chunked_regime_matches_plain(card, dtype, monkeypatch):
     """Past _REMAT_RESIDUAL_BUDGET (set low) the kernels keep every
@@ -812,7 +854,8 @@ def test_prot_scan_chunked_regime_matches_plain(card, dtype, monkeypatch):
     monkeypatch.setattr(TV, "_REMAT_RESIDUAL_BUDGET", 1 << 10)
     kind = "uccsd" if not dtype.is_complex else "random"
     tabs, ang, s0, ct, run = _prot_inputs(8, kind, dtype, 2, card, 90)
-    assert prot_scan._plan(256, 2, len(ang), dtype)["stride"] > 1
+    assert prot_scan._plan(256, 2, len(ang), dtype,
+                           len(tabs["groups"]) - 1)["stride"] > 1
     a = ang.clone().requires_grad_()
     s = s0.clone().requires_grad_()
     out = prot_scan.apply_prot_scan(s, a, tabs)
@@ -857,10 +900,13 @@ def test_prot_scan_plan_matches_the_kernel(card):
     for nq in (1, 4, 8, 12, 14, 16):
         dim = 1 << nq
         assert lib.esoo_prot_scan_threads(dim) == prot_scan._threads(dim)
-        for item in (4, 8, 16):
-            for bufs in (0, 2):
-                assert lib.esoo_prot_scan_smem_bytes(dim, item, bufs) == \
-                    prot_scan._smem_bytes(dim, item, bufs)
+        for item, ritem in ((4, 4), (8, 8), (8, 4), (16, 8)):
+            for bufs in (0, 1):
+                for window in (8, 160, 2688):
+                    assert lib.esoo_prot_scan_smem_bytes(
+                        dim, item, ritem, bufs, window) == \
+                        prot_scan._smem_bytes(dim, item, ritem, bufs,
+                                              window)
 
 
 def test_prot_scan_refuses_what_it_does_not_take(card):
@@ -870,6 +916,9 @@ def test_prot_scan_refuses_what_it_does_not_take(card):
         prot_scan.apply_prot_scan(s0.double(), ang, tabs)
     with pytest.raises(ValueError, match="do not agree"):
         prot_scan.apply_prot_scan(s0, ang, dict(tabs, x=tabs["x"][:-1]))
+    with pytest.raises(ValueError, match="do not agree"):
+        prot_scan.apply_prot_scan(s0, ang,
+                                  dict(tabs, groups=tabs["groups"].long()))
     with pytest.raises(ValueError, match="CUDA device"):
         prot_scan.apply_prot_scan(s0, ang.cpu(), tabs)
 
