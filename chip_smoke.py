@@ -580,10 +580,11 @@ PROT_SCAN_SHAPES = (("h8_12", ("uccsd", 6, (4, 4)), "float32", 1),
 # real; 4 + 4 complex: Re(conj(w) u) = w.re u.re + w.im u.im)
 PROT_SCAN_OPS = {False: {"fwd": 3, "bwd": 7}, True: {"fwd": 6, "bwd": 14}}
 # the pairs gate scan's shapes, (name, n, (na, nb), dtype, states): the
-# H8 -> 12 pairs path's sector (225 determinants, 92 gates) at float32,
-# the pairs oracle's H8 -> 16 (4,900, 360 gates) at float64, and n = 9 at
-# (4, 4) (15,876, 560 gates) at float64, which takes the global route
-# both ways
+# H8 -> 12 pairs path's sector (225 determinants, 92 gates of 15-60
+# pairs) at float32, the pairs oracle's H8 -> 16 (4,900, 360 gates of
+# 400-1,400) at float64, and n = 9 at (4, 4) (15,876, 560 gates of
+# 1,225-4,410) at float64, whose backward (v and w, 254 KB) takes the
+# global route
 PAIR_SCAN_SHAPES = (("h8_12", 6, (4, 4), "float32", 1),
                     ("h8_16_f64", 8, (4, 4), "float64", 1),
                     ("n9_44_f64", 9, (4, 4), "float64", 1))
@@ -654,6 +655,28 @@ class PlainScanWatch:
             del self.fn.apply
         else:
             self.fn.apply = self.own
+        return False
+
+
+class LbfgsCount:
+    """Records, while the `with` block runs, the evaluations (nfev) of
+    every L-BFGS solve that the fused solvers' loop makes
+    (orbital_optimization/fused.py's lbfgs_minimize), in `solves`."""
+
+    def __enter__(self):
+        import esoo_torch.orbital_optimization.fused as F
+        self.module, self.inner, self.solves = F, F.lbfgs_minimize, []
+
+        def counted(*args, **kw):
+            res = self.inner(*args, **kw)
+            self.solves.append(int(res.nfev))
+            return res
+
+        F.lbfgs_minimize = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.module.lbfgs_minimize = self.inner
         return False
 
 
@@ -1289,13 +1312,16 @@ def _prot_scan_kernels(checks: list, peak: tuple) -> dict:
 
 def _pair_scan_kernels(checks: list, peak: tuple) -> dict:
     """The pairs gate scan (ops/pair_scan.py::apply_rev_pairs,
-    csrc/pair_scan.cu) at PAIR_SCAN_SHAPES, held by _hold_scan against
-    the plain sim/sector.py::_ApplyRev (padded states, every fifth theta
-    0).  The bound: the bytes a direction must move (PARTNER as int32
-    and SFIELD, c and s, the states in and out, the backward's (B, K)
-    partials) at the card's rate, or its operations (PAIR_SCAN_OPS at
-    each gate's touched amplitudes) at the float32 rate (float64 at
-    half), whichever is longer."""
+    csrc/pair_scan.cu: each gate's touched pairs, in place, the pair
+    records through a ring of bulk copies) at PAIR_SCAN_SHAPES, held by
+    _hold_scan against the plain sim/sector.py::_ApplyRev (padded
+    states, every fifth theta 0).  The bound: the bytes a direction must
+    move (the touched pairs, 8 bytes each as the stream packs them, the
+    K + 1 int32 gate offsets, c and s, the states in and out, the
+    backward's (B, K) partials; not the dense (K, nd + 1) tables, which
+    the function need not read) at the card's rate, or its operations
+    (PAIR_SCAN_OPS at each gate's touched amplitudes) at the float32 rate
+    (float64 at half), whichever is longer."""
     import numpy as np
     import torch
     from esoo_torch.ops import pair_scan
@@ -1323,10 +1349,12 @@ def _pair_scan_kernels(checks: list, peak: tuple) -> dict:
         th, v0, ct = (torch.as_tensor(a, device="cuda").to(dtype)
                       for a in (th, v0, ct))
         c, s = torch.cos(th), torch.sin(th)
-        plan = pair_scan._plan(nn, dtype)
+        st = pair_scan._stream(P, SF)
+        plan = pair_scan._plan(nn, dtype, K, st["max_pairs"], st["total"])
         v = pair_scan._forward(v0, c, s, P, SF)
         item = v0.element_size()
-        tables = K * nn * (4 + item) + 2 * K * item
+        tables = pair_scan._RECORD * st["total"] + 4 * (K + 1) + \
+            2 * K * item
         touched = int(np.count_nonzero(sec._SFIELD))
         out[name] = _hold_scan(
             checks, "pair_scan.apply_rev_pairs", name, dtype, v0, th, ct,
@@ -1342,10 +1370,34 @@ def _pair_scan_kernels(checks: list, peak: tuple) -> dict:
             desc=f"UCCSD({n}, {parts}) pairs: {B} x {nn}, {K} gates, {dt}",
             info=dict(n=n, particles=parts, states=B, determinants=sec.dim,
                       gates=K, touched=touched, dtype=dt,
+                      pairs=st["total"], max_pairs=st["max_pairs"],
+                      stream_bytes=st["rec"].numel() * 4,
                       threads=plan["threads"],
                       routes={d: plan[d]["route"] for d in ("fwd", "bwd")},
+                      ring_stages={d: plan[d]["stages"]
+                                   for d in ("fwd", "bwd")},
+                      ring_chunks={d: plan[d]["chunks"]
+                                   for d in ("fwd", "bwd")},
+                      chunk_records={d: 1 << plan[d]["log_chunk"]
+                                     for d in ("fwd", "bwd")},
                       smem_bytes={d: plan[d]["smem"]
                                   for d in ("fwd", "bwd")}))
+        # the global route forced (the plan's routes were held above)
+        x, t = v0.clone().requires_grad_(), th.clone().requires_grad_()
+        y = _ApplyRev.apply(x, t, P, SF)
+        torch.autograd.backward(y, ct)
+        got = pair_scan._forward(v0, c, s, P, SF, "global")
+        w0, dth = pair_scan._backward(got, ct, c, s, P, SF, "global")
+        torch.cuda.synchronize()
+        errs = {what: check_close(g, r, dtype, f"pair_scan {name} global "
+                                  f"{what}")
+                for what, g, r in (("state", got, y.detach()),
+                                   ("cotangent", w0, x.grad),
+                                   ("dtheta", dth.sum(0), t.grad))}
+        checks.append(dict(kernel="pair_scan.apply_rev_pairs",
+                           shape=f"{name}_global", err=errs,
+                           routes={"fwd": "global", "bwd": "global"}))
+        out[name]["global_route_max_abs_err"] = max(errs.values())
     return out
 
 
@@ -1761,6 +1813,8 @@ def phase_main_path():
          "(26 parameters), f32", energy=E, energy_warm=r_warm.eigenvalue,
          energy_gates=[H4_BASELINE, H4_REFERENCE, H4_TOL],
          outer_iterations=r.outer_iterations, warm_stage_stats=stats,
+         lbfgs_evaluations=r.stage_stats["lbfgs_evaluations"],
+         warm_lbfgs_evaluations=stats["lbfgs_evaluations"],
          chem_s=chem_s, cold_s=cold_s, warm_s=warm_s,
          eri_engine=problem.eri_engine, launches=launches,
          transform_route_launches=routes, per_step=per_iter)
@@ -3974,10 +4028,12 @@ def example_parity(name: str, got: dict, ref: dict, card: bool = False):
 def _example(name: str, argv: list, **prebuilt) -> dict:
     """Run one twin on the card, print its line, raise if a gate fails;
     returns its launch counts."""
-    got, out, wall, launches, routes = _run_twin(name, argv, **prebuilt)
+    with LbfgsCount() as lbfgs:
+        got, out, wall, launches, routes = _run_twin(name, argv, **prebuilt)
     numbers = {k: v for k, v in got.items() if k not in ("result", "solver")}
     failed = example_gates(name, got, out, card=True)
     emit("example", name=name, argv=argv, wall_s=wall, numbers=numbers,
+         lbfgs_evaluations=sum(lbfgs.solves), lbfgs_solves=lbfgs.solves,
          launches=launches, transform_route_launches=routes,
          printed_tail=out.splitlines()[-6:], gates_failed=failed)
     if failed:

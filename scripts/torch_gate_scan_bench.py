@@ -6,7 +6,9 @@ evaluations.
     python3 scripts/torch_gate_scan_bench.py [--root CHECKOUT] [--tag NAME]
                                              [--h8-cache FILE] [--out DIR]
                                              [--paths h4,h8_16,full,pairs,
-                                                      kernels]
+                                                      kernels,blocks,starts]
+                                             [--rows gate_scan,prot_scan,
+                                                     pair_scan]
 
 --root runs the esoo_torch package (and examples/) of another checkout,
 so that two versions are compared in one call on one card (run parent,
@@ -34,12 +36,27 @@ and gradient of the energy): its wall (host clock over 5, synchronized),
 device ms and device events a call (torch.profiler, 3 calls), each scan
 kernel's launches a call (the wrappers the checkout has), and the busy
 share over 3 evaluations.  The default --paths is h4,h8_16.
-  * kernels: the string gate scan's and the Pauli-rotation scan's kernel
-    rows, each at its shapes (GATE_SCAN_SHAPES, PROT_SCAN_SHAPES) as the
-    kernels phase of the checkout's own chip_smoke.py holds and times
-    them (its wrappers' calls match its own kernels): each row's time a
-    direction (CUDA events and the profiler's kernel time), bound and
-    max_abs_err.
+  * kernels: the string gate scan's, the Pauli-rotation scan's and the
+    pairs scan's kernel rows, each at its shapes (GATE_SCAN_SHAPES,
+    PROT_SCAN_SHAPES, PAIR_SCAN_SHAPES) as the kernels phase of the
+    checkout's own chip_smoke.py holds and times them (its wrappers'
+    calls match its own kernels): each row's time a direction (CUDA
+    events and the profiler's kernel time), bound and max_abs_err.
+  * blocks: the pairs scan at the H8 -> 12 pairs path's sector (92
+    gates of 15 to 60 pairs, one state) at one warp, two and four warps
+    (the block size forced through the kernels' C entries, each result's
+    largest difference from the plan's), float32 and float64, and at the
+    plan's block size its 92 gates emptied (PARTNER the identity, SFIELD
+    0) and its first gate alone: each direction's time (CUDA events,
+    chip_smoke.time_ms) and the forward's kernel time (profiler).
+  * starts: the L-BFGS evaluation counts of the H4 solve (h4's settings)
+    and of the H8 -> 16 demo (one outer iteration, the example's
+    settings) from the Hartree-Fock point (theta = 0) and from
+    STARTS - 1 seeded points (theta = 0.05 N(0, 1), numpy seeds 1, 2,
+    ...): each solve's evaluations, their sum and the energy, and the
+    active-space integrals at the initial orbitals (h, g, float64 of the
+    float32 rotation) for a reference run of the same first solve
+    (scripts/k3_dtheta_order.py --jax-counts).
 """
 
 from __future__ import annotations
@@ -193,15 +210,149 @@ def h8_16(C, root: str, problem) -> dict:
                 **_at_final_state(C, solver, r))
 
 
+STARTS = 6
+
+
+def starts(C, h8, device: str = "cuda", count: int = STARTS) -> dict:
+    """Evaluation counts from `count` starting points (module docstring;
+    the H8 -> 16 demo only when its problem `h8` is given)."""
+    import numpy as np
+    import torch
+    import esoo_torch as T
+    from esoo_torch.chem import MoleculeDriver
+    f32 = torch.float32
+    settings = {
+        "h4": (MoleculeDriver(atom=C.H4_GEOM, basis="cc-pvtz").run(), 4,
+               dict(maxiter=20, stopping_tolerance=1e-5, diagnostics=False)),
+        "h8_16": (h8, 8, dict(maxiter=1, stopping_tolerance=1e-4,
+                              vqe_maxiter=120))}
+    if h8 is None:
+        del settings["h8_16"]
+    out = {}
+    for name, (problem, n, kw) in settings.items():
+        parts = problem.num_particles
+
+        def solver(x0):
+            ansatz = T.UCCSD(n, parts,
+                             initial_state=T.HartreeFock(n, parts))
+            return T.FusedOptOrbVQE(
+                num_spin_orbitals=2 * n, ansatz=ansatz, problem=problem,
+                dtype=f32, device=device, initial_point=x0, **kw)
+
+        first = solver(None)
+        P = first.ansatz.num_parameters
+        runs = []
+        for seed in range(count):
+            x0 = np.zeros(P) if seed == 0 else \
+                0.05 * np.random.default_rng(seed).normal(size=P)
+            sv = solver(x0)
+            with C.LbfgsCount() as lbfgs:
+                r = sv.compute_minimum_energy()
+            runs.append(dict(seed=seed, solves=lbfgs.solves,
+                             lbfgs_evaluations=sum(lbfgs.solves),
+                             energy=r.eigenvalue))
+        h, g = first._rotate(first._U0)
+        out[name] = dict(parameters=P, runs=runs,
+                         h_act=h.double().cpu().tolist(),
+                         g_act=g.double().cpu().reshape(-1).tolist())
+    return out
+
+
+def _at_threads(threads: int, direction: str, v, tensors: list, c, s,
+                P, S) -> None:
+    """One launch of the pairs scan's C entry at a forced block size,
+    otherwise as ops/pair_scan.py::_launch makes it (the wrapper always
+    takes the plan's size): `tensors` are the forward's v0, out or the
+    backward's v, w, w0, dth."""
+    import torch
+    from esoo_torch.ops import pair_scan
+    B, n = v.shape
+    st = pair_scan._stream(P, S)
+    ring = pair_scan._plan(n, v.dtype, len(c), st["max_pairs"],
+                           st["total"])[direction]
+    fn = getattr(pair_scan._lib(), f"esoo_pair_scan_{direction}_"
+                 f"{'f32' if v.dtype == torch.float32 else 'f64'}")
+    if direction == "bwd":
+        tensors = tensors + [torch.empty_like(v)
+                             if ring["route"] == "global" else None]
+    rc = fn(*(None if t is None else t.data_ptr()
+              for t in [st["rec"], st["off"], c, s] + tensors),
+            B, len(c), n, ring["log_chunk"], ring["chunks"], ring["stages"],
+            pair_scan._ROUTES.index(ring["route"]), threads,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"pair_scan_{direction} at {threads} threads: "
+                           f"CUDA error {rc}")
+
+
+def blocks(C) -> dict:
+    """The pairs scan's block sizes at H8 -> 12 (module docstring)."""
+    import numpy as np
+    import torch
+    from esoo_torch.ops import pair_scan
+    from esoo_torch.sim import HartreeFock, UCCSD
+    from esoo_torch.sim.sector import SectorUCC
+    sec = SectorUCC(UCCSD(6, (4, 4), initial_state=HartreeFock(6, (4, 4))),
+                    12, kernel="pairs")
+    rng = np.random.default_rng(6)
+    th = rng.normal(size=len(sec._excs)) * 0.4
+    v0 = rng.normal(size=(1, sec.dim + 1))
+    v0[:, -1] = 0.0
+    ct = rng.normal(size=v0.shape)
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        P = torch.as_tensor(sec._PARTNER, device="cuda")
+        S, t, v, w = (torch.as_tensor(a, device="cuda").to(dt)
+                      for a in (sec._SFIELD, th, v0, ct))
+        c, s = torch.cos(t), torch.sin(t)
+        vk = pair_scan._forward(v, c, s, P, S)
+        w0, dth = pair_scan._backward(vk, w, c, s, P, S)
+        # the block size forced (each held to the plan's result) ...
+        for threads in (32, 64, 128):
+            fo, bo = torch.empty_like(v), [torch.empty_like(v),
+                                           torch.empty_like(dth)]
+
+            def fwd():
+                _at_threads(threads, "fwd", v, [v, fo], c, s, P, S)
+
+            def bwd():
+                _at_threads(threads, "bwd", vk, [vk, w] + bo, c, s, P, S)
+
+            fwd(), bwd()
+            out[f"{str(dt)[6:]}_{threads}"] = dict(
+                fwd_ms=C.time_ms(fwd), bwd_ms=C.time_ms(bwd),
+                fwd_kernel_ms=C.kernel_ms(fwd, match="pair_scan_fwd"),
+                max_abs_diff=max(float((x - y).abs().max()) for x, y in (
+                    (fo, vk), (bo[0], w0), (bo[1].sum(0), dth.sum(0)))))
+        # ... then, at the plan's, the same 92 gates with no pairs (the
+        # loop's own cost a gate) and the first gate alone (the launch's
+        # prologue and epilogue)
+        empty = (torch.arange(P.shape[1], device="cuda").expand_as(P)
+                 .contiguous(), torch.zeros_like(S))
+        for name, (PP, SS), cc, ss in (
+                ("empty_gates", empty, c, s),
+                ("one_gate", (P[:1], S[:1]), c[:1], s[:1])):
+            vo = pair_scan._forward(v, cc, ss, PP, SS)
+            out[f"{str(dt)[6:]}_{name}"] = dict(
+                fwd_ms=C.time_ms(lambda: pair_scan._forward(
+                    v, cc, ss, PP, SS)),
+                bwd_ms=C.time_ms(lambda: pair_scan._backward(
+                    vo, w, cc, ss, PP, SS)),
+                fwd_kernel_ms=C.kernel_ms(lambda: pair_scan._forward(
+                    v, cc, ss, PP, SS), match="pair_scan_fwd"))
+    return out
+
+
 _ROW_KEYS = ("shape", "routes", "ms", "fwd_ms", "bwd_ms", "fwd_kernel_ms",
              "bwd_kernel_ms", "bound_ms", "bound_by", "max_abs_err",
-             "plain_kernel_ms", "groups", "window", "ring_stages")
+             "plain_kernel_ms", "groups", "window", "ring_stages", "threads",
+             "smem_bytes")
 
 
-def kernels(root: str) -> dict:
-    """The K3 and K8 rows of the kernels phase of `root`'s chip_smoke.py
-    (loaded under another name beside this checkout's), their timing
-    fields."""
+def kernels(root: str, rows: list) -> dict:
+    """The scan rows `rows` (of gate_scan, prot_scan, pair_scan) of the
+    kernels phase of `root`'s chip_smoke.py (loaded under another name
+    beside this checkout's), their timing fields."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_under_test", os.path.join(root, "chip_smoke.py"))
@@ -209,11 +360,10 @@ def kernels(root: str) -> dict:
     spec.loader.exec_module(S)
     peak = S.peaks(S.nvidia_smi())
     checks = []
-    rows = {"gate_scan": S._gate_scan_kernels(checks, peak),
-            "prot_scan": S._prot_scan_kernels(checks, peak)}
-    return {kernel: {name: {k: v for k, v in row.items() if k in _ROW_KEYS}
-                     for name, row in shapes.items()}
-            for kernel, shapes in rows.items()}
+    return {row: {name: {k: v for k, v in rec.items() if k in _ROW_KEYS}
+                  for name, rec in getattr(S, f"_{row}_kernels")(
+                      checks, peak).items()}
+            for row in rows}
 
 
 def main() -> int:
@@ -223,6 +373,8 @@ def main() -> int:
     ap.add_argument("--h8-cache", default="")
     ap.add_argument("--out", default=os.path.join(HERE, "build"))
     ap.add_argument("--paths", default="h4,h8_16")
+    ap.add_argument("--rows", default="gate_scan,prot_scan,pair_scan",
+                    help="the kernels path's rows")
     args = ap.parse_args()
     paths = args.paths.split(",")
     root = os.path.abspath(args.root)
@@ -240,11 +392,13 @@ def main() -> int:
         raise AssertionError(f"imported {esoo_torch.__file__}, not {root}")
     card = C.nvidia_smi()
     rec = {"tag": args.tag, "root": args.root, "card": card}
-    h8 = _h8(C, args.h8_cache) if set(paths) - {"h4", "kernels"} \
+    h8 = _h8(C, args.h8_cache) if set(paths) - {"h4", "kernels", "blocks"} \
         else None
     runs = {"h4": lambda: h4(C), "h8_16": lambda: h8_16(C, root, h8),
             "full": lambda: full(C, h8), "pairs": lambda: pairs(C, h8),
-            "kernels": lambda: kernels(root)}
+            "kernels": lambda: kernels(root, args.rows.split(",")),
+            "starts": lambda: starts(C, h8),
+            "blocks": lambda: blocks(C)}
     for name in paths:
         rec[name] = runs[name]()
     line = json.dumps(rec)

@@ -990,12 +990,14 @@ def _pair_plain(P, S, th, v0, ct):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n,parts,batch,route", [
-    (4, (2, 2), 1, None), (6, (3, 2), 3, None), (8, (4, 4), 1, None),
-    (6, (3, 2), 3, "global"), (9, (4, 4), 1, None)])
+    (4, (2, 2), 1, None), (6, (3, 2), 3, None), (6, (4, 4), 2, None),
+    (8, (4, 4), 1, None), (6, (3, 2), 3, "global"), (9, (4, 4), 1, None),
+    (9, (4, 4), 1, "global")])
 def test_pair_scan_kernel_matches_plain(card, dtype, n, parts, batch, route):
     """Both directions against _ApplyRev: v, w and dtheta, on the route of
-    _plan (n = 9, (4, 4): the global route backward, and forward at
-    float64) or forced onto the global route at a small shape."""
+    _plan (n = 9, (4, 4): the smem route at float32, the global route
+    backward at float64) or forced onto the global route; at H8 -> 16 and
+    n = 9 the ring of record chunks wraps (more chunks than stages)."""
     from esoo_torch.ops import pair_scan
     P, S, th, v0, ct = _pair_inputs(n, parts, dtype, batch, card)
     c, s = torch.cos(th), torch.sin(th)
@@ -1003,15 +1005,43 @@ def test_pair_scan_kernel_matches_plain(card, dtype, n, parts, batch, route):
     out = pair_scan._forward(v0, c, s, P, S, route)
     w0, dth = pair_scan._backward(out, ct, c, s, P, S, route)
     torch.cuda.synchronize()
-    plan = pair_scan._plan(v0.shape[1], dtype)
+    st = pair_scan._stream(P, S)
+    plan = pair_scan._plan(v0.shape[1], dtype, P.shape[0], st["max_pairs"],
+                           st["total"])
+    assert st["plans"][v0.shape[1], dtype] == plan
     routes = [route or plan[d]["route"] for d in ("fwd", "bwd")]
     counts = pair_scan.route_launch_counts()
     assert counts["fwd"] == counts["bwd"] == 1
     assert counts["global"] == routes.count("global")
+    if n >= 8:
+        assert all(plan[d]["chunks"] > plan[d]["stages"]
+                   for d in ("fwd", "bwd"))
     ref = _pair_plain(P, S, th, v0, ct)
     _close(out, ref[0])
     _close(w0, ref[1])
     _close(dth.sum(0), ref[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pair_scan_gate_without_pairs(card, dtype):
+    """Gates that touch nothing (PARTNER the identity, SFIELD 0): empty
+    lists, skipped without a wait; dtheta 0 there, the rest against the
+    plain scan, on both routes."""
+    from esoo_torch.ops import pair_scan
+    P, S, th, v0, ct = _pair_inputs(6, (3, 2), dtype, 2, card, seed=4)
+    P, S = P.clone(), S.clone()
+    for k in (0, 4, P.shape[0] - 1):
+        P[k] = torch.arange(P.shape[1], device=card)
+        S[k] = 0.0
+    c, s = torch.cos(th), torch.sin(th)
+    ref = _pair_plain(P, S, th, v0, ct)
+    for route in ("smem", "global"):
+        out = pair_scan._forward(v0, c, s, P, S, route)
+        w0, dth = pair_scan._backward(out, ct, c, s, P, S, route)
+        _close(out, ref[0])
+        _close(w0, ref[1])
+        _close(dth.sum(0), ref[2])
+        assert float(dth[:, [0, 4, -1]].abs().max()) == 0.0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -1044,12 +1074,17 @@ def test_pair_scan_autograd_and_repeats(card, dtype):
 def test_pair_scan_plan_matches_the_kernel(card):
     from esoo_torch.ops import pair_scan
     lib = pair_scan._lib()
+    for p in (0, 15, 60, 64, 65, 400, 1400, 4410):
+        assert lib.esoo_pair_scan_threads(p) == pair_scan._threads(p)
     for n in (1, 37, 226, 4901, 15877, 44101):
-        assert lib.esoo_pair_scan_threads(n) == pair_scan._threads(n)
         for item in (4, 8):
-            for bufs in (0, 2, 4):
-                assert lib.esoo_pair_scan_smem_bytes(n, item, bufs) == \
-                    pair_scan._smem_bytes(n, item, bufs)
+            for bufs in (0, 1, 2):
+                for log_chunk, stages, K in ((9, 1, 1), (9, 32, 92),
+                                             (12, 4, 560), (9, 8, 361)):
+                    assert lib.esoo_pair_scan_smem_bytes(
+                        n, item, bufs, log_chunk, stages, K) == \
+                        pair_scan._smem_bytes(n, item, bufs, log_chunk,
+                                              stages, K)
 
 
 def test_pair_scan_refuses_what_it_does_not_take(card):

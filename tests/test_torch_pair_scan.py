@@ -3,22 +3,26 @@ the CPU against the JAX package's `sector._apply_rev` (a custom_vjp over
 the lax.scan of `_apply_gates_tabled`, with its reversible backward), on
 the PARTNER/SFIELD tables of UCCSD at H2 (2, (1, 1)), H4 (4, (2, 2)), a
 synthetic n = 6, (3, 2) sector (nd + 1 = 301) and n = 7, (3, 3) (nd + 1
-= 1,226, three amplitudes a thread at the kernel's 512 threads).  Inputs
-are seeded numpy arrays; every fifth theta is exactly 0.  Tolerance:
-1e-12 * max(1, max|ref|) at float64, values and VJP; the two packages
-round the update and sum dtheta in different orders.
+= 1,226, gates of up to 525 pairs: two a thread at the kernel's 512
+threads).  Inputs are seeded numpy arrays; every fifth theta is exactly
+0.  Tolerance: 1e-12 * max(1, max|ref|) at float64, values and VJP; the
+two packages round the update and sum dtheta in different orders.
 
 The CUDA kernels run only on the card (tests/test_torch_cuda.py).  Here
 (a) `pair_scan.apply_rev_pairs` on CPU tensors runs the plain
 sim/sector.py::_ApplyRev, and a tensor elsewhere raises rather than
 taking it; (b) `_emulate_fwd`/`_emulate_bwd` repeat the kernels'
-arithmetic in their order: per gate, ce = 1 + (c - 1)|S| and S s formed
-per amplitude, the update read from one ping-pong buffer and written to
-the other, the backward's inverse rotation of v and its partner, and
-dtheta summed per thread over its amplitudes (i = tid, tid + T, ...) in
-order, then by the warps' __shfl_down_sync trees (offsets 16 .. 1) and
-warp 0's tree over the warp sums, at the kernel's block size T = _plan's
-"threads"; (c) `_plan` against the constants of csrc/pair_scan.cu."""
+schedule and arithmetic: per gate, only its touched pairs (lo < hi =
+PARTNER[k, lo] from `pair_scan.pair_lists`, which equal the sector's own
+pair lists), updated in place with ce = 1 + (c - 1) and S s = sigma s at
+lo and -sigma s at hi, the backward's inverse rotation of both ends, and
+dtheta summed per thread over its pairs (p = tid, tid + T, ...; lo's term,
+then hi's) in order, then by the warps' __shfl_down_sync trees (offsets
+16 .. 1) and warp 0's tree over the warp sums, at the kernel's block size
+T = _plan's "threads" (from the largest gate); `_ring_walk` repeats the
+ring of record chunks (issue, wait, refill, the record's slot) forward
+and backward; (c) `_plan` and `records` against the constants and record
+layout of csrc/pair_scan.cu."""
 
 import os
 import re
@@ -34,7 +38,7 @@ from esoo_tpu.sim import sector as JS
 from esoo_torch.ops import pair_scan
 from esoo_torch.sim import HartreeFock, UCCSD
 from esoo_torch.sim import sector as TS
-from test_torch_gate_scan import _block_sum  # the kernels' dtheta tree
+from test_torch_gate_scan import _pair_block_sum  # the dtheta tree
 
 jax.config.update("jax_enable_x64", True)
 
@@ -109,37 +113,101 @@ def _t(a):
 
 # -- (b) the kernels' arithmetic in their order -------------------------------
 
-def _gate(P, S, k, c, s):
-    """Gate k's per-amplitude terms as the kernel forms them: partner,
-    S, |S|, ce = 1 + (c - 1)|S| and S s."""
-    sg = S[k]
-    touched = sg.abs()
-    return P.to(torch.int32)[k].long(), sg, touched, \
-        1.0 + (c[k] - 1.0) * touched, sg * s[k]
+def _gates(P, S):
+    """Each gate's pairs as the kernel reads them from its records: lo,
+    hi and sigma = SFIELD[k, lo] (a sign bit in the record)."""
+    lists = pair_scan.pair_lists(P, S)
+    off = lists["off"].tolist()
+    sigma = 1.0 - 2.0 * lists["neg"].double()
+    return [(lists["lo"][a:b], lists["hi"][a:b], sigma[a:b])
+            for a, b in zip(off[:-1], off[1:])], lists
+
+
+def _threads(lists):
+    return pair_scan._threads(int(torch.diff(lists["off"]).max()))
 
 
 def _emulate_fwd(v0, c, s, P, S):
-    cur = v0.clone()
-    for k in range(c.shape[0]):
-        p, _, _, ce, sf = _gate(P, S, k, c, s)
-        cur = ce * cur + sf * cur[:, p]          # into the other buffer
-    return cur
+    V = v0.clone()
+    for k, (lo, hi, sigma) in enumerate(_gates(P, S)[0]):
+        ce, sf = 1.0 + (c[k] - 1.0), sigma.to(V.dtype) * s[k]
+        vl, vh = V[:, lo], V[:, hi]                   # in place, one buffer
+        V[:, lo] = ce * vl + sf * vh
+        V[:, hi] = ce * vh - sf * vl
+    return V
 
 
 def _emulate_bwd(v, w, c, s, P, S):
-    B, n = v.shape
-    threads = pair_scan._plan(n, v.dtype)["threads"]
-    vc, wc = v.clone(), w.clone()
-    dth = torch.zeros(B, c.shape[0], dtype=v.dtype)
+    gates, lists = _gates(P, S)
+    threads = _threads(lists)
+    V, W = v.clone(), w.clone()
+    dth = torch.zeros(v.shape[0], c.shape[0], dtype=v.dtype)
     for k in reversed(range(c.shape[0])):
-        p, sg, touched, ce, sf = _gate(P, S, k, c, s)
-        vk, pvk, wk, pw = vc, vc[:, p], wc, wc[:, p]
-        vprev = ce * vk - sf * pvk
-        pvprev = ce * pvk + sf * vk
-        term = wk * ((-s[k] * touched) * vprev + (sg * c[k]) * pvprev)
-        dth[:, k] = _block_sum(term, threads)
-        vc, wc = vprev, ce * wk - sf * pw
-    return wc, dth
+        lo, hi, sigma = gates[k]
+        sigma = sigma.to(v.dtype)
+        ce, sf, cf = 1.0 + (c[k] - 1.0), sigma * s[k], sigma * c[k]
+        vl, vh, wl, wh = V[:, lo], V[:, hi], W[:, lo], W[:, hi]
+        pl = ce * vl - sf * vh
+        ph = ce * vh + sf * vl
+        dth[:, k] = _pair_block_sum(wl * (-s[k] * pl + cf * ph),
+                                    wh * (-s[k] * ph - cf * pl), threads)
+        V[:, lo], V[:, hi] = pl, ph
+        W[:, lo] = ce * wl - sf * wh
+        W[:, hi] = ce * wh + sf * wl
+    return W, dth
+
+
+def _ring_walk(off, log_chunk, chunks, stages, reverse, stream):
+    """The kernel's ring (csrc/pair_scan.cu Ring), thread 0 and one
+    waiting thread in step: chunks issued in sequence into stage q %
+    stages, each gate waits for its chunks, reads each record from the
+    slot `at` computes, and after the gate's barrier thread 0 refills
+    every stage whose chunk lies before the next record.  Asserts that a
+    gate's chunks are issued before it waits, that no stage is refilled
+    while a chunk in it may still be read, and that every record read is
+    the stream's; returns the records read, gate by gate."""
+    K, C = len(off) - 1, 1 << log_chunk
+    total = off[-1]
+    ring = [None] * (stages * C)
+    held = [None] * stages                       # the chunk a stage holds
+
+    def seq(pos):
+        c = pos >> log_chunk
+        return chunks - 1 - c if reverse else c
+
+    def issue(q):
+        c = chunks - 1 - q if reverse else q
+        st = q & (stages - 1)
+        assert held[st] is None or held[st] < need, "refilled while needed"
+        held[st] = q
+        ring[st * C:(st + 1) * C] = stream[c * C:(c + 1) * C]
+
+    need = 0
+    issued = min(stages, chunks)
+    for q in range(issued):
+        issue(q)
+    ready, read = -1, []
+    for step in range(K):
+        k = K - 1 - step if reverse else step
+        a, b = off[k], off[k + 1]
+        if b > a:
+            last = seq(a) if reverse else seq(b - 1)
+            assert last < issued, "a gate waits for a chunk never issued"
+            ready = max(ready, last)
+        got = []
+        for p in range(a, b):
+            q = seq(p)
+            assert q <= ready and held[q & (stages - 1)] == q
+            got.append(ring[((q & (stages - 1)) << log_chunk) | (p & (C - 1))])
+        read.append(got)
+        nxt = (a - 1 if a > 0 else None) if reverse else \
+            (b if b < total else None)
+        need = chunks if nxt is None else seq(nxt)
+        while issued < min(need + stages, chunks):
+            issue(issued)
+            issued += 1
+    assert ready == chunks - 1 or total == 0
+    return read
 
 
 # -- (a) the plain route of apply_rev_pairs -----------------------------------
@@ -214,9 +282,10 @@ def test_a_device_without_kernels_raises(monkeypatch):
 
 # -- (b) the kernels' emulation -----------------------------------------------
 
-@pytest.mark.parametrize("case,batch", [("h4", None), ("h4", 2),
+@pytest.mark.parametrize("case,batch", [("h2", None), ("h2", 2),
+                                        ("h4", None), ("h4", 2),
                                         ("n6_32", None), ("n6_32", 2),
-                                        ("n7_33", None)])
+                                        ("n7_33", None), ("n7_33", 2)])
 def test_kernel_emulation_matches_jax(case, batch):
     (th, v0, ct), (out_ref, dv0_ref, dth_ref) = _reference(case, batch)
     P, S = _tables(case)
@@ -228,6 +297,169 @@ def test_kernel_emulation_matches_jax(case, batch):
     _close(out.reshape(out_ref.shape), out_ref)
     _close(w0.reshape(dv0_ref.shape), dv0_ref)
     _close(dth.sum(0), dth_ref)
+
+
+@pytest.mark.parametrize("case", ["h2", "h4", "n6_32", "n7_33"])
+def test_pair_lists_equal_the_sector_builds(case):
+    """pair_lists of the dense tables are, gate by gate, the sector's own
+    pair lists (SectorUCC._build_pair_lists of both packages: domain lo,
+    range hi and the sign sg, SFIELD = -sg at lo and +sg at hi) taken as
+    (min, max) in ascending order, with the sign of SFIELD at the smaller
+    end; the offsets count them."""
+    js, ts = _sectors(case)
+    P, S = _tables(case)
+    lists = pair_scan.pair_lists(P, S)
+    off = lists["off"].tolist()
+    assert off[0] == 0 and len(off) == len(ts._excs) + 1
+    for built in (ts._build_pair_lists(), js._build_pair_lists()):
+        for k, (lo, hi, sg) in enumerate(zip(*built)):
+            lo, hi, sg = (np.asarray(a) for a in (lo, hi, sg))
+            first = np.minimum(lo, hi)
+            neg = np.where(lo < hi, -sg, sg) < 0      # SFIELD at first < 0
+            order = np.argsort(first)
+            a, b = off[k], off[k + 1]
+            assert b - a == len(lo)
+            np.testing.assert_array_equal(lists["lo"][a:b], first[order])
+            np.testing.assert_array_equal(lists["hi"][a:b],
+                                          np.maximum(lo, hi)[order])
+            np.testing.assert_array_equal(lists["neg"][a:b], neg[order])
+    # and the JAX package's dense tables give the same lists
+    again = pair_scan.pair_lists(torch.as_tensor(np.asarray(js._PARTNER)),
+                                 torch.as_tensor(np.asarray(js._SFIELD)))
+    for key in ("off", "lo", "hi", "neg"):
+        assert torch.equal(again[key], lists[key])
+
+
+def test_records_pack_the_lists():
+    """records: one int32 (lo, hi) row a pair, hi's sign bit set where
+    SFIELD[k, lo] = -1, zero past the last pair to a multiple of 4,096
+    records (the largest chunk; 16-byte chunks for the bulk copies)."""
+    P, S = _tables("n7_33")
+    lists = pair_scan.pair_lists(P, S)
+    rec = pair_scan.records(lists)
+    total = len(lists["lo"])
+    assert rec.dtype == torch.int32 and rec.shape[1] == 2
+    assert rec.shape[0] % 4096 == 0 and total <= rec.shape[0] < total + 4096
+    assert torch.equal(rec[:total, 0].long(), lists["lo"])
+    assert torch.equal((rec[:total, 1] & 0x7fffffff).long(), lists["hi"])
+    assert torch.equal(rec[:total, 1] < 0, lists["neg"])
+    assert not rec[total:].any()
+    assert 0 < lists["neg"].sum() < total
+
+
+def test_pair_lists_refuse_what_is_not_a_bank():
+    P, S = _tables("h4")
+    S = S.clone()
+    S[3, int(torch.nonzero(S[3])[0])] *= -1.0      # one end's sign flipped
+    with pytest.raises(ValueError, match="disjoint Givens"):
+        pair_scan.pair_lists(P, S)
+
+
+def test_untouched_amplitudes_are_never_read():
+    """A gate reads and writes only its pairs: for each gate alone, NaN
+    planted on every amplitude it does not touch stays there, exactly, and
+    reaches nothing else, forward and backward; every amplitude it touches
+    belongs to exactly one of its pairs."""
+    _, ts = _sectors("n7_33")
+    P, S = _tables("n7_33")
+    th, v0, ct = _inputs(ts, 2, seed=7)
+    n = ts.dim + 1
+    for k in (0, 9, len(ts._excs) - 1):
+        Pk, Sk = P[k:k + 1], S[k:k + 1]
+        (lo, hi, _), = _gates(Pk, Sk)[0]
+        both = torch.cat([lo, hi])
+        assert len(torch.unique(both)) == len(both) < n
+        touched = torch.zeros(n, dtype=torch.bool)
+        touched[both] = True
+        v, w = _t(v0), _t(ct)
+        v[:, ~touched] = float("nan")
+        w[:, ~touched] = float("nan")
+        theta = _t(th[k:k + 1] + 0.3)
+        c, s = torch.cos(theta), torch.sin(theta)
+        out = _emulate_fwd(v, c, s, Pk, Sk)
+        w0, dth = _emulate_bwd(out, w, c, s, Pk, Sk)
+        for x in (out, w0):
+            assert torch.isnan(x[:, ~touched]).all()
+            assert torch.isfinite(x[:, touched]).all()
+        assert torch.isfinite(dth).all()
+
+
+def test_a_gate_without_pairs():
+    """A gate that touches nothing (PARTNER the identity, SFIELD 0) has
+    an empty list: the emulation leaves the state to its neighbours and
+    writes dtheta 0, as the plain scan."""
+    _, ts = _sectors("n6_32")
+    P, S = _tables("n6_32")
+    P, S = P.clone(), S.clone()
+    P[4] = torch.arange(P.shape[1])
+    S[4] = 0.0
+    lists = pair_scan.pair_lists(P, S)
+    assert lists["off"][5] == lists["off"][4]
+    th, v0, ct = _inputs(ts, 2, seed=9)
+    theta = _t(th)
+    c, s = torch.cos(theta), torch.sin(theta)
+    out = _emulate_fwd(_t(v0), c, s, P, S)
+    w0, dth = _emulate_bwd(out, _t(ct), c, s, P, S)
+    v, t = _t(v0).requires_grad_(), theta.clone().requires_grad_()
+    ref = pair_scan.apply_rev_pairs(v, t, P, S)
+    torch.autograd.backward(ref, _t(ct))
+    _close(out, ref.detach())
+    _close(w0, v.grad)
+    _close(dth.sum(0), t.grad)
+    assert float(dth[:, 4].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("case,log_chunk,stages", [
+    ("n7_33", 9, 8),        # the plan's ring: the stream staged at once
+    ("n7_33", 6, 16),       # 64-record chunks: the ring wraps, gates span
+    ("n7_33", 7, 8),        #   up to 10 chunks
+    ("h4", 4, 4),           # gates of 10-24 pairs over 16-record chunks
+])
+def test_ring_walk_reads_every_record(case, log_chunk, stages):
+    """The ring of record chunks, forward and backward: every gate reads
+    exactly its own records from the slots the kernel computes, each chunk
+    issued before it is waited for and no stage refilled while it may be
+    read, at the plan's ring and at rings that wrap many times."""
+    P, S = _tables(case)
+    lists = pair_scan.pair_lists(P, S)
+    rec = pair_scan.records(lists)
+    stream = [tuple(r) for r in rec.tolist()]
+    off = lists["off"].tolist()
+    C = 1 << log_chunk
+    chunks = max(1, -(-off[-1] // C))
+    span = (int(torch.diff(lists["off"]).max()) - 1) // C + 2
+    assert stages >= min(span, chunks)
+    for reverse in (False, True):
+        read = _ring_walk(off, log_chunk, chunks, stages, reverse, stream)
+        gates = range(len(off) - 1)
+        for k, got in zip(reversed(gates) if reverse else gates, read):
+            assert got == stream[off[k]:off[k + 1]]
+
+
+def test_ring_plan_holds_the_widest_gate():
+    """_ring: the smallest chunk whose ring (a power of two of stages, no
+    more than the stream needs) holds the widest gate's span beside the
+    state; the plan's ring at the card's shapes walks every record."""
+    for n, K, mp, total, item, bufs in ((226, 92, 60, 2164, 4, 2),
+                                        (4901, 360, 1400, 177440, 8, 2),
+                                        (15877, 560, 4410, 817600, 8, 1),
+                                        (15877, 560, 4410, 817600, 4, 2)):
+        ring = pair_scan._ring(n, item, bufs, K, mp, total)
+        C = 1 << ring["log_chunk"]
+        st = ring["stages"]
+        assert st & (st - 1) == 0 and st <= 32
+        assert ring["chunks"] == -(-total // C)
+        assert st >= min(ring["chunks"], (mp - 1) // C + 2)
+        assert ring["smem"] == pair_scan._smem_bytes(
+            n, item, bufs, ring["log_chunk"], st, K) <= 232448
+    # gates of 1,400 and 400 pairs over the H8 -> 16 float64 backward's
+    # ring of 512-record chunks
+    off = np.cumsum([0, 1400, 400, 1400, 400, 400, 1400] * 30).tolist()
+    ring = pair_scan._ring(4901, 8, 2, len(off) - 1, 1400, off[-1])
+    stream = [(i, i) for i in range(ring["chunks"] << ring["log_chunk"])]
+    for reverse in (False, True):
+        _ring_walk(off, ring["log_chunk"], ring["chunks"], ring["stages"],
+                   reverse, stream)
 
 
 # -- (c) the route plan against the kernel's constants ------------------------
@@ -245,41 +477,69 @@ def test_plan_mirrors_the_kernel_constants():
     k = _kernel_constants()
     assert k["kMaxThreads"] == pair_scan._MAX_THREADS
     assert k["kMaxSmem"] == pair_scan._SMEM_LIMIT
-    assert k["kFwdBuffers"] == pair_scan._FWD_BUFFERS
-    assert k["kBwdBuffers"] == pair_scan._BWD_BUFFERS
-    assert [pair_scan._threads(n) for n in (1, 5, 37, 226, 512, 4901)] == \
-        [32, 32, 64, 256, 512, 512]
+    assert k["kFwdBuffers"] == pair_scan._FWD_BUFFERS == 1
+    assert k["kBwdBuffers"] == pair_scan._BWD_BUFFERS == 2
+    assert k["kMaxStages"] == pair_scan._MAX_STAGES
+    assert k["kMinLogChunk"] == pair_scan._MIN_LOG_CHUNK
+    assert k["kMaxLogChunk"] == pair_scan._MAX_LOG_CHUNK
+    assert k["kOneWarpPairs"] == pair_scan._ONE_WARP_PAIRS
+    # the block size from the largest gate: H8 -> 12's 60 pairs, H8 ->
+    # 16's 1,400, n = 9's 4,410
+    assert [pair_scan._threads(p) for p in (0, 60, 65, 97, 1400, 4410)] == \
+        [32, 32, 96, 128, 512, 512]
 
 
-@pytest.mark.parametrize("n,dtype,fwd,bwd", [
-    (226, torch.float32, "smem", "smem"),          # H8 -> 12
-    (4901, torch.float64, "smem", "smem"),         # H8 -> 16
-    (15877, torch.float32, "smem", "global"),      # n = 9, (4, 4)
-    (15877, torch.float64, "global", "global"),
-    (44101, torch.float32, "global", "global"),    # H8 -> 20
+@pytest.mark.parametrize("n,dtype,K,max_pairs,total,fwd,bwd", [
+    (226, torch.float32, 92, 60, 2164, "smem", "smem"),          # H8 -> 12
+    (4901, torch.float64, 360, 1400, 177440, "smem", "smem"),    # H8 -> 16
+    (15877, torch.float32, 560, 4410, 817600, "smem", "smem"),   # n = 9
+    (15877, torch.float64, 560, 4410, 817600, "smem", "global"),
+    (44101, torch.float32, 1500, 10000, 2000000, "global", "global"),
 ])
-def test_plan_routes(n, dtype, fwd, bwd):
+def test_plan_routes(n, dtype, K, max_pairs, total, fwd, bwd):
+    """One state buffer forward and two backward (in place) beside the
+    ring and the gate table: float32 keeps the state in shared memory
+    both ways to n = 9 at (4, 4) (a 127 KB backward), float64 forward to
+    n = 9 and backward to H8 -> 16 (78 KB); H8 -> 12's 17 KB stream is
+    staged at once."""
     item = 4 if dtype == torch.float32 else 8
-    plan = pair_scan._plan(n, dtype)
-    for direction, route, bufs in (("fwd", fwd, 2), ("bwd", bwd, 4)):
+    plan = pair_scan._plan(n, dtype, K, max_pairs, total)
+    assert plan["threads"] == pair_scan._threads(max_pairs)
+    for direction, route, bufs in (("fwd", fwd, 1), ("bwd", bwd, 2)):
         got = plan[direction]
         assert got["route"] == route
-        state = bufs * n if route == "smem" else 0
-        assert got["smem"] == item * (state + 32) <= 232448
+        state = bufs if route == "smem" else 0
+        assert got == dict(route=route, **pair_scan._ring(
+            n, item, state, K, max_pairs, total))
+        table = -(-(K * (2 * item + 4) + 4) // 16) * 16
+        assert got["smem"] == 8 * (got["stages"] << got["log_chunk"]) + \
+            8 * 32 + table + item * (state * n + 32) <= 232448
+    if n == 226:
+        assert plan["fwd"]["stages"] >= plan["fwd"]["chunks"] == 5
     if n == 4901:
-        assert plan["bwd"]["smem"] == 157088            # 153 KB of state
+        assert plan["bwd"]["stages"] == 32 and plan["bwd"]["chunks"] == 347
 
 
 def test_plan_refuses_what_neither_route_takes():
     with pytest.raises(ValueError, match="no route"):
-        pair_scan._plan(2 ** 29, torch.float32)
+        pair_scan._plan(2 ** 30, torch.float32, 92, 60, 2164)
+    with pytest.raises(ValueError, match="no route"):
+        pair_scan._plan(4901, torch.float32, 360, 200000, 400000)
+    with pytest.raises(ValueError, match="no route"):      # the gate table
+        pair_scan._plan(226, torch.float64, 12000, 60, 2164)
     with pytest.raises(TypeError):
-        pair_scan._plan(226, torch.float16)
+        pair_scan._plan(226, torch.float16, 92, 60, 2164)
 
 
 def test_partner_cached_once_per_tables_dict():
-    P, _ = _tables("h4")
-    p32 = pair_scan._index32(P)
-    assert p32.dtype == torch.int32
-    assert pair_scan._index32(P) is p32
-    assert torch.equal(p32.long(), P)
+    """The stream is built once per tables dict (keyed on its PARTNER
+    tensor): the records, int32 offsets, the largest gate and the total."""
+    P, S = _tables("h4")
+    st = pair_scan._stream(P, S)
+    assert pair_scan._stream(P, S) is st
+    lists = pair_scan.pair_lists(P, S)
+    assert st["off"].dtype == torch.int32
+    assert torch.equal(st["off"].long(), lists["off"])
+    assert torch.equal(st["rec"], pair_scan.records(lists))
+    assert st["total"] == len(lists["lo"])
+    assert st["max_pairs"] == int(torch.diff(lists["off"]).max())
