@@ -1,0 +1,7 @@
+"""transform_roofline.casscf: the 4-index integral transform's share of
+its roofline (%) in the CASSCF cells (harness/records.py::transform_share)."""
+from portbench.harness import records
+
+
+def read(run):
+    return records.transform_share(run)
