@@ -48,9 +48,10 @@ from ..solvers.davidson import (davidson_block, davidson_block_advance,
                                 davidson_block_finish, davidson_block_init,
                                 davidson_ground)
 from ..utils.config import resolve_device
+from ..utils.profiling import collect, span
 from .checkpoint import load_checkpoint
 from .fused import (FusedOptOrbEigensolverResult, FusedOptOrbResult,
-                    _check_mesh, _OuterLoopSolver, _numpy,
+                    _check_mesh, _loop_stats, _OuterLoopSolver, _numpy,
                     _spatial_integrals, _state_diagnostics,
                     _states_diagnostics, _to_dtype, _transition_rdm1s,
                     _weighted_rdms)
@@ -80,37 +81,34 @@ def _davidson_tol(dtype: torch.dtype) -> float:
 
 
 def _new_stats() -> dict:
-    """stage_stats of a CASSCF run: BB iterations and seconds, Davidson
-    solves, matvecs and seconds (build_values and the diagonal included),
-    and per solve its matvecs, final residual norm and how it ended:
-    "converged" (rn < tol * max(1, |E|)), "stagnant" (the correction fell
-    inside the subspace, below 64 eps) or "maxiter"."""
-    return {"bb_iterations": 0, "bb_s": 0.0, "bb_s_per_call": [],
-            "davidson_solves": 0,
-            "davidson_matvecs": 0, "davidson_s": 0.0,
-            "davidson_matvecs_per_solve": [], "davidson_residuals": [],
-            "davidson_exits": []}
+    """stage_stats of a CASSCF run: fused._loop_stats, Davidson solves and
+    seconds (davidson spans: build_values and the diagonal included),
+    matvecs and their seconds (davidson.sigma spans), and per solve its
+    matvecs, final residual norm and how it ended: "converged" (rn < tol *
+    max(1, |E|)), "stagnant" (the correction fell inside the subspace,
+    below 64 eps) or "maxiter"."""
+    return {"davidson_solves": 0, "davidson_matvecs": 0, "davidson_s": 0.0,
+            "sigma_s": 0.0, "davidson_matvecs_per_solve": [],
+            "davidson_residuals": [], "davidson_exits": [], **_loop_stats()}
 
 
-def _operators(sector: SectorCI, tables: dict, h_act, g_act, stats):
-    """(mv, diag) of the sector Hamiltonian at the rotated integrals; mv
-    counts its calls into stats["davidson_matvecs"]."""
+def _operators(sector: SectorCI, tables: dict, h_act, g_act):
+    """(mv, diag) of the sector Hamiltonian at the rotated integrals, its
+    values and diagonal under the `davidson.build` span."""
     nB, nA = sector.nB, sector.nA
-    h_so, g_so = expand_spin_tensors(h_act, g_act)
-    vals = sector.build_values(h_so, g_so, tables)
-    diag = sector.diagonal_values(vals, tables).reshape(-1)
+    with span("davidson.build"):
+        h_so, g_so = expand_spin_tensors(h_act, g_act)
+        vals = sector.build_values(h_so, g_so, tables)
+        diag = sector.diagonal_values(vals, tables).reshape(-1)
 
     def mv(x):
-        stats["davidson_matvecs"] += 1
         return sector.sigma_values(x.reshape(nB, nA), vals,
                                    tables).reshape(-1)
 
     return mv, diag
 
 
-def _record(stats, t0, matvecs0, es, rn, tol, iterations, maxiter):
-    stats["davidson_solves"] += 1
-    stats["davidson_s"] += time.perf_counter() - t0
+def _record(stats, matvecs0, es, rn, tol, iterations, maxiter):
     stats["davidson_matvecs_per_solve"].append(
         stats["davidson_matvecs"] - matvecs0)
     rn = float(rn)
@@ -142,33 +140,36 @@ def _stage_fns(sector: SectorCI, k: Optional[int], weights, max_subspace: int,
 
     def solve_at(tol):
         def solve(warm, h_act, g_act):
-            t0, n0 = time.perf_counter(), stats["davidson_matvecs"]
-            mv, diag = _operators(sector, tables, h_act, g_act, stats)
+            n0 = stats["davidson_matvecs"]
+            with span("davidson", "davidson_s", "davidson_solves") as sp:
+                mv, diag = _operators(sector, tables, h_act, g_act)
+                if chunk is None and k is None:
+                    res = davidson_ground(mv, diag, warm,
+                                          max_subspace=max_subspace,
+                                          maxiter=davidson_maxiter, tol=tol)
+                elif chunk is None:
+                    res = davidson_block(mv, diag, warm, k=k,
+                                         max_subspace=max_subspace,
+                                         maxiter=davidson_maxiter, tol=tol)
+                else:
+                    state = davidson_block_init(
+                        mv, diag, warm.reshape(k or 1, -1), k=k or 1,
+                        max_subspace=max_subspace, tol=tol)
+                    while not state.stop and state.it < davidson_maxiter:
+                        state = davidson_block_advance(mv, diag, state,
+                                                       iters=chunk, tol=tol)
+                    t1 = time.perf_counter()
+                    res = davidson_block_finish(mv, diag, state, tol=tol)
+                    if solver_stats is not None:
+                        solver_stats["davidson_iters"].append(state.it)
+                        solver_stats["solve_s"].append(t1 - sp.start)
+                        solver_stats["finish_s"].append(
+                            time.perf_counter() - t1)
             if chunk is None and k is None:
-                res = davidson_ground(mv, diag, warm,
-                                      max_subspace=max_subspace,
-                                      maxiter=davidson_maxiter, tol=tol)
-                _record(stats, t0, n0, res.eigenvalue, res.residual_norm,
-                        tol, res.iterations, davidson_maxiter)
+                _record(stats, n0, res.eigenvalue, res.residual_norm, tol,
+                        res.iterations, davidson_maxiter)
                 return res.eigenvector, res.eigenvalue
-            if chunk is None:
-                res = davidson_block(mv, diag, warm, k=k,
-                                     max_subspace=max_subspace,
-                                     maxiter=davidson_maxiter, tol=tol)
-            else:
-                state = davidson_block_init(
-                    mv, diag, warm.reshape(k or 1, -1), k=k or 1,
-                    max_subspace=max_subspace, tol=tol)
-                while not state.stop and state.it < davidson_maxiter:
-                    state = davidson_block_advance(mv, diag, state,
-                                                   iters=chunk, tol=tol)
-                t1 = time.perf_counter()
-                res = davidson_block_finish(mv, diag, state, tol=tol)
-                if solver_stats is not None:
-                    solver_stats["davidson_iters"].append(state.it)
-                    solver_stats["solve_s"].append(t1 - t0)
-                    solver_stats["finish_s"].append(time.perf_counter() - t1)
-            _record(stats, t0, n0, res.eigenvalues, res.residual_norm, tol,
+            _record(stats, n0, res.eigenvalues, res.residual_norm, tol,
                     res.iterations, davidson_maxiter)
             if k is None:
                 return res.eigenvectors[0], res.eigenvalues[0]
@@ -231,33 +232,37 @@ class FusedOptOrbCASSCF(_OuterLoopSolver):
                     "it is given")
             num_particles = tuple(problem.num_particles)
 
-        h_sp, g_sp = _spatial_integrals(problem, integral_tensors,
-                                        type(self).__name__)
-        dtype = _to_dtype(dtype) or _to_dtype(h_sp.dtype)
-        self.dtype = dtype
-        self._set_integrals(h_sp, g_sp, dtype, mesh)
+        with span("construct.integrals", "construct_integrals_s"):
+            h_sp, g_sp = _spatial_integrals(problem, integral_tensors,
+                                            type(self).__name__)
+            dtype = _to_dtype(dtype) or _to_dtype(h_sp.dtype)
+            self.dtype = dtype
+            self._set_integrals(h_sp, g_sp, dtype, mesh)
 
         self.num_spin_orbitals = num_spin_orbitals
-        self._sector = _sector_ci_cached(num_spin_orbitals,
-                                         tuple(num_particles))
-        storage = table_storage
-        if storage == "auto":
-            storage = ("compact" if self._sector.dim > _COMPACT_MIN_ND
-                       else "dense")
-        if mesh is not None:
-            # the mesh composes with either storage: the operator stacks
-            # sharded over the mesh, int8 for 'compact' (the dense
-            # kernels' keys, each device casting only its own shard)
-            from ..parallel import shard_sector_tables
-            self.table_storage = ("sharded" if storage == "dense"
-                                  else "sharded-compact")
-            self._sector_tables = shard_sector_tables(
-                mesh, self._sector, dtype, storage=storage)
-        else:
-            self.table_storage = storage
-            # cached on the (cached) sector: a second solver sends nothing
-            self._sector_tables = self._sector.device_tables(
-                dtype, device=dev, storage=storage)
+        with span("construct.sector", "construct_sector_s"):
+            self._sector = _sector_ci_cached(num_spin_orbitals,
+                                             tuple(num_particles))
+            storage = table_storage
+            if storage == "auto":
+                storage = ("compact" if self._sector.dim > _COMPACT_MIN_ND
+                           else "dense")
+            if mesh is not None:
+                # the mesh composes with either storage: the operator
+                # stacks sharded over the mesh, int8 for 'compact' (the
+                # dense kernels' keys, each device casting only its own
+                # shard)
+                from ..parallel import shard_sector_tables
+                self.table_storage = ("sharded" if storage == "dense"
+                                      else "sharded-compact")
+                self._sector_tables = shard_sector_tables(
+                    mesh, self._sector, dtype, storage=storage)
+            else:
+                self.table_storage = storage
+                # cached on the (cached) sector: a second solver sends
+                # nothing
+                self._sector_tables = self._sector.device_tables(
+                    dtype, device=dev, storage=storage)
 
         self._v0 = self._sector.hf_matrix(dtype, device=dev).reshape(-1)
         if resume_from is not None:
@@ -303,16 +308,17 @@ class FusedOptOrbCASSCF(_OuterLoopSolver):
         self.dispatch = dispatch
 
     def compute_minimum_energy(self) -> FusedOptOrbResult:
-        stats = _new_stats()
-        with torch.no_grad():
+        stats = self._run_stats(_new_stats())
+        with torch.no_grad(), collect(stats):
             solve, extract_rdms, final_solve = _stage_fns(
                 self._sector, None, None, self.max_subspace,
                 self.davidson_maxiter, self.dtype, self._sector_tables, stats,
                 chunk=self.davidson_chunk, ladder=self.davidson_tol_ladder)
             E, v, U, it, trace = self._loop(solve, extract_rdms, self._v0,
                                             stats, final_solve=final_solve)
-            occ, s2, g1, sd = _state_diagnostics(self._sector, v,
-                                                 self._sector_tables)
+            with span("diagnostics", "diagnostics_s"):
+                occ, s2, g1, sd = (_numpy(x) for x in _state_diagnostics(
+                    self._sector, v, self._sector_tables))
         return FusedOptOrbResult(
             eigenvalue=float(E),
             optimal_point=_numpy(v),
@@ -320,10 +326,10 @@ class FusedOptOrbCASSCF(_OuterLoopSolver):
             energy_convergence_list=[float(e) for e in trace],
             outer_iterations=it,
             optimal_circuit=None,
-            natural_occupations=_numpy(occ),
+            natural_occupations=occ,
             spin_squared=float(s2),
-            one_rdm_spatial=_numpy(g1),
-            spin_density_spatial=_numpy(sd),
+            one_rdm_spatial=g1,
+            spin_density_spatial=sd,
             stage_stats=stats)
 
 
@@ -383,13 +389,13 @@ class FusedOptOrbSACASSCF(FusedOptOrbCASSCF):
             "compute_energies()")
 
     def compute_energies(self) -> FusedOptOrbEigensolverResult:
-        stats = _new_stats()
+        stats = self._run_stats(_new_stats())
         solver_stats = None
         if self.dispatch == "two":
             solver_stats = {"davidson_iters": [], "solve_s": [],
                             "finish_s": [], "orb_s": []}
             self.stage_stats = solver_stats
-        with torch.no_grad():
+        with torch.no_grad(), collect(stats):
             solve, extract_rdms, final_solve = _stage_fns(
                 self._sector, self.k, self._weights, self.max_subspace,
                 self.davidson_maxiter, self.dtype, self._sector_tables,
@@ -402,18 +408,20 @@ class FusedOptOrbSACASSCF(FusedOptOrbCASSCF):
                 # the JAX package times the loop's BB programs, not the
                 # one after the last solve when the loop hits maxiter
                 solver_stats["orb_s"] = stats["bb_s_per_call"][:it - 1]
-            occ, s2, g1, sd = _states_diagnostics(self._sector, V,
-                                                  self._sector_tables)
-            t1 = _transition_rdm1s(self._sector, V, self._sector_tables)
+            with span("diagnostics", "diagnostics_s"):
+                occ, s2, g1, sd = (_numpy(x) for x in _states_diagnostics(
+                    self._sector, V, self._sector_tables))
+                t1 = _numpy(_transition_rdm1s(self._sector, V,
+                                              self._sector_tables))
         return FusedOptOrbEigensolverResult(
             eigenvalues=_numpy(es),
             optimal_point=_numpy(V),
             optimal_partial_unitary=_numpy(U),
             energy_convergence_list=[float(e) for e in trace],
             outer_iterations=it,
-            natural_occupations=_numpy(occ),
-            spin_squared=_numpy(s2),
-            one_rdm_spatial=_numpy(g1),
-            spin_density_spatial=_numpy(sd),
-            transition_rdm1_spatial=_numpy(t1),
+            natural_occupations=occ,
+            spin_squared=s2,
+            one_rdm_spatial=g1,
+            spin_density_spatial=sd,
+            transition_rdm1_spatial=t1,
             stage_stats=stats)

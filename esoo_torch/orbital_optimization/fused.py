@@ -49,7 +49,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -60,6 +59,7 @@ from ..sim.rdm import one_rdm, rdm_energy, two_rdm
 from ..sim.statevector import compile_circuit
 from ..solvers.lbfgs import lbfgs_minimize
 from ..utils.config import check_same_device, resolve_device
+from ..utils.profiling import collect, span
 from .checkpoint import load_checkpoint, save_checkpoint
 from .kernels import (expand_spin_tensors, rotate_one_body, rotate_two_body,
                       rotated_energy_spatial, rotated_integrals_spatial,
@@ -90,8 +90,8 @@ class FusedOptOrbResult:
     spin_density_spatial: Optional[np.ndarray] = None
     # where the run went, summed over the outer loop: BB iterations,
     # L-BFGS iterations and value-and-grad evaluations, and host-clock
-    # seconds of the eigensolver and orbital stages (each ends at a sync
-    # the loop makes anyway, so the clock adds none)
+    # seconds of the construction and of each stage, from the spans of
+    # utils/profiling.py (_vqe_stats, casscf._new_stats)
     stage_stats: Optional[dict] = None
 
     @property
@@ -128,14 +128,14 @@ class FusedOptOrbEigensolverResult:
 
 def _inner_bb(vag_fn, U0, data, stepsize, tol, decay, maxiter,
               stats: Optional[dict] = None):
-    """BB projected-gradient descent (the loop of stiefel.py)."""
-    t0 = time.perf_counter()
-    U, k, _, _ = _bb_loop(vag_fn, U0, data, stepsize, tol, decay, maxiter)
+    """BB projected-gradient descent (the loop of stiefel.py) under the
+    `outer.bb` span, which adds to `stats`, when given, bb_s, its bb.iter
+    spans (bb_iterations) and its seconds in bb_s_per_call."""
+    with collect(stats), span("outer.bb", "bb_s") as bb:
+        U, _, _, _ = _bb_loop(vag_fn, U0, data, stepsize, tol, decay,
+                              maxiter)
     if stats is not None:
-        seconds = time.perf_counter() - t0
-        stats["bb_iterations"] += k - 1
-        stats["bb_s"] += seconds
-        stats.setdefault("bb_s_per_call", []).append(seconds)
+        stats.setdefault("bb_s_per_call", []).append(bb.seconds)
     return U
 
 
@@ -220,15 +220,20 @@ def _optorb_loop(solve: Callable, extract_rdms: Callable, state, U0,
     convergence rule reads); extract_rdms(state) -> spin-orbital (gamma,
     Gamma); the BB descent minimizes orbital_vag(U, gamma_s, Gamma_s,
     *orbital_data) (the integrals on one device, or a mesh's shards).
-    The final re-solve runs `final_solve` (default `solve`).  Returns
+    The final re-solve runs `final_solve` (default `solve`).  Each stage
+    runs under its span (utils/profiling.py): outer.rotate (rotate_s),
+    outer.solve, outer.rdms (rdms_s), outer.bb (bb_s), and final_solve
+    (final_solve_s, its rotation an outer.rotate too).  Returns
     (es, state, U, n_outer, energy_trace)."""
     trace = np.full((outer_maxiter,), np.nan)
     U = orth(U0)
     E_prev = torch.full((), float("inf"), dtype=U.dtype, device=U.device)
     it = 0
     while True:
-        h_act, g_act = rotate(U)
-        state, es = solve(state, h_act, g_act)
+        with span("outer.rotate", "rotate_s"):
+            h_act, g_act = rotate(U)
+        with span("outer.solve"):
+            state, es = solve(state, h_act, g_act)
         E = es if weights is None else weights @ es
         trace[it] = float(E)
         if callback is not None:
@@ -239,8 +244,9 @@ def _optorb_loop(solve: Callable, extract_rdms: Callable, state, U0,
             # keep the pre-rotation U (the one that produced E); the JAX
             # program computes and discards the rotated U here
             break
-        gamma, Gamma = extract_rdms(state)
-        gamma_s, Gamma_s = spin_reduce_rdms(gamma, Gamma)
+        with span("outer.rdms", "rdms_s"):
+            gamma, Gamma = extract_rdms(state)
+            gamma_s, Gamma_s = spin_reduce_rdms(gamma, Gamma)
         U = _inner_bb(orbital_vag, U, (gamma_s, Gamma_s) + orbital_data,
                       bb_stepsize, inner_tol, decay, inner_maxiter, stats)
         if it >= outer_maxiter:
@@ -248,7 +254,10 @@ def _optorb_loop(solve: Callable, extract_rdms: Callable, state, U0,
         E_prev = E
     # re-solve at the final U so (E, state, U) are mutually consistent even
     # when the loop ended on hit_max (where U is the freshly rotated one)
-    state, es = (final_solve or solve)(state, *rotate(U))
+    with span("final_solve", "final_solve_s"):
+        with span("outer.rotate", "rotate_s"):
+            h_act, g_act = rotate(U)
+        state, es = (final_solve or solve)(state, h_act, g_act)
     return es, state, U, it, trace[:it]
 
 
@@ -292,10 +301,11 @@ def _transition_rdm1s(sector, V: torch.Tensor,
 
 def _attach_vqe_diagnostics(result, solver, theta):
     """Natural occupations, <S^2>, spatial 1-RDM and spin density of the
-    optimal state (esoo_tpu fused.py:431-478)."""
+    optimal state (esoo_tpu fused.py:431-478), under the `diagnostics`
+    span."""
     if not solver.diagnostics:
         return result
-    with torch.no_grad():
+    with torch.no_grad(), span("diagnostics", "diagnostics_s"):
         if solver._sector is None:
             state = solver._compiled.state_fn(theta, solver.dtype)
             N = solver.num_spin_orbitals
@@ -306,10 +316,10 @@ def _attach_vqe_diagnostics(result, solver, theta):
             occ, s2, g1, sd = _state_diagnostics(
                 solver._sector, solver._sector.state_matrix(theta, tables),
                 tables)
-    result.natural_occupations = _numpy(occ)
-    result.spin_squared = float(s2)
-    result.one_rdm_spatial = _numpy(g1)
-    result.spin_density_spatial = _numpy(sd)
+        result.natural_occupations = _numpy(occ)
+        result.spin_squared = float(s2)
+        result.one_rdm_spatial = _numpy(g1)
+        result.spin_density_spatial = _numpy(sd)
     return result
 
 
@@ -429,10 +439,36 @@ def _to_dtype(dtype) -> torch.dtype:
     return getattr(torch, np.dtype(dtype).name)
 
 
-class _OuterLoopSolver:
+_CONSTRUCT_KEYS = ("construct_s", "construct_integrals_s",
+                   "construct_sector_s", "construct_ansatz_s")
+
+
+class _Constructed(type):
+    """The fused solvers' metaclass: a solver's whole construction,
+    whatever chain of __init__ methods runs it, is one `construct` span,
+    whose totals and its children's (construct.integrals: the integrals
+    to the device at the solver's dtype; construct.sector: the sector and
+    its tables; construct.ansatz: the compiled circuit) the solver keeps
+    for its results' stage_stats."""
+
+    def __call__(cls, *args, **kwargs):
+        stats = dict.fromkeys(_CONSTRUCT_KEYS, 0.0)
+        with collect(stats), span("construct", "construct_s"):
+            solver = super().__call__(*args, **kwargs)
+        solver._construct_stats = stats
+        return solver
+
+
+class _OuterLoopSolver(metaclass=_Constructed):
     """What every fused solver keeps of its outer loop: the stop rule, the
     BB settings, the callback and checkpoint directory, and `_loop`, the
     shared `_optorb_loop` at the solver's integrals and starting U."""
+
+    def _run_stats(self, stats: dict) -> dict:
+        """A run's stage_stats: `stats`, which its spans fill, with the
+        constructor's span totals."""
+        stats.update(self._construct_stats)
+        return stats
 
     def _set_outer_loop(self, maxiter: int, stopping_tolerance: float,
                         inner_stopping_tolerance: float, inner_maxiter: int,
@@ -556,25 +592,28 @@ class FusedOptOrbVQE(_OuterLoopSolver):
         self.device = dev = resolve_device(device)
         self.diagnostics = bool(diagnostics)
         _check_options(mesh, simulation, dispatch, dev)
-        self._compiled = _compile_ansatz(ansatz)
+        with span("construct.ansatz", "construct_ansatz_s"):
+            self._compiled = _compile_ansatz(ansatz)
 
         if resume_from is not None:
             ck = load_checkpoint(resume_from)
             initial_partial_unitary = ck["partial_unitary"]
             if "optimal_point" in ck:
                 initial_point = ck["optimal_point"]
-        h_sp, g_sp = _spatial_integrals(problem, integral_tensors,
-                                        type(self).__name__)
-        dtype = _to_dtype(dtype) or _to_dtype(h_sp.dtype)
-        self.dtype = dtype
-        self._set_integrals(h_sp, g_sp, dtype, mesh)
+        with span("construct.integrals", "construct_integrals_s"):
+            h_sp, g_sp = _spatial_integrals(problem, integral_tensors,
+                                            type(self).__name__)
+            dtype = _to_dtype(dtype) or _to_dtype(h_sp.dtype)
+            self.dtype = dtype
+            self._set_integrals(h_sp, g_sp, dtype, mesh)
 
         self.num_spin_orbitals = num_spin_orbitals
         self.ansatz = ansatz
         from ..sim.sector import SectorUCC
-        self._sector, self.simulation = _sector_or_full(
-            simulation, lambda: SectorUCC(ansatz, num_spin_orbitals))
-        self._set_sector_tables()
+        with span("construct.sector", "construct_sector_s"):
+            self._sector, self.simulation = _sector_or_full(
+                simulation, lambda: SectorUCC(ansatz, num_spin_orbitals))
+            self._set_sector_tables()
 
         self._U0 = torch.as_tensor(_initial_partial_unitary(
             initial_partial_unitary, h_sp.shape[0], num_spin_orbitals // 2),
@@ -603,12 +642,12 @@ class FusedOptOrbVQE(_OuterLoopSolver):
         self.vqe_chunk = vqe_chunk
 
     def compute_minimum_energy(self) -> FusedOptOrbResult:
-        with torch.no_grad():
-            return self._run()
+        stats = self._run_stats(_vqe_stats())
+        with torch.no_grad(), collect(stats):
+            return self._run(stats)
 
-    def _run(self) -> FusedOptOrbResult:
+    def _run(self, stats: dict) -> FusedOptOrbResult:
         """The loop re-solves at the final U (VQE's tail)."""
-        stats = _vqe_stats()
         run_vqe, extract_rdms = _vqe_stage_fns(
             self._sector, self._compiled, self.num_spin_orbitals // 2,
             self.vqe_maxiter, self.dtype, ftol=self.vqe_ftol, stats=stats,
@@ -626,24 +665,32 @@ class FusedOptOrbVQE(_OuterLoopSolver):
         ), self, theta)
 
 
+def _loop_stats() -> dict:
+    """stage_stats every fused solver's run fills from its spans: BB
+    iterations (bb.iter) and seconds (outer.bb, and each call's), and the
+    seconds of the rotations (outer.rotate), RDMs (outer.rdms), final
+    solve and diagnostics."""
+    return {"bb_iterations": 0, "bb_s": 0.0, "bb_s_per_call": [],
+            "rotate_s": 0.0, "rdms_s": 0.0, "final_solve_s": 0.0,
+            "diagnostics_s": 0.0}
+
+
 def _vqe_stats() -> dict:
-    """stage_stats of the L-BFGS solvers: BB iterations and seconds,
-    L-BFGS iterations, value-and-grad evaluations and seconds."""
-    return {"bb_iterations": 0, "lbfgs_iterations": 0,
-            "lbfgs_evaluations": 0, "lbfgs_s": 0.0, "bb_s": 0.0,
-            "bb_s_per_call": []}
+    """stage_stats of the L-BFGS solvers: _loop_stats, L-BFGS iterations,
+    value-and-grad evaluations (lbfgs.eval spans) and seconds (lbfgs
+    spans)."""
+    return {"lbfgs_iterations": 0, "lbfgs_evaluations": 0, "lbfgs_s": 0.0,
+            **_loop_stats()}
 
 
 def _lbfgs(cost, theta, args, vqe_maxiter, gtol, ftol, stats):
-    """lbfgs_minimize with its iterations, evaluations and seconds added
-    to `stats`."""
-    t0 = time.perf_counter()
-    res = lbfgs_minimize(cost, theta, args=args, maxiter=vqe_maxiter,
-                         gtol=gtol, ftol=ftol)
+    """lbfgs_minimize under the `lbfgs` span (lbfgs_s), its iterations
+    added to `stats`."""
+    with span("lbfgs", "lbfgs_s"):
+        res = lbfgs_minimize(cost, theta, args=args, maxiter=vqe_maxiter,
+                             gtol=gtol, ftol=ftol)
     if stats is not None:
         stats["lbfgs_iterations"] += res.nit
-        stats["lbfgs_evaluations"] += res.nfev
-        stats["lbfgs_s"] += time.perf_counter() - t0
     return res
 
 
@@ -926,13 +973,15 @@ class FusedOptOrbSSVQE(_OuterLoopSolver):
         self.device = dev = resolve_device(device)
         self.diagnostics = bool(diagnostics)
         _check_options(mesh, simulation, dispatch, dev)
-        self._compiled = _compile_ansatz(ansatz)
-        h_sp, g_sp = (_spatial_tensors if _spatial_tensors is not None
-                      else _spatial_integrals(problem, integral_tensors,
-                                              type(self).__name__))
-        dtype = _to_dtype(dtype) or _to_dtype(h_sp.dtype)
-        self.dtype = dtype
-        self._set_integrals(h_sp, g_sp, dtype, mesh)
+        with span("construct.ansatz", "construct_ansatz_s"):
+            self._compiled = _compile_ansatz(ansatz)
+        with span("construct.integrals", "construct_integrals_s"):
+            h_sp, g_sp = (_spatial_tensors if _spatial_tensors is not None
+                          else _spatial_integrals(problem, integral_tensors,
+                                                  type(self).__name__))
+            dtype = _to_dtype(dtype) or _to_dtype(h_sp.dtype)
+            self.dtype = dtype
+            self._set_integrals(h_sp, g_sp, dtype, mesh)
         self.num_spin_orbitals = N = num_spin_orbitals
         self.ansatz = ansatz
 
@@ -955,16 +1004,18 @@ class FusedOptOrbSSVQE(_OuterLoopSolver):
             sec = SectorUCC(ansatz, N, num_particles=parts)
             return sec, np.stack([sec.project_full(v) for v in V])
 
-        found, self.simulation = _sector_or_full(simulation, make_sector)
-        if found is None:
-            self._sector = None
-            self._init = torch.as_tensor(V, device=dev).to(dtype)
-        else:
-            sec, init = found
-            self._sector = sec
-            self._init = torch.as_tensor(sec.to_native(init),
-                                         device=dev).to(dtype)
-        self._set_sector_tables()
+        with span("construct.sector", "construct_sector_s"):
+            found, self.simulation = _sector_or_full(simulation,
+                                                     make_sector)
+            if found is None:
+                self._sector = None
+                self._init = torch.as_tensor(V, device=dev).to(dtype)
+            else:
+                sec, init = found
+                self._sector = sec
+                self._init = torch.as_tensor(sec.to_native(init),
+                                             device=dev).to(dtype)
+            self._set_sector_tables()
         self._groups = _state_groups(mesh, self.k, self._sector_tables, dev)
         if weight_vector is None:
             weight_vector = [self.k - i for i in range(self.k)]
@@ -1011,9 +1062,8 @@ class FusedOptOrbSSVQE(_OuterLoopSolver):
         return self._sector.apply_matrix(self._init, thetas,
                                          self._sector_tables)
 
-    def _run(self):
+    def _run(self, stats: dict):
         """The outer loop: (energies, thetas, U, n_outer, trace, stats)."""
-        stats = _vqe_stats()
         solve, extract_rdms, final_solve = self._stage(stats)
         es, thetas, U, it, trace = self._loop(
             solve, extract_rdms, self._theta_start(), stats,
@@ -1058,8 +1108,11 @@ class FusedOptOrbSSVQE(_OuterLoopSolver):
         return result
 
     def compute_energies(self) -> FusedOptOrbEigensolverResult:
-        with torch.no_grad():
-            return self._result(*self._run())
+        stats = self._run_stats(_vqe_stats())
+        with torch.no_grad(), collect(stats):
+            out = self._run(stats)
+            with span("diagnostics", "diagnostics_s"):
+                return self._result(*out)
 
 
 class FusedOptOrbMCVQE(FusedOptOrbSSVQE):
@@ -1075,8 +1128,9 @@ class FusedOptOrbMCVQE(FusedOptOrbSSVQE):
                  k: int = 2, excitations: str = "s", weight_vector=None,
                  problem=None, integral_tensors=None, **kwargs):
         from ..initializations.ci import get_CIS_states, get_CISD_states
-        h_sp, g_sp = _spatial_integrals(problem, integral_tensors,
-                                        "FusedOptOrbMCVQE")
+        with span("construct.integrals", "construct_integrals_s"):
+            h_sp, g_sp = _spatial_integrals(problem, integral_tensors,
+                                            "FusedOptOrbMCVQE")
         n = num_spin_orbitals // 2
         U0 = torch.as_tensor(_initial_partial_unitary(
             kwargs.get("initial_partial_unitary"), h_sp.shape[0], n))
@@ -1120,8 +1174,9 @@ class FusedOptOrbMCVQE(FusedOptOrbSSVQE):
                                           vals, tabs))
 
     def compute_energies(self) -> FusedOptOrbEigensolverResult:
-        with torch.no_grad():
-            es, theta, U, it, trace, stats = self._run()
+        stats = self._run_stats(_vqe_stats())
+        with torch.no_grad(), collect(stats):
+            es, theta, U, it, trace, stats = self._run(stats)
             E = self._contracted_energies(theta, U)
             kk = self.k
             Hc = np.diag(E[:kk]).astype(np.float64)
@@ -1130,7 +1185,9 @@ class FusedOptOrbMCVQE(FusedOptOrbSSVQE):
                 Hc[i, j] = Hc[j, i] = 0.5 * (E[kk + 2 * idx]
                                              - E[kk + 2 * idx + 1])
             w, Cc = np.linalg.eigh(Hc)
-            result = self._result(es, theta, U, it, trace, stats, mix=Cc)
+            with span("diagnostics", "diagnostics_s"):
+                result = self._result(es, theta, U, it, trace, stats,
+                                      mix=Cc)
         result.eigenvalues = w
         return result
 
@@ -1170,8 +1227,9 @@ class FusedOptOrbVQD(FusedOptOrbSSVQE):
         self._applies = [(self._compiled.apply_raw,
                           ansatz.num_parameters)] * self.k
         if ansatz_list is not None:
-            self._applies = [(_compile_ansatz(a).apply_raw, a.num_parameters)
-                             for a in ansatz_list]
+            with span("construct.ansatz", "construct_ansatz_s"):
+                self._applies = [(_compile_ansatz(a).apply_raw,
+                                  a.num_parameters) for a in ansatz_list]
             self._theta0 = torch.as_tensor(
                 _per_state_points(user_point, ansatz_list),
                 device=self.device).to(self.dtype)
@@ -1330,9 +1388,10 @@ class FusedOptOrbAdaptVQE(FusedOptOrbVQE):
                   else QuantumCircuit(num_spin_orbitals))
         if padded.num_parameters:
             raise ValueError("AdaptVQE initial state must be parameter-free")
-        for _ in range(self._R):
-            for group in pool:
-                _append_group(padded, group)
+        with span("construct.ansatz", "construct_ansatz_s"):
+            for _ in range(self._R):
+                for group in pool:
+                    _append_group(padded, group)
         # the padded circuit is itself UCC-family (pool groups repeated R
         # times, parameter k <-> excitation k): the sector can take it
         excs = getattr(ansatz, "_ucc_excitations", None)
@@ -1343,8 +1402,7 @@ class FusedOptOrbAdaptVQE(FusedOptOrbVQE):
         self.gradient_threshold = gradient_threshold
         self.eigenvalue_threshold = eigenvalue_threshold
 
-    def _run(self) -> FusedOptOrbResult:
-        stats = _vqe_stats()
+    def _run(self, stats: dict) -> FusedOptOrbResult:
         thresholds = (torch.tensor(t, dtype=self.dtype, device=self.device)
                       for t in (self.gradient_threshold,
                                 self.eigenvalue_threshold))

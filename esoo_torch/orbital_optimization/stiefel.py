@@ -8,7 +8,9 @@ criterion  S_t = (1 - d)*|dE_t| + d*S_{t-1}.
 The JAX package runs the loop as one `lax.while_loop` on the device.  In
 eager PyTorch it is a Python loop: every stop test reads S on the host
 (one device-to-host sync per iteration).  The arithmetic is the JAX
-loop's, step for step.
+loop's, step for step.  Each pass of the loop body, with the stop test
+that follows it, is a `bb.iter` span (utils/profiling.py; counted in a
+running solve's stage_stats as bb_iterations).
 
 `PartialUnitaryProjectionOptimizer` is the reference's constructor
 surface (partial_unitary_projection_optimizer.py:15-48) over that loop:
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from ..utils.config import resolve_device, same_device
+from ..utils.profiling import span
 
 
 def orth(V: torch.Tensor) -> torch.Tensor:
@@ -67,19 +70,22 @@ def _bb_loop(vag_fn: Callable, U0: torch.Tensor, data: tuple,
     eps = torch.tensor(1e-30, dtype=dtype, device=U0.device)
     trace = [E0]
     k = 1
-    while k <= maxiter and bool(S > tol):
-        E, G = vag_fn(U, *data)
-        trace.append(E)
-        S = (1.0 - decay) * torch.abs(E - E_prev) + decay * S
-        dU = U - U_prev
-        dG = G - G_prev
-        uu = torch.sum(dU * dU)
-        ug = torch.abs(torch.sum(dU * dG))
-        gg = torch.sum(dG * dG)
-        tau = uu / (ug + eps) if k % 2 == 1 else ug / (gg + eps)
-        U_prev, G_prev, E_prev = U, G, E
-        U = orth(U - tau * G)
-        k += 1
+    go = k <= maxiter and bool(S > tol)
+    while go:
+        with span("bb.iter", count="bb_iterations"):
+            E, G = vag_fn(U, *data)
+            trace.append(E)
+            S = (1.0 - decay) * torch.abs(E - E_prev) + decay * S
+            dU = U - U_prev
+            dG = G - G_prev
+            uu = torch.sum(dU * dU)
+            ug = torch.abs(torch.sum(dU * dG))
+            gg = torch.sum(dG * dG)
+            tau = uu / (ug + eps) if k % 2 == 1 else ug / (gg + eps)
+            U_prev, G_prev, E_prev = U, G, E
+            U = orth(U - tau * G)
+            k += 1
+            go = k <= maxiter and bool(S > tol)
     return U, k, S, trace
 
 

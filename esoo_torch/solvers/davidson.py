@@ -19,7 +19,12 @@ here it is an eager loop with the same shapes and the same arithmetic:
     final Rayleigh-Ritz whose pair is kept if its residual is no worse.
 
 Each stop test reads one small tensor on the host: one device-to-host
-sync per iteration.  The basis buffers are updated in place.  The block
+sync per iteration.  Every matvec runs under a `davidson.sigma` span
+(utils/profiling.py; sigma_s, and its count davidson_matvecs, in a
+running solve's stage_stats): in `davidson_ground`'s loop the span closes
+at the iteration's stop test, so it holds the matvec's device work; the
+first matvec's span, before the loop, and the block path's hold their
+launches only.  The basis buffers are updated in place.  The block
 matvec runs row by row and skips dead (zero) rows; the JAX package's
 `sequential_mv` choice between a vmap over the rows (computing the
 dead ones too) and a lax.map that skips them, a memory choice with the
@@ -31,6 +36,12 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+
+from ..utils.profiling import span
+
+
+def _sigma():
+    return span("davidson.sigma", "sigma_s", "davidson_matvecs")
 
 
 class DavidsonResult(NamedTuple):
@@ -82,7 +93,8 @@ def davidson_ground(matvec: Callable, diag: torch.Tensor, v0: torch.Tensor,
     B = torch.zeros((m, dim), dtype=dt, device=dev)
     HB = torch.zeros((m, dim), dtype=dt, device=dev)
     B[0] = v0
-    HB[0] = matvec(v0)
+    with _sigma():
+        HB[0] = matvec(v0)
     cnt, it = 1, 1
     x, hx = v0, HB[0].clone()
     rn = torch.tensor(torch.inf, dtype=dt, device=dev)
@@ -111,9 +123,11 @@ def davidson_ground(matvec: Callable, diag: torch.Tensor, v0: torch.Tensor,
             cnt = 1
         B[cnt] = t
         cnt += 1
-        HB[cnt - 1] = matvec(t)
-        it += 1
-        if bool(converged | stagnant):
+        with _sigma():
+            HB[cnt - 1] = matvec(t)
+            it += 1
+            stop = bool(converged | stagnant)
+        if stop:
             break
     # final Rayleigh-Ritz so the returned pair reflects the last append
     E2, x2, hx2 = ritz(B, HB, cnt)
@@ -183,7 +197,10 @@ def _block_ritz(B: torch.Tensor, HB: torch.Tensor, cnt: int, k: int):
 
 def _bmv(matvec: Callable, T: torch.Tensor, alive: list) -> torch.Tensor:
     """The matvec of each live row of T; dead rows give zero."""
-    return torch.stack([matvec(row) if live else torch.zeros_like(row)
+    def one(row):
+        with _sigma():
+            return matvec(row)
+    return torch.stack([one(row) if live else torch.zeros_like(row)
                         for row, live in zip(T, alive)])
 
 

@@ -14,6 +14,9 @@ out of the search (nfev ~ nit + 1 on an accept-at-t=1 run).
 The JAX package's `jnp.where` branches, which evaluate both sides on the
 device, are Python control flow here with the same arithmetic; the
 branch conditions are read on the host (a few syncs per iteration).
+Each value-and-grad evaluation, with the host read of the flags that
+follows it, is an `lbfgs.eval` span (utils/profiling.py; counted in a
+running solve's stage_stats as lbfgs_evaluations).
 The optimizer is resumable: `lbfgs_init` + repeated `lbfgs_advance` ==
 `lbfgs_minimize`.
 """
@@ -25,6 +28,11 @@ from typing import NamedTuple
 import torch
 
 from ..orbital_optimization.stiefel import value_and_grad
+from ..utils.profiling import span
+
+
+def _eval_span():
+    return span("lbfgs.eval", count="lbfgs_evaluations")
 
 
 class LBFGSResult(NamedTuple):
@@ -68,13 +76,15 @@ def lbfgs_init(fun, x0: torch.Tensor, args=(), gtol: float = 1e-8,
     """Evaluate fun/grad at x0 and build the initial resumable state."""
     dtype, device = x0.dtype, x0.device
     P = x0.shape[0]
-    f0, g0 = value_and_grad(fun)(x0, *args)
+    with _eval_span():
+        f0, g0 = value_and_grad(fun)(x0, *args)
+        done = bool(torch.max(torch.abs(g0)) <= gtol)
     return LBFGSState(
         it=0, k=0, x=x0.detach(), f=f0, g=g0,
         S=torch.zeros((memory, P), dtype=dtype, device=device),
         Y=torch.zeros((memory, P), dtype=dtype, device=device),
         rho=torch.zeros((memory,), dtype=dtype, device=device),
-        nfev=1, done=bool(torch.max(torch.abs(g0)) <= gtol), plateau=0)
+        nfev=1, done=done, plateau=0)
 
 
 def _two_loop(g, S, Y, rho, k: int, eps):
@@ -112,15 +122,17 @@ def _line_search(vag, args, x, f, g, d, max_backtracks: int,
     t = torch.ones((), dtype=x.dtype, device=x.device)
     n = 0
     while n < max_backtracks:
-        xt = x + t * d
-        ft, gt = vag(xt, *args)
-        n += 1
-        ok = ft <= f + armijo_c1 * t * gd
-        # minimizer of the quadratic model q(s): q(0)=f, q'(0)=gd,
-        # q(t)=ft  ->  s* = -gd t^2 / (2 (ft - f - t gd))
-        denom = 2.0 * (ft - f - t * gd)
-        pos = denom > 0
-        flags = torch.stack([ok, pos, torch.isfinite(ft) & pos]).tolist()
+        with _eval_span():
+            xt = x + t * d
+            ft, gt = vag(xt, *args)
+            n += 1
+            ok = ft <= f + armijo_c1 * t * gd
+            # minimizer of the quadratic model q(s): q(0)=f, q'(0)=gd,
+            # q(t)=ft  ->  s* = -gd t^2 / (2 (ft - f - t gd))
+            denom = 2.0 * (ft - f - t * gd)
+            pos = denom > 0
+            flags = torch.stack([ok, pos,
+                                 torch.isfinite(ft) & pos]).tolist()
         if flags[0]:
             return xt, ft, gt, n, True
         t_q = -gd * t * t / (denom if flags[1] else 1.0)
