@@ -610,9 +610,11 @@ def emit(phase: str, **fields) -> None:
 def _wrappers() -> tuple:
     """Every kernel wrapper module: K1/K2 (ops/gemm.py), the string gate
     scan K3 (ops/gate_scan.py), the Pauli-rotation scan K8
-    (ops/prot_scan.py) and the pairs gate scan (ops/pair_scan.py)."""
-    from esoo_torch.ops import gate_scan, gemm, pair_scan, prot_scan
-    return gemm, gate_scan, prot_scan, pair_scan
+    (ops/prot_scan.py), the pairs gate scan (ops/pair_scan.py) and the
+    sigma's gathers over single-excitation lists (ops/sigma_lists.py)."""
+    from esoo_torch.ops import (gate_scan, gemm, pair_scan, prot_scan,
+                                sigma_lists)
+    return gemm, gate_scan, prot_scan, pair_scan, sigma_lists
 
 
 def reset_launch_counts() -> None:
@@ -1011,6 +1013,7 @@ def phase_kernels(card: str) -> dict:
     scan = _gate_scan_kernels(checks, (bw, fl32))
     prot = _prot_scan_kernels(checks, (bw, fl32))
     pair = _pair_scan_kernels(checks, (bw, fl32))
+    gathers = _sigma_list_kernels(checks, (bw, fl32))
     mh = 112
     Mh = mh ** 3
     bounded = [(k1, k1_bytes, k1_flops), (k2, k2_bytes, k2_flops)]
@@ -1034,7 +1037,9 @@ def phase_kernels(card: str) -> dict:
     emit("kernels", kernels=["gemm.matmul", "gemm.rotate_two_body_cuda",
                              "gate_scan.apply_rev_str",
                              "prot_scan.apply_prot_scan",
-                             "pair_scan.apply_rev_pairs"],
+                             "pair_scan.apply_rev_pairs",
+                             "sigma_lists.alpha_gather",
+                             "sigma_lists.beta_gather"],
          checks=checks, tolerance="f32 atol 5e-6*max(1,max|ref|); "
          "f64 1e-12*max(1,max|ref|)", peak_bytes_per_s=bw,
          peak_f32_flops=fl32, matmul=k1, rotate_two_body_cuda=k2,
@@ -1045,7 +1050,7 @@ def phase_kernels(card: str) -> dict:
          rotate_two_body_cuda_m112_n6=at_full,
          rotate_two_body_cuda_m112_n8=at_demo,
          rotate_two_body_shard=at_shard, gate_scan=scan, prot_scan=prot,
-         pair_scan=pair,
+         pair_scan=pair, sigma_lists=gathers,
          timing=f"ms: median over 50 calls after 5 warm-up of CUDA events "
          f"around each call, the calls queued behind a device spin (no host "
          f"launch gaps); kernel_ms: profiler kernel time per call; "
@@ -1076,7 +1081,10 @@ def phase_kernels(card: str) -> dict:
                                   if k != "h8_12"}),
             "pair_scan.apply_rev_pairs": dict(
                 pair["h8_12"], **{f"at_{k}": v for k, v in pair.items()
-                                  if k != "h8_12"})}
+                                  if k != "h8_12"}),
+            # the gathers at the H8 -> 28 matvec's shapes, float32; float64
+            # (the benchmark's H8 cell) nested
+            **gathers}
 
 
 def _hold_scan(checks: list, row: str, name: str, dtype, x0, theta, ct,
@@ -1399,6 +1407,89 @@ def _pair_scan_kernels(checks: list, peak: tuple) -> dict:
                            routes={"fwd": "global", "bwd": "global"}))
         out[name]["global_route_max_abs_err"] = max(errs.values())
     return out
+
+
+def _sigma_list_kernels(checks: list, peak: tuple) -> dict:
+    """The sigma's two gathers (ops/sigma_lists.py over csrc/
+    sigma_lists.cu) at the H8 -> 28 matvec's shapes (q = 196 operators,
+    1,001 strings a spin, one state), float32 and float64 (nested as
+    `at_float64`), on random integrals: each held against its plain
+    version (the smoke's tolerance) and timed beside its bound, the bytes
+    it must move at the card's rate.  The alpha gather writes T (q, 1001,
+    1001) once and reads V and the lists; the back-gather reads each row
+    of Y that the lists name once, base and the lists, and writes out once.
+    library_ms: the dense sigma (strings.sigma) on the same tables, which
+    the list sigma (SectorCI.sigma_values, nested as `sigma`) replaces."""
+    import numpy as np
+    import torch
+    from esoo_torch.ops import sigma_lists as SL
+    from esoo_torch.orbital_optimization.casscf import _sector_ci_cached
+    from esoo_torch.sim import strings
+    bw, _ = peak
+    dev = torch.device("cuda")
+    sec = _sector_ci_cached(28, (4, 4))
+    ns, q, N = sec.nA, 196, 28
+    rng = np.random.default_rng(N)
+    h = rng.normal(size=(N, N))
+    g0 = rng.normal(size=(N,) * 4)
+    g = (g0 + g0.transpose(1, 0, 3, 2) + g0.transpose(2, 3, 0, 1)
+         + g0.transpose(3, 2, 1, 0))
+    v = rng.normal(size=(ns, ns))
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        tabs = sec.device_tables(dtype, device=dev)
+        src_a, sgn_a, src_b, sgn_b = (tabs[k] for k in strings.LIST_KEYS)
+        h_so = torch.as_tensor((h + h.T) / 2, device=dev).to(dtype)
+        g_so = torch.as_tensor(g, device=dev).to(dtype)
+        vals = sec.build_values(h_so, g_so, tabs)
+        ops = strings.build_ops(h_so, g_so, tabs)
+        V = torch.as_tensor(v, device=dev).to(dtype)
+        T = SL.alpha_gather(V, src_a, sgn_a)
+        Y = (vals["GX"] @ T.reshape(q, -1)).reshape(q, 1, ns, ns)
+        base = (V.double() @ vals["HA"].T + vals["HB"] @ V.double()).to(
+            dtype)[None].contiguous()
+        item, lists = V.element_size(), q * ns * 5    # a spin's src, sgn
+        reads = int((src_b >= 0).sum()) * ns
+        cases = {
+            "sigma_lists.alpha_gather": (
+                lambda: SL.alpha_gather(V, src_a, sgn_a),
+                lambda: SL.alpha_gather_plain(V, src_a, sgn_a),
+                "alpha_gather", (q * ns * ns + ns * ns) * item + lists),
+            "sigma_lists.beta_gather": (
+                lambda: SL.beta_gather(Y, src_b, sgn_b, base),
+                lambda: SL.beta_gather_plain(Y, src_b, sgn_b, base),
+                "beta_gather", (reads + 2 * ns * ns) * item + lists)}
+        sigma = dict(ms=time_ms(lambda: sec.sigma_values(V, vals, tabs)),
+                     kernel_ms=kernel_ms(
+                         lambda: sec.sigma_values(V, vals, tabs)),
+                     library_ms=time_ms(lambda: strings.sigma(V, ops, tabs)),
+                     library_kernel_ms=kernel_ms(
+                         lambda: strings.sigma(V, ops, tabs), reps=5))
+        for name, (call, plain, match, nbytes) in cases.items():
+            got, ref = call(), plain()
+            torch.cuda.synchronize()
+            err = check_close(got, ref, dtype, f"{name} at N=28 {dtype}")
+            same = bool(torch.equal(got, ref))
+            checks.append(dict(kernel=name, n=N, q=q, ns=ns,
+                               dtype=str(dtype), err=err,
+                               bit_identical=same))
+            del got, ref
+            kms = kernel_ms(call, match=match)
+            bound = nbytes / bw * 1e3
+            rec = dict(shape=f"H8 -> 28: q={q}, {ns} x {ns}, one state, "
+                       f"{dtype}", max_abs_err=err, bit_identical=same,
+                       ms=time_ms(call), plain_ms=event_ms(plain),
+                       plain_kernel_ms=kernel_ms(plain, reps=3),
+                       kernel_ms=kms, bytes=nbytes, bound_ms=bound,
+                       bound_by="bytes", pct_of_bound=100 * bound / kms,
+                       library_ms=sigma["library_ms"], sigma=sigma)
+            if dtype == torch.float32:
+                rows[name] = rec
+            else:
+                rows[name]["at_float64"] = rec
+        del tabs, vals, ops, T, Y, base
+    _drop_tables(sec, "dense")
+    return rows
 
 
 def _kernels_at_n2_shapes(peak: tuple) -> dict:
@@ -1908,8 +1999,10 @@ def _casscf_solver(problem, n_act: int, dtype, device, **kw):
 def phase_casscf() -> dict:
     """FusedOptOrbCASSCF on H8 cc-pVTZ (m=112 -> 28 spin orbitals), f32,
     dense tables, maxiter 10, tol 1e-5: the configuration of the JAX
-    package's bench (bench.py:491-494).  One solve; the per-step costs are
-    taken at its final state."""
+    package's bench (bench.py:491-494).  The dense tables carry the
+    single-excitation lists, so every matvec is the list sigma (an alpha
+    gather and a back-gather a matvec, two back-gathers a Davidson build).
+    One solve; the per-step costs are taken at its final state."""
     import torch
     from esoo_torch.chem import MoleculeDriver
     from esoo_torch.ops import gemm
@@ -2008,8 +2101,17 @@ def phase_casscf() -> dict:
         failed.append(f"energy {E!r} not within {H8_CASSCF_TOL} of "
                       f"{H8_CASSCF_REFERENCE}")
     failed += _casscf_gates(r, witness, launches, routes)
+    on_lists = stats["sigma_list_matvecs"]
+    if not (on_lists == stats["davidson_matvecs"] > 0
+            and launches["sigma_lists.alpha_gather"] == on_lists
+            and launches["sigma_lists.beta_gather"]
+            == on_lists + 2 * stats["davidson_solves"]):
+        failed.append(f"{on_lists} list sigmas of {stats['davidson_matvecs']} "
+                      f"matvecs in {stats['davidson_solves']} solves but "
+                      f"launches {launches}")
     emit("casscf", problem="H8 cc-pVTZ m=112 -> 28 spin orbitals, (4, 4) "
-         "electrons, 1,002,001 determinants, f32, dense tables, maxiter 10",
+         "electrons, 1,002,001 determinants, f32, dense tables (the "
+         "single-excitation list sigma), maxiter 10",
          energy=E, energy_gates=[H8_CASSCF_REFERENCE, H8_CASSCF_TOL,
                                  H8_F64_WITNESS_TOL],
          outer_trace=trace, outer_iterations=r.outer_iterations,
@@ -2116,7 +2218,9 @@ def _op_costs(fn, reps: int = 3) -> dict:
 def _storage_pair(sector, h_sp, g_sp, U, gen, dev) -> dict:
     """The compact and dense sigma operators, sigma, RDMs and diagonal at
     the integrals rotated by U, on one seeded unit vector, held against
-    each other (COMPACT_TOL) and costed per storage."""
+    each other (COMPACT_TOL) and costed per storage.  The dense tables
+    carry the single-excitation lists: their build and sigma are the list
+    path's, the compact ones the chunked int8 stacks'."""
     import torch
     from esoo_torch.orbital_optimization import kernels as K
     f32 = torch.float32
@@ -2158,7 +2262,7 @@ def phase_compact(problem) -> dict:
     3,312,400 determinants), f32, maxiter 10, tol 1e-5, dispatch='two',
     the default table_storage='auto': the JAX package's compact flagship
     (bench.py:491-494 at n_red_so=32).  Before the solve, the two storages
-    on one vector at N=32 and sigma at N=28."""
+    on one vector at N=32 and sigma at N=28 (dense: the list sigma)."""
     import esoo_torch
     import torch
     from esoo_torch.ops import gemm
@@ -2549,7 +2653,10 @@ def _casscf_f64_witness(problem, solver, r, vals32) -> dict:
 
       sigma_f32_err     ||sigma_f32(x) - sigma_f64(x)|| at the final unit
                         vector x, the same float32 operators cast up: the
-                        float32 arithmetic of sigma alone;
+                        float32 arithmetic of sigma alone (the solver's
+                        route: the list sigma on dense or int8 tables);
+      sigma_f32_err_stacks  the same for strings.sigma on the solver's
+                        float32 tables (the products by the sign stacks);
       residual_f64      ||H x - (x.H x) x|| with H built in float64 from the
                         float64 integrals at U: x's true residual (and
                         energy_f64_of_x, x.H x);
@@ -2570,6 +2677,7 @@ def _casscf_f64_witness(problem, solver, r, vals32) -> dict:
     import torch
     from esoo_torch.ops import gemm
     from esoo_torch.orbital_optimization import kernels as K
+    from esoo_torch.sim import strings
     from esoo_torch.solvers import davidson_ground
     from esoo_torch.solvers.davidson import _guard
     f64, dev = torch.float64, solver.device
@@ -2580,10 +2688,15 @@ def _casscf_f64_witness(problem, solver, r, vals32) -> dict:
     tabs64 = sec.device_tables(f64, device=dev, storage=storage)
     x32 = torch.as_tensor(r.optimal_point, device=dev).reshape(nB, nA)
     x32 = x32 / torch.linalg.norm(x32)
+    # the float32 operators' sigma in float64 by the stacks (the dense
+    # kernel whatever route the solver's own tables take)
     up = {k: vals32[k].double() for k in ("G2", "FA", "FB")}
+    sigma64 = strings.sigma(x32.double(), up, tabs64)
     sigma_err = float(torch.linalg.norm(
-        sec.sigma_values(x32, vals32, tabs32).double()
-        - sec.sigma_values(x32.double(), up, tabs64)))
+        sec.sigma_values(x32, vals32, tabs32).double() - sigma64))
+    sigma_err_stacks = float(torch.linalg.norm(
+        strings.sigma(x32, vals32, tabs32).double() - sigma64))
+    del sigma64
 
     h_np, g_np = problem.spatial_integral_tensors()
     U = torch.as_tensor(r.optimal_partial_unitary, device=dev).double()
@@ -2649,6 +2762,7 @@ def _casscf_f64_witness(problem, solver, r, vals32) -> dict:
     res64 = davidson_ground(mv64, diag64, x32.reshape(-1).double(), tol=1e-9)
     f64_s = time.perf_counter() - t0
     return dict(sigma_f32_err=sigma_err,
+                sigma_f32_err_stacks=sigma_err_stacks,
                 residual_f32_reported=r.stage_stats["davidson_residuals"][-1],
                 residual_f64=rn64_x, energy_f64_of_x=e64_x, rule=rule,
                 restarts=restarts, restart_s=restart_s,
@@ -3637,6 +3751,7 @@ def phase_sector_mesh(h8, casscf: dict, mesh_solver, h4,
     import esoo_torch as T
     from esoo_torch.ops import split_precision as sp
     from esoo_torch.orbital_optimization import kernels as K
+    from esoo_torch.sim import strings
     from esoo_torch.parallel import (ShardedStringTables, make_orbital_mesh,
                                      make_orbital_state_mesh)
     f32, f64, dev = torch.float32, torch.float64, "cuda"
@@ -3657,19 +3772,21 @@ def phase_sector_mesh(h8, casscf: dict, mesh_solver, h4,
     vals_u = sec.build_values(h_so, g_so, dense)
     vals_s = sec.build_values(h_so, g_so, tabs)
     # the float64 kernels on the same float32 inputs, cast up (the f64
-    # witness's dense tables, cached on the sector)
+    # witness's dense tables, cached on the sector; sigma by the stacks,
+    # strings.sigma, whatever route the float32 tables take)
     dense64 = sec.device_tables(f64, device=dev)
     vals64 = {k: vals_u[k].double() for k in ("G2", "FA", "FB")}
     ops = {"sigma": lambda t, v, x: sec.sigma_values(x, v, t),
            "diagonal": lambda t, v, x: sec.diagonal_values(v, t),
            "rdms": lambda t, v, x: sec.rdms(x, t)}
+    ops64 = dict(ops, sigma=lambda t, v, x: strings.sigma(x, v, t))
 
     def parts(name, out):
         return (dict(zip(("gamma", "Gamma"), out)) if name == "rdms"
                 else {name: out})
 
     ref64 = {}
-    for name, fn in ops.items():
+    for name, fn in ops64.items():
         ref64.update(parts(name, fn(dense64, vals64, V0.double())))
     err = {}
     for name, fn in ops.items():
@@ -4247,7 +4364,15 @@ def main() -> int:
                    "esoo_torch/csrc/pair_scan.cu",
                    {"backward_replaces": "esoo_tpu/sim/sector.py:161",
                     "library": "none: no single PyTorch call computes the "
-                    "scan; plain_ms (_ApplyRev) is for reference"})}
+                    "scan; plain_ms (_ApplyRev) is for reference"}),
+               # the sigma's gathers replace no TPU kernel: K4 is jnp over
+               # the dense stacks in the JAX package
+               **{name: ("none: esoo_tpu/sim/strings.py:683 (K4, jnp)",
+                         "esoo_torch/csrc/sigma_lists.cu",
+                         {"library": "library_ms: strings.sigma, the dense "
+                          "sigma that the list sigma replaces"})
+                  for name in ("sigma_lists.alpha_gather",
+                               "sigma_lists.beta_gather")}}
     # launches: the main paths' runs, each with the counts zeroed just
     # before it; the numbers are at the row's `shape`, other shapes nested
     for name, (replaces, source, extra) in sources.items():
@@ -4266,7 +4391,9 @@ def main() -> int:
                        ("ssvqe_h4", "gate_scan.apply_rev_str"),
                        ("example_H8_scale_demo", "gate_scan.apply_rev_str"),
                        ("vqe_full_h8_n12", "prot_scan.apply_prot_scan"),
-                       ("vqe_pairs_h8_n12", "pair_scan.apply_rev_pairs")):
+                       ("vqe_pairs_h8_n12", "pair_scan.apply_rev_pairs"),
+                       ("casscf_h8_n28", "sigma_lists.alpha_gather"),
+                       ("casscf_h8_n28", "sigma_lists.beta_gather")):
         if paths[path][name] <= 0:
             raise AssertionError(f"the {name} kernels never launched on "
                                  f"the {path} path: {paths[path]}")

@@ -669,10 +669,12 @@ def _loop_stats() -> dict:
     """stage_stats every fused solver's run fills from its spans: BB
     iterations (bb.iter) and seconds (outer.bb, and each call's), and the
     seconds of the rotations (outer.rotate), RDMs (outer.rdms), final
-    solve and diagnostics."""
+    solve and diagnostics; and the sigmas that went through the
+    single-excitation lists (SectorCI.sigma_values; CASSCF on dense or
+    int8 tables, 0 elsewhere)."""
     return {"bb_iterations": 0, "bb_s": 0.0, "bb_s_per_call": [],
             "rotate_s": 0.0, "rdms_s": 0.0, "final_solve_s": 0.0,
-            "diagnostics_s": 0.0}
+            "diagnostics_s": 0.0, "sigma_list_matvecs": 0}
 
 
 def _vqe_stats() -> dict:

@@ -40,6 +40,7 @@ import torch
 from ..initializations.ci import (enumerate_determinants,
                                   slater_condon_structure)
 from ..ops import pair_scan as _pair_scan
+from ..utils.profiling import count
 from . import strings as _strings
 from .sharded_strings import ShardedStringTables
 
@@ -897,6 +898,7 @@ class SectorCI:
         hf_mask = ((1 << na) - 1) | (((1 << nb) - 1) << n)
         self.init_index = int(np.searchsorted(dets, hf_mask))
         self._dev_tabs = {}
+        self._host_lists = None
         self._rdm_maps = {}
         self._content_key = ("SectorCI", N, (int(na), int(nb)))
 
@@ -921,7 +923,10 @@ class SectorCI:
           'int8'     int8 stacks under the dense keys (the dense kernels
                      cast them on each call).
 
-        CROSS is at `dtype`, the LIN pair maps int64."""
+        CROSS is at `dtype`, the LIN pair maps int64.  The 'dense' and
+        'int8' tables also carry each spin's single-excitation lists
+        (strings.LIST_KEYS, read off the stacks once per instance), which
+        route build_values and sigma_values to the list path."""
         if storage not in ("dense", "compact", "int8"):
             raise ValueError(
                 "storage must be 'dense', 'compact', or 'int8'")
@@ -942,9 +947,21 @@ class SectorCI:
                                           device=device),
                     LIN_B=torch.as_tensor(s.LIN_B.astype(np.int64),
                                           device=device),
-                    CROSS=torch.as_tensor(s.CROSS, device=device).to(dtype))
+                    CROSS=torch.as_tensor(s.CROSS, device=device).to(dtype),
+                    **{k: torch.as_tensor(a, device=device)
+                       for k, a in self._lists().items()})
             self._dev_tabs[key] = tabs
         return tabs
+
+    def _lists(self) -> dict:
+        """The host single-excitation lists of both spins, made once."""
+        if self._host_lists is None:
+            s = self._str_tabs
+            (sa, ga), (sb, gb) = (_strings.one_body_lists(M)
+                                  for M in (s.MA, s.MB))
+            self._host_lists = dict(zip(_strings.LIST_KEYS,
+                                        (sa, ga, sb, gb)))
+        return self._host_lists
 
     def replicated_tables(self, dtype: torch.dtype = torch.float64, *,
                           device) -> dict:
@@ -977,12 +994,25 @@ class SectorCI:
     def build_values(self, h_so: torch.Tensor, g_so: torch.Tensor,
                      tables: dict = None) -> dict:
         """Sigma-operator dict from spin-orbital integrals (package
-        convention E = sum h gamma + sum g Gamma)."""
-        return _strings.build_ops(h_so, g_so, self._tabs(tables, h_so))
+        convention E = sum h gamma + sum g Gamma): strings.build_list_ops
+        where the tables carry the single-excitation lists, else
+        strings.build_ops."""
+        tabs = self._tabs(tables, h_so)
+        if _strings.has_lists(tabs):
+            return _strings.build_list_ops(h_so, g_so, tabs)
+        return _strings.build_ops(h_so, g_so, tabs)
 
     def sigma_values(self, V: torch.Tensor, vals: dict,
                      tables: dict = None) -> torch.Tensor:
-        return _strings.sigma(V, vals, self._tabs(tables, V))
+        """H @ V for V (nB, nA) or (k, nB, nA), `vals` from build_values
+        on the same tables: strings.sigma_lists where the tables carry the
+        lists (each state counted in the running solve's
+        sigma_list_matvecs), else strings.sigma."""
+        tabs = self._tabs(tables, V)
+        if _strings.has_lists(tabs):
+            count("sigma_list_matvecs", V.shape[0] if V.dim() == 3 else 1)
+            return _strings.sigma_lists(V, vals, tabs)
+        return _strings.sigma(V, vals, tabs)
 
     def quadform_values(self, V: torch.Tensor, vals: dict,
                         tables: dict = None) -> torch.Tensor:

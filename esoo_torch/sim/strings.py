@@ -27,7 +27,10 @@ Compact tables (`compact_tables`: int8 stacks under "MA8"/"MB8") route
 build_ops, sigma, rdms, transition_rdm1 and diagonal to their
 operator-chunked variants, and a mesh's operator-axis shards
 (parallel.shard_sector_tables, a `sharded_strings.ShardedStringTables`)
-to the sharded variants of sim/sharded_strings.py.  Under
+to the sharded variants of sim/sharded_strings.py.  SectorCI's dense and
+int8 tables also carry single-excitation lists (LIST_KEYS), and its build
+and sigma then run `build_list_ops` and `sigma_lists`, which apply each
+operator as a gather (ops/sigma_lists.py, csrc/sigma_lists.cu).  Under
 ops.split_precision.force_split(True) at float32, the products by the
 sign stacks MA/MB (T, the back-contraction, the compact chunks) run as
 exact bf16-split products; G2 @ T stays float32, as in the JAX package.
@@ -41,6 +44,7 @@ import numpy as np
 import torch
 
 from ..ops import gate_scan as _gate_scan
+from ..ops import sigma_lists as _sl
 from ..ops import split_precision as _sp
 
 
@@ -648,6 +652,106 @@ def quadform(V: torch.Tensor, ops: dict, tabs: dict) -> torch.Tensor:
     """<v|H|v> = vec(V) . vec(sigma(V)) (gradients from autograd); one
     value per state for a (k, nB, nA) stack."""
     return torch.sum(V * sigma(V, ops, tabs), dim=(-2, -1))
+
+
+# -- single-excitation lists (SectorCI's build and sigma) --------------------
+#
+# A same-spin operator D_q = a+_p a_r (q = p n + r) moves each string to at
+# most one string, and at most one string to each: a row of its sign stack
+# holds at most one nonzero (44,044 of the 196 x 1001^2 entries a spin at
+# N = 28).  `one_body_lists` reads a stack off as lists, the source string
+# of every target string and its JW sign; SectorCI's dense and int8 tables
+# carry them (LIST_KEYS), and its build and sigma then take this path:
+#
+#     sigma = V HA^T + HB V + sum_b D_b (sum_a GX[b, a] V D_a^T)
+#
+# with HA = FA + sum_{a, b alpha} G2[a, b] D_a D_b and HB likewise, exactly
+# the same-spin blocks of `sigma`, and GX[b, a] = G2[b, a] + G2[a, b] the
+# cross-spin pair coupling (beta rows, alpha columns; `diagonal`'s W_cross
+# transposed: alpha and beta operators commute).  In the matvec every
+# product by a D is a gather of ops/sigma_lists.py, never a product by a
+# stack; the build, once a solve, forms sum_b G[a, b] D_b as one product by
+# the stack and the sum over a by the back-gather.  The path computes
+# values only and refuses a tensor that requires grad.
+
+LIST_KEYS = ("SRC_A", "SGN_A", "SRC_B", "SGN_B")
+
+
+def one_body_lists(M: np.ndarray):
+    """(src, sgn) of a (q, ns, ns) operator stack of `_one_body_matrices`
+    (a row holds at most one nonzero): src[q, j] the string i with
+    M[q, j, i] != 0 (int32, -1 where row j is zero) and sgn[q, j] =
+    M[q, j, i] (int8, 0 there)."""
+    M = np.asarray(M)
+    nz = M != 0
+    i = nz.argmax(axis=2)
+    has = nz.any(axis=2)
+    src = np.where(has, i, -1).astype(np.int32)
+    sgn = (np.take_along_axis(M, i[..., None], axis=2)[..., 0]
+           * has).astype(np.int8)
+    return src, sgn
+
+
+def has_lists(tabs) -> bool:
+    """Whether `tabs` carry the single-excitation lists."""
+    return isinstance(tabs, dict) and "SRC_A" in tabs
+
+
+def _refuse_grad(*tensors: torch.Tensor) -> None:
+    if any(t.requires_grad for t in tensors):
+        raise ValueError("the single-excitation-list sigma computes values "
+                         "only: it takes no tensor that requires grad")
+
+
+def _same_spin(F: torch.Tensor, G: torch.Tensor, M: torch.Tensor,
+               src: torch.Tensor, sgn: torch.Tensor) -> torch.Tensor:
+    """H = F + sum_{a, b} G[a, b] D_a D_b of one spin over its q
+    operators, D_b = M[b] the stack of the tables: Y_a = sum_b G[a, b] D_b
+    as one product by the stack, and the sum over a the beta back-gather
+    of Y.  In float64 whatever the working dtype (see build_list_ops)."""
+    q, ns = src.shape
+    f64 = torch.float64
+    Y = (G.to(f64) @ M.reshape(q, -1).to(f64)).reshape(q, 1, ns, ns)
+    return _sl.beta_gather(Y, src, sgn, F.to(f64)[None].contiguous())[0]
+
+
+def build_list_ops(h_so: torch.Tensor, g_so: torch.Tensor,
+                   tabs: dict) -> dict:
+    """Sigma operators of the list path from spin-orbital integrals:
+    `build_ops`'s G2, FA and FB (the diagonal reads them), the one-side
+    same-spin matrices HA (nA, nA) and HB (nB, nB), and the cross
+    coupling GX (q, q).  HA and HB are float64 at any working dtype (8 MB
+    each at N = 28), and `sigma_lists` applies them in float64: a float32
+    matvec then rounds its same-spin part once, where a float32 fold and
+    product would carry the rounding of every sum over the operators."""
+    _refuse_grad(h_so, g_so)
+    ops = build_ops(h_so, g_so, tabs)
+    G2, q = ops["G2"], tabs["SRC_A"].shape[0]
+    HA = _same_spin(ops["FA"], G2[:q, :q], tabs["MA"], tabs["SRC_A"],
+                    tabs["SGN_A"])
+    HB = _same_spin(ops["FB"], G2[q:, q:], tabs["MB"], tabs["SRC_B"],
+                    tabs["SGN_B"])
+    return {**ops, "HA": HA, "HB": HB, "GX": G2[q:, :q] + G2[:q, q:].T}
+
+
+def sigma_lists(V: torch.Tensor, ops: dict, tabs: dict) -> torch.Tensor:
+    """H . v through the single-excitation lists, V (nB, nA) or (k, nB,
+    nA), `ops` from build_list_ops: the same-spin part as two float64
+    products rounded once to V's dtype, the alpha gather T_a = V D_a^T, Y
+    = GX @ T (one product over the operators), and the beta back-gather
+    sum_b D_b Y_b added to it."""
+    HA, HB, GX = ops["HA"], ops["HB"], ops["GX"]
+    _refuse_grad(V, HA, HB, GX)
+    Vb = (V if V.dim() == 3 else V[None]).contiguous()
+    k, nB, nA = Vb.shape
+    V64 = Vb.to(HA.dtype)
+    base = (V64 @ HA.T + HB @ V64).to(Vb.dtype)
+    T = _sl.alpha_gather(Vb.reshape(k * nB, nA), tabs["SRC_A"],
+                         tabs["SGN_A"])
+    Y = (GX @ T.reshape(T.shape[0], -1)).reshape(-1, k, nB, nA)
+    del T
+    out = _sl.beta_gather(Y, tabs["SRC_B"], tabs["SGN_B"], base)
+    return out if V.dim() == 3 else out[0]
 
 
 # -- RDMs -------------------------------------------------------------------

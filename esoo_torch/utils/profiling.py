@@ -4,10 +4,11 @@
 fused solvers' construction, each outer-loop stage, every L-BFGS
 evaluation, BB iteration and Davidson sigma).  A span always adds its
 host seconds and a count of one to the keys it names in the running
-solve's `stage_stats` (the dict `collect` makes current); while a
-torch.profiler session runs, and only then, it also appends (name,
-start_ns, end_ns) on `time.time_ns()`, the profiler's clock, to a
-bounded process-wide timeline (`timeline()`, `clear_timeline()`).  A
+solve's `stage_stats` (the dict `collect` makes current; `count` adds
+to a key alone); while a torch.profiler session runs, and only then, it
+also appends (name, start_ns, end_ns) on `time.time_ns()`, the
+profiler's clock, to a bounded process-wide timeline (`timeline()`,
+`clear_timeline()`).  A
 span puts nothing on the device: no record_function, no event, no sync,
 no tensor.  There is no switch besides the profiler itself: tracing is
 on exactly while one runs (`trace_to`, or any torch.profiler.profile).
@@ -84,6 +85,14 @@ class span:
             if self.count is not None:
                 stats[self.count] = stats.get(self.count, 0) + 1
         return False
+
+
+def count(key: str, n: int = 1) -> None:
+    """Add n to stage_stats[key] of the running solve (nothing outside
+    one): a counter where no span fits."""
+    stats = _stats.get()
+    if stats is not None:
+        stats[key] = stats.get(key, 0) + n
 
 
 def timeline() -> list:

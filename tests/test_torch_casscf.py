@@ -152,12 +152,15 @@ def test_transition_rdm1_matches_jax(sector_pair, batched):
 
 def test_sector_ci_storage_outside_the_slice_raises():
     """The compact and int8 tables equal the JAX package's (the kernels
-    on them: tests/test_torch_compact.py); an unknown storage raises."""
+    on them: tests/test_torch_compact.py), the int8 ones carrying the
+    single-excitation lists besides (tests/test_torch_sigma_lists.py); an
+    unknown storage raises."""
     ts, js = SectorCI(4, (1, 1)), JSectorCI(4, (1, 1))
     for storage, keys in (("compact", ("MA8", "MB8")), ("int8", ("MA", "MB"))):
         tt = ts.device_tables(torch.float64, device="cpu", storage=storage)
         jt = js.device_tables(np.float64, storage=storage)
-        assert set(tt) == set(jt)
+        lists = set(TS.LIST_KEYS) if storage == "int8" else set()
+        assert set(tt) == set(jt) | lists
         for k in keys + ("LIN_A", "LIN_B", "CROSS"):
             np.testing.assert_array_equal(tt[k].numpy(), np.asarray(jt[k]),
                                           err_msg=f"{storage} {k}")

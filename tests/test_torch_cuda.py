@@ -1125,3 +1125,144 @@ def test_pairs_vqe_on_the_card_never_runs_the_plain_scan(card, monkeypatch):
     assert counts["bwd"] > 0 and counts["fwd"] >= counts["bwd"]
     assert counts["bwd"] >= r.stage_stats["lbfgs_evaluations"]
     assert abs(energies["cuda"] - energies["cpu"]) <= 1e-8
+
+
+# -- the sigma's single-excitation-list gathers (csrc/sigma_lists.cu) ---------
+
+def _sector_28():
+    from esoo_torch.orbital_optimization.casscf import _sector_ci_cached
+    return _sector_ci_cached(28, (4, 4))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sigma_list_gathers_match_plain_at_n28(card, dtype):
+    """Both gathers at the H8 -> 28 shape (q = 196 operators, 1,001
+    strings a spin) against their plain versions on the card, bit for bit
+    (a gather is exact; the back-gather adds +-y in the plain version's
+    order), a rerun bit for bit too, one launch each; the back-gather
+    also over a batch of two states."""
+    from esoo_torch.ops import sigma_lists as SL
+    sec = _sector_28()
+    tabs = sec.device_tables(dtype, device=card, storage="int8")
+    rng = np.random.default_rng(28)
+    ns = sec.nA
+    V = torch.as_tensor(rng.normal(size=(ns, ns)), device=card).to(dtype)
+    SL.reset_launch_counts()
+    T = SL.alpha_gather(V, tabs["SRC_A"], tabs["SGN_A"])
+    torch.cuda.synchronize()
+    assert SL.launch_counts()["sigma_lists.alpha_gather"] == 1
+    assert torch.equal(T, SL.alpha_gather_plain(V, tabs["SRC_A"],
+                                                tabs["SGN_A"]))
+    for K in (1, 2):
+        Y = torch.as_tensor(rng.normal(size=(196, K, ns, ns)),
+                            device=card).to(dtype)
+        base = torch.as_tensor(rng.normal(size=(K, ns, ns)),
+                               device=card).to(dtype)
+        before = SL.launch_counts()["sigma_lists.beta_gather"]
+        out = SL.beta_gather(Y, tabs["SRC_B"], tabs["SGN_B"], base)
+        torch.cuda.synchronize()
+        assert SL.launch_counts()["sigma_lists.beta_gather"] == before + 1
+        assert torch.equal(out, SL.beta_gather_plain(Y, tabs["SRC_B"],
+                                                     tabs["SGN_B"], base))
+        assert torch.equal(out, SL.beta_gather(Y, tabs["SRC_B"],
+                                               tabs["SGN_B"], base))
+
+
+def test_sigma_list_gathers_refuse_what_they_do_not_take(card):
+    from esoo_torch.ops import sigma_lists as SL
+    assert SL._lib().esoo_beta_gather_max_ops() == SL._MAX_OPS
+    src = torch.zeros((4, 3), dtype=torch.int32, device=card)
+    sgn = torch.ones((4, 3), dtype=torch.int8, device=card)
+    V = torch.zeros((2, 3), device=card)
+    with pytest.raises(TypeError):
+        SL.alpha_gather(V.half(), src, sgn)
+    with pytest.raises(TypeError):
+        SL.alpha_gather(V, src.long(), sgn)
+    with pytest.raises(ValueError):
+        SL.alpha_gather(V, src.cpu(), sgn.cpu())
+    with pytest.raises(ValueError):
+        SL.alpha_gather(torch.zeros((2, 4), device=card), src, sgn)
+    with pytest.raises(ValueError):
+        SL.beta_gather(torch.zeros((5, 1, 3, 2), device=card), src, sgn,
+                       torch.zeros((1, 3, 2), device=card))
+
+
+def test_list_sigma_matches_dense_at_n28(card):
+    """SectorCI at N=28 (1,002,001 determinants), float64 on the card: the
+    list path's sigma of one state and of two against the dense sigma on
+    the same tables, within 1e-12 * max(1, max|ref|), one launch of each
+    gather a state batch."""
+    from esoo_torch.ops import sigma_lists as SL
+    from esoo_torch.sim import strings as S
+    sec = _sector_28()
+    f64 = torch.float64
+    tabs = sec.device_tables(f64, device=card)
+    h, g = (torch.as_tensor(a, device=card) for a in _random_so(28, 28))
+    vals = sec.build_values(h, g, tabs)
+    ops = S.build_ops(h, g, tabs)
+    rng = np.random.default_rng(7)
+    V = torch.as_tensor(rng.normal(size=(2, sec.nB, sec.nA)), device=card)
+    for x in (V[0], V):
+        SL.reset_launch_counts()
+        got = sec.sigma_values(x, vals, tabs)
+        torch.cuda.synchronize()
+        assert SL.launch_counts() == {"sigma_lists.alpha_gather": 1,
+                                      "sigma_lists.beta_gather": 1}
+        ref = S.sigma(x, ops, tabs)
+        _close(got, ref)
+
+
+def _random_so(N, seed):
+    """Spin-orbital (h, g) with the index symmetries of chemistry
+    tensors."""
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(N, N))
+    g0 = rng.normal(size=(N,) * 4)
+    g = (g0 + g0.transpose(1, 0, 3, 2) + g0.transpose(2, 3, 0, 1)
+         + g0.transpose(3, 2, 1, 0))
+    return (h + h.T) / 2, g
+
+
+def test_h8_davidson_on_lists_matches_the_dense_sigma(card):
+    """The float64 Davidson ground energy of H8 cc-pVTZ -> 28 at the HF
+    orbitals on the list path and on the dense sigma (the same tables
+    without the lists): within 1e-10 Ha; the list path launches each
+    gather once a matvec, and the back-gather twice more for its build
+    (HA, HB)."""
+    from esoo_torch.chem import MoleculeDriver
+    from esoo_torch.ops import sigma_lists as SL
+    from esoo_torch.orbital_optimization.kernels import expand_spin_tensors
+    from esoo_torch.sim import strings as S
+    from esoo_torch.solvers import davidson_ground
+    p = MoleculeDriver(atom="; ".join(f"H 0 0 {1.23 * i:.2f}"
+                                      for i in range(8)),
+                       basis="cc-pvtz").run()
+    h_np, g_np = p.spatial_integral_tensors()
+    h_so, g_so = expand_spin_tensors(
+        torch.as_tensor(np.ascontiguousarray(h_np[:14, :14]), device=card),
+        torch.as_tensor(np.ascontiguousarray(g_np[:14, :14, :14, :14]),
+                        device=card))
+    sec = _sector_28()
+    lists = sec.device_tables(torch.float64, device=card)
+    dense = {k: v for k, v in lists.items() if k not in S.LIST_KEYS}
+    v0 = sec.hf_matrix(torch.float64, device=card).reshape(-1)
+    energies, matvecs = {}, 0
+    for name, tabs in (("lists", lists), ("dense", dense)):
+        SL.reset_launch_counts()
+        vals = sec.build_values(h_so, g_so, tabs)
+        diag = sec.diagonal_values(vals, tabs).reshape(-1)
+        res = davidson_ground(
+            lambda x: sec.sigma_values(x.reshape(sec.nB, sec.nA), vals,
+                                       tabs).reshape(-1),
+            diag, v0, tol=1e-9)
+        energies[name] = float(res.eigenvalue)
+        if name == "lists":
+            matvecs = res.iterations
+            assert SL.launch_counts() == {
+                "sigma_lists.alpha_gather": matvecs,
+                "sigma_lists.beta_gather": 2 + matvecs}
+        else:
+            assert SL.launch_counts() == {"sigma_lists.alpha_gather": 0,
+                                          "sigma_lists.beta_gather": 0}
+    assert matvecs > 2
+    assert abs(energies["lists"] - energies["dense"]) <= 1e-10
