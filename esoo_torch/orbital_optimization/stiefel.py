@@ -35,10 +35,17 @@ def orth(V: torch.Tensor) -> torch.Tensor:
     """Project onto the Stiefel manifold: the orthogonal polar factor.
 
     orth(V) = V Q diag(lam^-1/2) Q^T with (lam, Q) = eigh(V^T V).  The
-    n x n eigendecomposition is tiny (active-space sized)."""
-    lam, Q = torch.linalg.eigh(V.T @ V)
+    n x n eigendecomposition is tiny (active-space sized).
+
+    A float32 V is projected in float64 and rounded once: the Gram
+    matrix squares V's condition number, and a float32 eigh of it leaves
+    U^T U off the identity by ~eps32 cond(V)^2, 3e-2 after a long BB step
+    at m = 112 (tests/test_torch_orth_float32.py).  A float64 V is
+    projected in its own precision."""
+    W = V.double() if V.dtype == torch.float32 else V
+    lam, Q = torch.linalg.eigh(W.T @ W)
     lam = torch.clamp_min(lam, 1e-14)
-    return V @ (Q * torch.rsqrt(lam)) @ Q.T
+    return (W @ (Q * torch.rsqrt(lam)) @ Q.T).to(V.dtype)
 
 
 def value_and_grad(fun: Callable) -> Callable:
