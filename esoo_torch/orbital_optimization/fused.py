@@ -48,18 +48,20 @@ scalar, so the loop syncs with the device several times per step.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from ..ops import orbital_vag
 from ..sim.circuit import QuantumCircuit
 from ..sim.rdm import one_rdm, rdm_energy, two_rdm
 from ..sim.statevector import compile_circuit
 from ..solvers.lbfgs import lbfgs_minimize
 from ..utils.config import check_same_device, resolve_device
-from ..utils.profiling import collect, span
+from ..utils.profiling import collect, count, span
 from .checkpoint import load_checkpoint, save_checkpoint
 from .kernels import (expand_spin_tensors, rotate_one_body, rotate_two_body,
                       rotated_energy_spatial, rotated_integrals_spatial,
@@ -67,8 +69,22 @@ from .kernels import (expand_spin_tensors, rotate_one_body, rotate_two_body,
                       spin_reduce_rdms, spin_squared_from_rdms)
 from .stiefel import _bb_loop, orth, value_and_grad
 
-# single source of truth for the orbital objective
-_ORBITAL_VAG = value_and_grad(rotated_energy_spatial)
+
+def _counted(vag: Callable, key: str) -> Callable:
+    """vag, adding one to stage_stats[key] of the running solve a call."""
+    def counted(U, *data):
+        count(key)
+        return vag(U, *data)
+    return counted
+
+
+# single source of truth for the orbital objective: autograd of the
+# energy, or, where onepass_route holds, csrc/orbital_vag.cu's value and
+# gradient in one pass over g (ops/orbital_vag.py)
+_ORBITAL_VAG = _counted(value_and_grad(rotated_energy_spatial),
+                        "bb_vag_autograd")
+_ORBITAL_ONEPASS_VAG = _counted(orbital_vag.orbital_value_and_grad_cuda,
+                                "bb_vag_onepass")
 
 
 @dataclasses.dataclass
@@ -491,9 +507,12 @@ class _OuterLoopSolver(metaclass=_Constructed):
         """The spatial integrals at `dtype`: both on the solver's device
         (`_h_sp`, `_g_sp`), or, with a mesh, h on its lead device and g's
         shards over it (`_g_shards`; `_g_sp` is then None: no device
-        holds the whole g)."""
+        holds the whole g).  `_g_pair_symmetric`: None until
+        `_orbital_objective` checks g's pair symmetry (ops/orbital_vag.py),
+        then whether g passed."""
         self.mesh = mesh
         self._g_shards = None
+        self._g_pair_symmetric = None
         if mesh is None:
             dev = self.device
             self._h_sp = torch.as_tensor(np.ascontiguousarray(h_sp),
@@ -529,15 +548,27 @@ class _OuterLoopSolver(metaclass=_Constructed):
         return h_act, rotate_two_body_sharded(self.mesh, self._g_shards, U)
 
     def _orbital_objective(self):
-        """(value-and-grad, integral data) of the BB descent: the spatial
-        energy on one device, or the mesh-sharded one."""
+        """(value-and-grad, integral data) of the BB descent: on one
+        device the one-pass kernel where `orbital_vag.onepass_route` holds
+        for g and U0 (counted in stage_stats as bb_vag_onepass), else the
+        autograd of the spatial energy; on a mesh the autograd of the
+        sharded one (both counted as bb_vag_autograd).  g's pair symmetry
+        is checked at the first call that could take the kernel, once per
+        g."""
         if self._g_shards is None:
-            return _ORBITAL_VAG, (self._h_sp, self._g_sp)
+            g = self._g_sp
+            route = functools.partial(orbital_vag.onepass_route, g.device,
+                                      g.dtype, g.shape[0], self._U0.shape[1])
+            if self._g_pair_symmetric is None and route(True):
+                self._g_pair_symmetric = orbital_vag.pair_symmetric(g)
+            if route(bool(self._g_pair_symmetric)):
+                return _ORBITAL_ONEPASS_VAG, (self._h_sp, g)
+            return _ORBITAL_VAG, (self._h_sp, g)
         from ..parallel import sharded_spatial_energy
         vag = getattr(self, "_sharded_vag", None)
         if vag is None:
-            vag = self._sharded_vag = value_and_grad(
-                sharded_spatial_energy(self.mesh))
+            vag = self._sharded_vag = _counted(value_and_grad(
+                sharded_spatial_energy(self.mesh)), "bb_vag_autograd")
         return vag, (self._h_sp, self._g_shards)
 
     def _loop(self, solve: Callable, extract_rdms: Callable, state0,
@@ -671,10 +702,12 @@ def _loop_stats() -> dict:
     seconds of the rotations (outer.rotate), RDMs (outer.rdms), final
     solve and diagnostics; and the sigmas that went through the
     single-excitation lists (SectorCI.sigma_values; CASSCF on dense or
-    int8 tables, 0 elsewhere)."""
+    int8 tables, 0 elsewhere); and the BB value-and-grads by route,
+    bb_vag_onepass (csrc/orbital_vag.cu) and bb_vag_autograd."""
     return {"bb_iterations": 0, "bb_s": 0.0, "bb_s_per_call": [],
             "rotate_s": 0.0, "rdms_s": 0.0, "final_solve_s": 0.0,
-            "diagnostics_s": 0.0, "sigma_list_matvecs": 0}
+            "diagnostics_s": 0.0, "sigma_list_matvecs": 0,
+            "bb_vag_onepass": 0, "bb_vag_autograd": 0}
 
 
 def _vqe_stats() -> dict:

@@ -1266,3 +1266,161 @@ def test_h8_davidson_on_lists_matches_the_dense_sigma(card):
                                           "sigma_lists.beta_gather": 0}
     assert matvecs > 2
     assert abs(energies["lists"] - energies["dense"]) <= 1e-10
+
+
+# -- the orbital step's one-pass value and gradient (csrc/orbital_vag.cu) ----
+
+def _orbital_inputs(card, m, n, dtype, seed):
+    """U (m, n) with orthonormal columns, gamma symmetric, Gamma with the
+    spin-summed RDM's symmetries, h symmetric and a random g with the pair
+    symmetry g[p,q,r,s] = g[r,s,p,q], made in float64 on the card."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    f64 = dict(generator=gen, device=card, dtype=torch.float64)
+    g = torch.randn((m,) * 4, **f64)
+    g = (g + g.permute(2, 3, 0, 1)).to(dtype).contiguous()
+    U = torch.linalg.qr(torch.randn(m, n, **f64))[0].to(dtype).contiguous()
+    a, G0, h = (torch.randn(n, n, **f64), torch.randn((n,) * 4, **f64),
+                torch.randn(m, m, **f64))
+    Gamma = (G0 + G0.permute(2, 3, 0, 1) + G0.permute(1, 0, 3, 2)
+             + G0.permute(3, 2, 1, 0))
+    return (U, (a + a.T).to(dtype), Gamma.to(dtype).contiguous(),
+            (h + h.T).to(dtype), g)
+
+
+@pytest.mark.parametrize("m,n,dtype", [(112, 14, torch.float64),
+                                       (112, 8, torch.float32),
+                                       (56, 4, torch.float32),
+                                       (112, 16, torch.float64),
+                                       (112, 16, torch.float32),
+                                       (13, 3, torch.float64),
+                                       (26, 8, torch.float32)])
+def test_orbital_vag_kernel_matches_plain(card, m, n, dtype):
+    """The kernel against its plain twin (1e-11 relative at float64, 1e-5
+    at float32), two calls bit for bit, four launches and one kernel-route
+    call a call; odd and unaligned rows (13, 26 x 4 bytes) take the
+    element-wise copies."""
+    from esoo_torch.ops import orbital_vag as OV
+    args = _orbital_inputs(card, m, n, dtype, 31 * m + n)
+    OV.reset_launch_counts()
+    E, G = OV.orbital_value_and_grad_cuda(*args)
+    E2, G2 = OV.orbital_value_and_grad_cuda(*args)
+    torch.cuda.synchronize()
+    assert OV.launch_counts() == {
+        "orbital_vag.orbital_value_and_grad_cuda": 8,
+        "orbital_vag.pair_asymmetry": 0}
+    assert OV.route_counts() == {"kernel": 2, "plain": 0}
+    assert torch.equal(E, E2) and torch.equal(G, G2)
+    Er, Gr = OV.orbital_value_and_grad_plain(*args)
+    tol = 1e-11 if dtype == torch.float64 else 1e-5
+    for out, ref in ((E, Er), (G, Gr)):
+        assert float((out - ref).abs().max()) <= tol * max(
+            1.0, float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_orbital_vag_plan_matches_the_kernel(card, itemsize):
+    """The built kernel plans every shape the route sends it (m <= 256, n
+    <= 16) within shared memory, with the workspace the wrapper allocates,
+    and refuses the shapes beyond; its plans at the cells' shapes."""
+    from esoo_torch.ops import orbital_vag as OV
+    cpt = 16 // itemsize
+    for m in range(1, OV._MAX_M + 1):
+        for n in range(1, OV._MAX_N + 1):
+            p = OV.kernel_plan(m, n, itemsize)
+            assert p["work"] == OV._workspace(m, n)
+            assert p["smem"] <= (115712 if p["per_sm"] == 2 else 232448)
+            assert p["finish_smem"] <= 232448
+            assert 2 <= p["depth"] <= 8 and p["per_sm"] in (1, 2)
+            assert p["threads"] % 32 == 0 and p["threads"] <= 256
+            assert p["spb"] * (p["mp"] // cpt) <= p["threads"]
+            assert p["nb"] >= n and m <= p["mp"] < m + cpt
+            assert p["steps"] * 4 >= m
+    for m, n in ((OV._MAX_M + 1, 4), (56, OV._MAX_N + 1), (0, 4)):
+        with pytest.raises(ValueError):
+            OV.kernel_plan(m, n, itemsize)
+    if itemsize == 8:
+        p = OV.kernel_plan(112, 14, 8)
+        assert (p["nb"], p["spb"], p["threads"], p["depth"], p["per_sm"]) \
+            == (14, 4, 224, 3, 2)
+    else:
+        p = OV.kernel_plan(112, 8, 4)
+        assert (p["nb"], p["spb"], p["threads"], p["per_sm"]) == \
+            (8, 9, 256, 2)
+        p = OV.kernel_plan(56, 4, 4)
+        assert (p["nb"], p["spb"], p["threads"]) == (4, 16, 224)
+
+
+def test_orbital_vag_bb_iterates_match_autograd(card):
+    """A BB descent in float64 through the kernel: its first 10 iterates
+    and their energies within 1e-10 of the autograd route's."""
+    from esoo_torch.ops import orbital_vag as OV
+    from esoo_torch.orbital_optimization import fused
+    from esoo_torch.orbital_optimization.stiefel import _bb_loop
+    U0, *data = _orbital_inputs(card, 40, 6, torch.float64, 5)
+    scalar = lambda v: torch.tensor(v, dtype=torch.float64, device=card)
+    for k in range(1, 11):
+        runs = [_bb_loop(vag, U0, tuple(data), scalar(1e-3), scalar(1e-30),
+                         scalar(0.8), k)
+                for vag in (fused._ORBITAL_ONEPASS_VAG, fused._ORBITAL_VAG)]
+        (U1, k1, _, tr1), (U2, k2, _, tr2) = runs
+        assert k1 == k2 == k + 1
+        assert float((U1 - U2).abs().max()) <= 1e-10
+        assert float((torch.stack(tr1) - torch.stack(tr2)).abs().max()) <= \
+            1e-10 * max(1.0, abs(float(tr2[0])))
+
+
+def test_casscf_on_the_card_takes_the_one_pass_route(card):
+    """A fused solver on the card checks g's pair symmetry once, at the
+    first call of its orbital objective, and sends every BB value and
+    gradient through the kernel; a g without the symmetry keeps
+    autograd."""
+    from esoo_torch import FusedOptOrbCASSCF
+    from esoo_torch.chem import MoleculeDriver
+    from esoo_torch.ops import orbital_vag as OV
+    from esoo_torch.orbital_optimization import fused
+    from esoo_torch.orbital_optimization.kernels import expand_spin_tensors
+    p = MoleculeDriver(atom="H 0 0 0; H 0 0 0.735", basis="6-31g").run()
+    solver = FusedOptOrbCASSCF(4, problem=p, device="cuda",
+                               dtype=torch.float64)
+    assert solver._g_pair_symmetric is None
+    OV.reset_launch_counts()
+    st = solver.compute_minimum_energy().stage_stats
+    assert solver._g_pair_symmetric is True
+    assert solver._orbital_objective()[0] is fused._ORBITAL_ONEPASS_VAG
+    assert OV.launch_counts()["orbital_vag.pair_asymmetry"] == 1
+    assert st["bb_vag_autograd"] == 0
+    assert st["bb_vag_onepass"] == OV.route_counts()["kernel"] > 0
+    h, g = p.spatial_integral_tensors()
+    rng = np.random.default_rng(0)
+    g = g + 1e-3 * rng.normal(size=g.shape)          # no pair symmetry
+    h_so, g_so = expand_spin_tensors(torch.as_tensor(h), torch.as_tensor(g))
+    solver = FusedOptOrbCASSCF(4, integral_tensors=(h_so.numpy(),
+                                                    g_so.numpy()),
+                               num_particles=(1, 1), device="cuda",
+                               dtype=torch.float64)
+    assert solver._orbital_objective()[0] is fused._ORBITAL_VAG
+    assert solver._g_pair_symmetric is False
+    st = solver.compute_minimum_energy().stage_stats
+    assert st["bb_vag_onepass"] == 0 and st["bb_vag_autograd"] > 0
+
+
+@pytest.mark.parametrize("m,dtype", [(112, torch.float64), (56, torch.float32),
+                                     (13, torch.float64), (5, torch.float32)])
+def test_pair_asymmetry_kernel_matches_plain(card, m, dtype):
+    """The pair-symmetry check's kernel against its plain version: a g
+    with the symmetry reads 0, a g with one element off reads that
+    element's offset over max|g|, a random g reads its own asymmetry; one
+    launch a check."""
+    from esoo_torch.ops import orbital_vag as OV
+    gen = torch.Generator(device=card).manual_seed(m)
+    g = torch.randn((m,) * 4, generator=gen, device=card, dtype=dtype)
+    sym = (g + g.permute(2, 3, 0, 1)).contiguous()
+    off = sym.clone()
+    off[m - 1, 0, m // 2, 1] += 1e-3
+    OV.reset_launch_counts()
+    assert OV.pair_asymmetry(sym) == 0.0
+    assert OV.pair_symmetric(sym) and not OV.pair_symmetric(off)
+    for x in (off, g):
+        got, ref = OV.pair_asymmetry(x), OV.pair_asymmetry_plain(x)
+        assert got == pytest.approx(ref, rel=1e-6) and got > 0
+    assert OV.launch_counts()["orbital_vag.pair_asymmetry"] == 5
