@@ -614,30 +614,11 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def _wrappers() -> tuple:
-    """Every kernel wrapper module: K1/K2 (ops/gemm.py), the string gate
-    scan K3 (ops/gate_scan.py), the Pauli-rotation scan K8
-    (ops/prot_scan.py), the pairs gate scan (ops/pair_scan.py) and the
-    sigma's gathers over single-excitation lists (ops/sigma_lists.py) and
-    the orbital step's one-pass value and gradient (ops/orbital_vag.py)."""
-    from esoo_torch.ops import (gate_scan, gemm, orbital_vag, pair_scan,
-                                prot_scan, sigma_lists)
-    return gemm, gate_scan, prot_scan, pair_scan, sigma_lists, orbital_vag
-
-
-def reset_launch_counts() -> None:
-    """Zero every kernel wrapper's launch count."""
-    for mod in _wrappers():
-        mod.reset_launch_counts()
-
-
-def launch_counts() -> dict:
-    """Every kernel wrapper's launches since the last reset, by the name
-    of its row in the kernels line."""
-    out = {}
-    for mod in _wrappers():
-        out.update(mod.launch_counts())
-    return out
+def launched(counts: dict, prefix: str) -> int:
+    """The launches in `counts` (esoo_torch.ops.launch_counts, keyed
+    `<source>.<kernel>[.<route>]`) under the keys that start with
+    `prefix`."""
+    return sum(v for k, v in counts.items() if k.startswith(prefix))
 
 
 class PlainScanWatch:
@@ -1595,6 +1576,7 @@ def _pair_asymmetry_row(checks: list, g, name: str, bw: float) -> dict:
     pair_symmetric on each g).  kernel_ms against g read once
     at the card's rate; ms a whole check, its sync included."""
     import torch
+    from esoo_torch.ops import launch_counts, reset_launch_counts
     from esoo_torch.ops import orbital_vag as OV
     m = g.shape[0]
     scale = float(g.abs().max())
@@ -1603,14 +1585,14 @@ def _pair_asymmetry_row(checks: list, g, name: str, bw: float) -> dict:
     noise = torch.randn(g.shape, dtype=g.dtype, device=g.device,
                         generator=torch.Generator(device=g.device)
                         .manual_seed(m))
-    OV.reset_launch_counts()
+    reset_launch_counts()
     read = {"symmetric": OV.pair_asymmetry(g)}
     passed = {"symmetric": OV.pair_symmetric(g)}
     plain = {"symmetric": OV.pair_asymmetry_plain(g)}
     for key, x in (("one_element_off", off), ("random", noise)):
         read[key], plain[key] = OV.pair_asymmetry(x), OV.pair_asymmetry_plain(x)
         passed[key] = OV.pair_symmetric(x)
-    launches = OV.launch_counts()["orbital_vag.pair_asymmetry"]
+    launches = launched(launch_counts(), "orbital_vag.pair_asymmetry")
     failed = []
     if not (read["symmetric"] == plain["symmetric"] == 0.0
             and passed["symmetric"]):
@@ -1967,7 +1949,7 @@ def _solver(problem, n_act: int, dtype, device):
 def phase_main_path():
     import torch
     from esoo_torch.chem import MoleculeDriver
-    from esoo_torch.ops import gemm
+    from esoo_torch.ops import launch_counts, reset_launch_counts
     from esoo_torch.orbital_optimization import kernels as K
     from esoo_torch.orbital_optimization.stiefel import (_bb_loop,
                                                          value_and_grad)
@@ -1984,7 +1966,6 @@ def phase_main_path():
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     launches = launch_counts()
-    routes = gemm.route_launch_counts()
 
     t0 = time.perf_counter()
     r_warm = _solver(problem, 4, torch.float32,
@@ -1995,9 +1976,9 @@ def phase_main_path():
     E = r.eigenvalue
     # at n = 4 the transform takes the one-pass route; K1 (gemm.matmul)
     # runs only in the chain route, held in the kernels phase
-    if launches["gemm.rotate_two_body_cuda"] <= 0 or routes["fused"] <= 0:
+    if launched(launches, "transform.") <= 0:
         raise AssertionError(f"the one-pass transform never launched on the "
-                             f"main path: {launches} {routes}")
+                             f"main path: {launches}")
     if not (E <= H4_BASELINE and abs(E - H4_REFERENCE) <= H4_TOL):
         raise AssertionError(f"H4 energy {E!r} fails the gates "
                              f"(<= {H4_BASELINE}, within {H4_TOL} of "
@@ -2058,7 +2039,7 @@ def phase_main_path():
          warm_lbfgs_evaluations=stats["lbfgs_evaluations"],
          chem_s=chem_s, cold_s=cold_s, warm_s=warm_s,
          eri_engine=problem.eri_engine, launches=launches,
-         transform_route_launches=routes, per_step=per_iter)
+         per_step=per_iter)
     return launches, problem
 
 
@@ -2086,16 +2067,17 @@ def evaluation_costs(vag, theta, vals, reps: int = 5) -> dict:
     and the gate scan kernels' launches an evaluation by direction and
     route."""
     import torch
-    from esoo_torch.ops import gate_scan
+    from esoo_torch.ops import launch_counts, reset_launch_counts
     vag(theta, vals)
     torch.cuda.synchronize()
-    gate_scan.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     for _ in range(reps):
         vag(theta, vals)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / reps * 1e3
-    scan = {k: v / reps for k, v in gate_scan.route_launch_counts().items()}
+    scan = {k: v / reps for k, v in launch_counts().items()
+            if k.startswith("gate_scan.")}
     device_ms, events = device_profile(lambda: vag(theta, vals), reps=3)
     return dict(lbfgs_evaluation_wall_ms=wall_ms,
                 lbfgs_evaluation_device_ms=device_ms,
@@ -2155,7 +2137,7 @@ def phase_casscf() -> dict:
     One solve; the per-step costs are taken at its final state."""
     import torch
     from esoo_torch.chem import MoleculeDriver
-    from esoo_torch.ops import gemm
+    from esoo_torch.ops import launch_counts, reset_launch_counts
     from esoo_torch.orbital_optimization import kernels as K
     from esoo_torch.orbital_optimization.casscf import _sector_ci_cached
     from esoo_torch.orbital_optimization.stiefel import _bb_loop
@@ -2187,7 +2169,6 @@ def phase_casscf() -> dict:
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     launches = launch_counts()
-    routes = gemm.route_launch_counts()
     peak_bytes = torch.cuda.max_memory_allocated()
 
     E, trace, stats = r.eigenvalue, r.energy_convergence_list, r.stage_stats
@@ -2250,11 +2231,11 @@ def phase_casscf() -> dict:
     if not abs(E - H8_CASSCF_REFERENCE) <= H8_CASSCF_TOL:
         failed.append(f"energy {E!r} not within {H8_CASSCF_TOL} of "
                       f"{H8_CASSCF_REFERENCE}")
-    failed += _casscf_gates(r, witness, launches, routes)
+    failed += _casscf_gates(r, witness, launches)
     on_lists = stats["sigma_list_matvecs"]
     if not (on_lists == stats["davidson_matvecs"] > 0
-            and launches["sigma_lists.alpha_gather"] == on_lists
-            and launches["sigma_lists.beta_gather"]
+            and launched(launches, "sigma_lists.alpha_gather") == on_lists
+            and launched(launches, "sigma_lists.beta_gather")
             == on_lists + 2 * stats["davidson_solves"]):
         failed.append(f"{on_lists} list sigmas of {stats['davidson_matvecs']} "
                       f"matvecs in {stats['davidson_solves']} solves but "
@@ -2268,8 +2249,7 @@ def phase_casscf() -> dict:
          stage_stats=stats, chem_s=chem_s, sector_ci_s=sector_s,
          setup_s=setup_s, solve_s=solve_s, eri_engine=problem.eri_engine,
          peak_memory_bytes=peak_bytes, launches=launches,
-         transform_route_launches=routes, per_step=per_step,
-         diag_abs_max=diag_abs_max, f64_witness=witness,
+         per_step=per_step, diag_abs_max=diag_abs_max, f64_witness=witness,
          gates_failed=failed)
     if failed:
         raise AssertionError("H8 CASSCF gates failed: " + "; ".join(failed))
@@ -2280,8 +2260,8 @@ def phase_casscf() -> dict:
                                    V=r.optimal_point)
 
 
-def _casscf_gates(r, witness: dict, launches: dict, routes: dict,
-                  route: str = "chain", shards: int = 1) -> list:
+def _casscf_gates(r, witness: dict, launches: dict, route: str = "chain",
+                  shards: int = 1) -> list:
     """The gates every CASSCF solve of the smoke meets beside its energy
     window; `route` is the transform's route at the solve's (m, n), or
     "shard" for a mesh of `shards` shards (four K1 launches each)."""
@@ -2300,16 +2280,12 @@ def _casscf_gates(r, witness: dict, launches: dict, routes: dict,
     # C call of the one-pass kernel, two launches (n <= 8), or on a mesh
     # four K1 launches a shard
     per = {"chain": 4, "fused": 2, "shard": 4 * shards}[route]
-    expected = {"fused": 0, "chain": 0, "shard": 0}
-    expected[route] = per * rotations
+    kernel = "transform.transform" if route == "fused" else "gemm.matmul"
+    rotating = {k: launches[k] for k in ("gemm.matmul", "transform.transform")
+                if k in launches}
     if not (rotations == r.outer_iterations + 1
-            and launches["gemm.matmul"] == expected["chain"]
-            + expected["shard"]
-            and launches["gemm.rotate_two_body_cuda"]
-            == expected["chain"] + expected["fused"]
-            and routes == expected):
-        failed.append(f"{rotations} rotations but launches {launches}, "
-                      f"routes {routes}")
+            and rotating == {kernel: per * rotations}):
+        failed.append(f"{rotations} rotations but launches {launches}")
     return failed
 
 
@@ -2415,7 +2391,7 @@ def phase_compact(problem) -> dict:
     on one vector at N=32 and sigma at N=28 (dense: the list sigma)."""
     import esoo_torch
     import torch
-    from esoo_torch.ops import gemm
+    from esoo_torch.ops import launch_counts, reset_launch_counts
     from esoo_torch.orbital_optimization import kernels as K
     from esoo_torch.orbital_optimization.casscf import _sector_ci_cached
     f32, dev = torch.float32, torch.device("cuda")
@@ -2476,7 +2452,6 @@ def phase_compact(problem) -> dict:
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     launches = launch_counts()
-    routes = gemm.route_launch_counts()
     peak_bytes = torch.cuda.max_memory_allocated()
 
     E = r.eigenvalue
@@ -2499,7 +2474,7 @@ def phase_compact(problem) -> dict:
     if not ortho_err <= H8_N32_ORTHO_TOL:
         failed.append(f"max|U^T U - I| {ortho_err!r} above "
                       f"{H8_N32_ORTHO_TOL}")
-    failed += _casscf_gates(r, witness, launches, routes)
+    failed += _casscf_gates(r, witness, launches)
     emit("compact", problem="H8 cc-pVTZ m=112 -> 32 spin orbitals, (4, 4) "
          "electrons, 3,312,400 determinants, f32, compact int8 tables "
          "(table_storage='auto'), maxiter 10", energy=E,
@@ -2510,7 +2485,7 @@ def phase_compact(problem) -> dict:
          outer_iterations=r.outer_iterations, stage_stats=r.stage_stats,
          sector_ci_s=sector_s, tables_to_card_s=transfer_s, solve_s=solve_s,
          peak_memory_bytes=peak_bytes, launches=launches,
-         transform_route_launches=routes, storages_n32=at_n32,
+         storages_n32=at_n32,
          storages_n28_sigma=dict(max_abs_err=err28, costs=cost28),
          tolerance=f"compact vs dense: max|err| <= {COMPACT_TOL} * max(1, "
          f"max|dense|)", timing="costs: ms, median of 3 CUDA-event pairs "
@@ -2554,7 +2529,7 @@ def phase_full(problem) -> dict:
     import importlib
 
     import torch
-    from esoo_torch.ops import gemm, prot_scan
+    from esoo_torch.ops import launch_counts, reset_launch_counts
     from esoo_torch.orbital_optimization import kernels as K
     from esoo_torch.orbital_optimization.stiefel import value_and_grad
     from esoo_torch.sim.rdm import rdm_energy
@@ -2580,8 +2555,6 @@ def phase_full(problem) -> dict:
         torch.cuda.synchronize()
         solve_s = time.perf_counter() - t0
         launches = launch_counts()
-    routes = gemm.route_launch_counts()
-    scan_routes = prot_scan.route_launch_counts()
     peak_bytes = torch.cuda.max_memory_allocated()
     E, trace, stats = r.eigenvalue, r.energy_convergence_list, r.stage_stats
 
@@ -2600,14 +2573,14 @@ def phase_full(problem) -> dict:
     with watch:
         vag(theta)
         torch.cuda.synchronize()
-        prot_scan.reset_launch_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         for _ in range(10):
             vag(theta)
         torch.cuda.synchronize()
         eval_wall_ms = (time.perf_counter() - t0) / 10 * 1e3
-        eval_scan = {k: v / 10
-                     for k, v in prot_scan.route_launch_counts().items()}
+        eval_scan = {k: v / 10 for k, v in launch_counts().items()
+                     if k.startswith("prot_scan.")}
         eval_ms, eval_events = device_profile(lambda: vag(theta), reps=3)
 
     # the card's busy share over a one-outer-iteration solve (a whole
@@ -2626,17 +2599,19 @@ def phase_full(problem) -> dict:
     if not E >= lam[0] - 1e-6:
         failed.append(f"(c) energy {E!r} below the exact sector ground "
                       f"energy {lam[0]!r} at the final orbitals")
-    if not (launches["gemm.rotate_two_body_cuda"] > 0
-            and launches["gemm.matmul"] == 0 and routes["chain"] == 0):
-        failed.append(f"(d) launches {launches}, routes {routes}: the "
-                      f"one-pass transform only")
-    if not (watch.calls == 0 and scan_routes["bwd"] >= 1
-            and scan_routes["fwd"] >= scan_routes["bwd"]
-            >= stats["lbfgs_evaluations"]):
+    if not (launched(launches, "transform.") > 0
+            and launched(launches, "gemm.matmul") == 0):
+        failed.append(f"(d) launches {launches}: the one-pass transform "
+                      f"only")
+    fwd = launched(launches, "prot_scan.prot_scan_fwd")
+    bwd = launched(launches, "prot_scan.prot_scan_bwd")
+    if not (watch.calls == 0 and bwd >= 1
+            and fwd >= bwd >= stats["lbfgs_evaluations"]):
         failed.append(f"(e) the plain scan ran {watch.calls} times on the "
-                      f"card; the kernels {scan_routes} for "
+                      f"card; the kernels {fwd} forward, {bwd} backward for "
                       f"{stats['lbfgs_evaluations']} L-BFGS evaluations")
-    if not (eval_scan["fwd"] == eval_scan["bwd"] == 1):
+    if not (launched(eval_scan, "prot_scan.prot_scan_fwd")
+            == launched(eval_scan, "prot_scan.prot_scan_bwd") == 1):
         failed.append(f"(f) an L-BFGS evaluation launched the scan kernels "
                       f"{eval_scan}, not once a direction")
     emit("full", problem="H8 cc-pVTZ m=112 -> 12 spin orbitals, (4, 4) "
@@ -2656,9 +2631,8 @@ def phase_full(problem) -> dict:
          lbfgs_evaluation_prot_scan_launches=eval_scan,
          busy_window=dict(maxiter=1, wall_s=window_s, device_busy_s=busy_s,
                           device_busy_share=busy_s / window_s),
-         launches=launches, transform_route_launches=routes,
-         prot_scan_route_launches=scan_routes,
-         plain_scan_calls_on_card=watch.calls, gates_failed=failed)
+         launches=launches, plain_scan_calls_on_card=watch.calls,
+         gates_failed=failed)
     if failed:
         raise AssertionError("H8 full-space gates failed: "
                              + "; ".join(failed))
@@ -2699,7 +2673,7 @@ def phase_excited(problem) -> dict:
     fused excited-state family on H2 6-31G at f64, card against CPU."""
     import esoo_torch as T
     import torch
-    from esoo_torch.ops import gemm
+    from esoo_torch.ops import launch_counts, reset_launch_counts
     from esoo_torch.orbital_optimization import kernels as K
     from esoo_torch.orbital_optimization.stiefel import value_and_grad
     f32 = torch.float32
@@ -2710,7 +2684,6 @@ def phase_excited(problem) -> dict:
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     launches = launch_counts()
-    routes = gemm.route_launch_counts()
     t0 = time.perf_counter()
     solver = _ssvqe_h4(problem, f32, "cuda")
     r_warm = solver.compute_energies()
@@ -2745,10 +2718,10 @@ def phase_excited(problem) -> dict:
             and 2 * E[0] + E[1] >= 2 * lam[0] + lam[1] - 1e-5):
         failed.append(f"energies {E} below the exact sector spectrum "
                       f"{lam[:2].tolist()} (weights 2, 1)")
-    if not (launches["gemm.rotate_two_body_cuda"] > 0
-            and launches["gemm.matmul"] == 0 and routes["chain"] == 0):
-        failed.append(f"launches {launches}, routes {routes}: the one-pass "
-                      f"transform only, no K1")
+    if not (launched(launches, "transform.") > 0
+            and launched(launches, "gemm.matmul") == 0):
+        failed.append(f"launches {launches}: the one-pass transform only, "
+                      f"no K1")
     if not all(abs(a - b) <= H4_SSVQE_TOL
                for a, b in zip(r_warm.eigenvalues, E)):
         failed.append("the warm run disagrees with the cold run")
@@ -2764,7 +2737,7 @@ def phase_excited(problem) -> dict:
          lbfgs_evaluation_wall_ms=eval_wall_ms,
          lbfgs_evaluation_device_ms=eval_ms,
          lbfgs_evaluation_device_events=eval_events, launches=launches,
-         transform_route_launches=routes, gates_failed=failed)
+         gates_failed=failed)
     if failed:
         raise AssertionError("H4 SSVQE gates failed: " + "; ".join(failed))
 
@@ -2792,7 +2765,7 @@ def phase_excited(problem) -> dict:
     for name, make in makers.items():
         reset_launch_counts()
         card_e = [float(e) for e in make("cuda")]
-        fused = gemm.route_launch_counts()["fused"]
+        fused = launched(launch_counts(), "transform.")
         cpu_e = [float(e) for e in make("cpu")]
         runs[name] = dict(card=card_e, cpu=cpu_e, transform_launches=fused)
         if not (max(abs(a - b) for a, b in zip(card_e, cpu_e)) <= 1e-8
@@ -2938,14 +2911,13 @@ def _casscf_f64_witness(problem, solver, r, vals32) -> dict:
 def phase_parity() -> None:
     import torch
     from esoo_torch.chem import MoleculeDriver
-    from esoo_torch.ops import gemm
+    from esoo_torch.ops import launch_counts, reset_launch_counts
     problem = MoleculeDriver(atom=H2_GEOM, basis="6-31g").run()
     reset_launch_counts()
     t0 = time.perf_counter()
     r_gpu = _solver(problem, 2, torch.float64, "cuda").compute_minimum_energy()
     gpu_s = time.perf_counter() - t0
     launches = launch_counts()
-    routes = gemm.route_launch_counts()
     r_cpu = _solver(problem, 2, torch.float64, "cpu").compute_minimum_energy()
     E = r_gpu.eigenvalue
     if not abs(E - H2_REFERENCE) <= H2_TOL:
@@ -2954,12 +2926,12 @@ def phase_parity() -> None:
     if not abs(E - r_cpu.eigenvalue) <= 1e-8:
         raise AssertionError(f"H2 f64 card {E!r} vs CPU "
                              f"{r_cpu.eigenvalue!r} differ by > 1e-8")
-    if routes["fused"] <= 0:
+    if launched(launches, "transform.") <= 0:
         raise AssertionError("the f64 run did not launch the transform")
     emit("parity", problem="H2 6-31G -> 4 spin orbitals, f64",
          energy_gpu=E, energy_cpu=r_cpu.eigenvalue,
          reference=H2_REFERENCE, tolerance=H2_TOL, gpu_s=gpu_s,
-         launches=launches, transform_route_launches=routes)
+         launches=launches)
 
     import esoo_torch
     f64 = torch.float64
@@ -2979,7 +2951,7 @@ def phase_parity() -> None:
                for e, ref in zip(sa, H2_SA_REFERENCE)):
         raise AssertionError(f"H2 SA-CASSCF k=2 {list(sa)} not within "
                              f"{H2_SA_TOL} of {H2_SA_REFERENCE}")
-    if cas_launches["gemm.rotate_two_body_cuda"] <= 0:
+    if launched(cas_launches, "transform.") <= 0:
         raise AssertionError("the CASSCF run did not launch the transform")
     emit("parity_casscf", problem="H2 6-31G -> 4 spin orbitals, f64",
          casscf_gpu=cas[0], casscf_cpu=cas[1], casscf_tolerance=[
@@ -3002,7 +2974,8 @@ def _parity_full(problem) -> None:
     import esoo_torch as T
     import numpy as np
     import torch
-    from esoo_torch.ops import ActiveSpaceHamiltonianBuilder, gemm
+    from esoo_torch.ops import (ActiveSpaceHamiltonianBuilder, launch_counts,
+                                reset_launch_counts)
     from esoo_torch.sim import (Estimator, one_rdm, rdm_energy, statevector,
                                 two_rdm)
     f64, hf = torch.float64, T.HartreeFock(2, (1, 1))
@@ -3042,7 +3015,7 @@ def _parity_full(problem) -> None:
                 es = [solver.compute_minimum_energy().eigenvalue]
             out.append([float(e) for e in es])
             if d == "cuda":
-                fused = gemm.route_launch_counts()["fused"]
+                fused = launched(launch_counts(), "transform.")
         card_e, cpu_e = out
         runs[name] = dict(card=card_e, cpu=cpu_e, simulation=solver.simulation,
                           transform_launches=fused)
@@ -3192,7 +3165,7 @@ def phase_optorb(h4) -> dict:
     import torch
 
     from esoo_torch.chem import MoleculeDriver
-    from esoo_torch.ops import gemm
+    from esoo_torch.ops import launch_counts, reset_launch_counts
     from esoo_torch.solvers.energy import make_evaluators
 
     failed = []
@@ -3210,7 +3183,6 @@ def phase_optorb(h4) -> dict:
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     launches = launch_counts()
-    routes = gemm.route_launch_counts()
     peak_mb = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 20
     rebuilds = len(r.metrics["hamiltonian_time"])
     E = float(r.eigenvalue)
@@ -3219,10 +3191,10 @@ def phase_optorb(h4) -> dict:
                       f"package's {JAX_H4_OPTORB_F64}")
     if not abs(E - H4_REFERENCE) <= H4_TOL:
         failed.append(f"E {E!r} not within {H4_TOL} of {H4_REFERENCE}")
-    if not (launches["gemm.rotate_two_body_cuda"] > 0 and routes["chain"] == 0
-            and routes["fused"] == 2 * rebuilds):
-        failed.append(f"launches {launches}, routes {routes}: two one-pass "
-                      f"launches per rotated Hamiltonian ({rebuilds})")
+    if not (launched(launches, "gemm.matmul") == 0
+            and launched(launches, "transform.") == 2 * rebuilds > 0):
+        failed.append(f"launches {launches}: two one-pass launches per "
+                      f"rotated Hamiltonian ({rebuilds})")
 
     # one cost-function evaluation at the final Hamiltonian and optimum:
     # the sector gate scan and sigma, forward and backward, and the
@@ -3249,8 +3221,7 @@ def phase_optorb(h4) -> dict:
          metrics=r.metrics, cost_function_evals=evals,
          cost_function_evals_total=sum(evals),
          bb_iterations=r.orbital_rotation_iterations,
-         peak_mb=peak_mb, launches=launches,
-         transform_route_launches=routes, hamiltonian_rebuilds=rebuilds,
+         peak_mb=peak_mb, launches=launches, hamiltonian_rebuilds=rebuilds,
          cost_function_evaluation_wall_ms=eval_wall_ms,
          cost_function_evaluation_device_ms=eval_ms,
          cost_function_evaluation_device_events=eval_events,
@@ -3298,7 +3269,7 @@ def _n2_casscf(basis: str, n_act: int, kw: dict, route: str):
     every CASSCF solve meets, `route` being the transform's route."""
     import torch
     from esoo_torch.chem import MoleculeDriver
-    from esoo_torch.ops import gemm
+    from esoo_torch.ops import launch_counts, reset_launch_counts
     from esoo_torch.orbital_optimization import kernels as K
     t0 = time.perf_counter()
     full = MoleculeDriver(atom=N2_GEOM, basis=basis).run()
@@ -3318,14 +3289,13 @@ def _n2_casscf(basis: str, n_act: int, kw: dict, route: str):
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     launches = launch_counts()
-    routes = gemm.route_launch_counts()
     peak_bytes = torch.cuda.max_memory_allocated()
     U = torch.as_tensor(r.optimal_partial_unitary, device=solver.device)
     vals = solver._sector.build_values(*K.expand_spin_tensors(
         K.rotate_one_body(solver._h_sp, U), K.rotate_two_body(solver._g_sp, U)),
         solver._sector_tables)
     witness = _casscf_f64_witness(problem, solver, r, vals)
-    failed = _casscf_gates(r, witness, launches, routes, route)
+    failed = _casscf_gates(r, witness, launches, route)
     rhf = full.scf.energy_electronic + full.nuclear_repulsion_energy
     total = r.eigenvalue + problem.core_energy + problem.nuclear_repulsion_energy
     rec = dict(m=problem.num_spatial_orbitals, n=n_act,
@@ -3339,7 +3309,7 @@ def _n2_casscf(basis: str, n_act: int, kw: dict, route: str):
                solve_s=solve_s, eri_engine=problem.eri_engine,
                peak_memory_bytes=peak_bytes,
                held_before_solve_bytes=held_bytes, launches=launches,
-               transform_route_launches=routes, f64_witness=witness)
+               f64_witness=witness)
     return full, problem, r, rec, launches, failed
 
 
@@ -3445,7 +3415,7 @@ def phase_pairs(problem) -> dict:
     import torch
     import esoo_torch as T
     from esoo_torch.initializations.ci import enumerate_determinants
-    from esoo_torch.ops import gate_scan, gemm, pair_scan
+    from esoo_torch.ops import launch_counts, reset_launch_counts
     from esoo_torch.orbital_optimization import kernels as K
     from esoo_torch.orbital_optimization.stiefel import value_and_grad
     from esoo_torch.sim import SectorCI
@@ -3475,8 +3445,6 @@ def phase_pairs(problem) -> dict:
         torch.cuda.synchronize()
         solve_s = time.perf_counter() - t0
         launches = launch_counts()
-    routes = gemm.route_launch_counts()
-    scan_routes = pair_scan.route_launch_counts()
     peak_bytes = torch.cuda.max_memory_allocated()
     E, stats = r.eigenvalue, r.stage_stats
 
@@ -3491,21 +3459,21 @@ def phase_pairs(problem) -> dict:
     theta = torch.as_tensor(r.optimal_point, device=dev)
     h_so, g_so = K.expand_spin_tensors(*solver._rotate(U))
     evaluation = {}
-    for name, s, wrapper in (("pairs", sec, pair_scan),
-                             ("strings", strings._sector, gate_scan)):
+    scans = {"pairs": "pair_scan", "strings": "gate_scan"}
+    for name, s in (("pairs", sec), ("strings", strings._sector)):
         vals = s.build_values(h_so, g_so)
         vag = value_and_grad(s.energy_values)
         with watch:
             vag(theta, vals)
             torch.cuda.synchronize()
-            wrapper.reset_launch_counts()
+            reset_launch_counts()
             t0 = time.perf_counter()
             for _ in range(10):
                 vag(theta, vals)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) / 10 * 1e3
-            scan = {k: v / 10
-                    for k, v in wrapper.route_launch_counts().items()}
+            scan = {k: v / 10 for k, v in launch_counts().items()
+                    if k.startswith(scans[name] + ".")}
             dms, events = device_profile(lambda: vag(theta, vals), reps=3)
         evaluation[name] = dict(wall_ms=wall_ms, device_ms=dms,
                                 device_events=events, scan_launches=scan)
@@ -3521,18 +3489,21 @@ def phase_pairs(problem) -> dict:
     if not abs(E - r_str.eigenvalue) <= PAIRS_TOL:
         failed.append(f"(a) energy {E!r} not within {PAIRS_TOL} of the "
                       f"string kernel's {r_str.eigenvalue!r}")
-    if not (launches["gemm.rotate_two_body_cuda"] > 0
-            and launches["gemm.matmul"] == 0 and routes["chain"] == 0):
-        failed.append(f"(a) launches {launches}, routes {routes}: the "
-                      f"one-pass transform only")
-    if not (watch.calls == 0 and scan_routes["bwd"] >= 1
-            and scan_routes["fwd"] >= scan_routes["bwd"]
-            >= stats["lbfgs_evaluations"]):
+    if not (launched(launches, "transform.") > 0
+            and launched(launches, "gemm.matmul") == 0):
+        failed.append(f"(a) launches {launches}: the one-pass transform "
+                      f"only")
+    fwd = launched(launches, "pair_scan.pair_scan_fwd")
+    bwd = launched(launches, "pair_scan.pair_scan_bwd")
+    if not (watch.calls == 0 and bwd >= 1
+            and fwd >= bwd >= stats["lbfgs_evaluations"]):
         failed.append(f"(a) the plain scan ran {watch.calls} times on the "
-                      f"card; the kernels {scan_routes} for "
+                      f"card; the kernels {fwd} forward, {bwd} backward for "
                       f"{stats['lbfgs_evaluations']} L-BFGS evaluations")
     for name, ev in evaluation.items():
-        if not ev["scan_launches"]["fwd"] == ev["scan_launches"]["bwd"] == 1:
+        kernel = f"{scans[name]}.{scans[name]}"
+        if not (launched(ev["scan_launches"], kernel + "_fwd")
+                == launched(ev["scan_launches"], kernel + "_bwd") == 1):
             failed.append(f"(a) an L-BFGS evaluation on the {name} kernel "
                           f"launched its scan kernels "
                           f"{ev['scan_launches']}, not once a direction")
@@ -3553,9 +3524,8 @@ def phase_pairs(problem) -> dict:
          lbfgs_evaluation=evaluation,
          busy_window=dict(maxiter=1, wall_s=window_s, device_busy_s=busy_s,
                           device_busy_share=busy_s / window_s),
-         launches=launches, transform_route_launches=routes,
-         pair_scan_route_launches=scan_routes,
-         plain_scan_calls_on_card=watch.calls, gates_failed=failed)
+         launches=launches, plain_scan_calls_on_card=watch.calls,
+         gates_failed=failed)
     if failed:
         raise AssertionError("pairs gates failed: " + "; ".join(failed))
 
@@ -3686,7 +3656,7 @@ def phase_mesh(problem, casscf: dict, h4, optorb_energy: float):
     Returns (the launch counts of (a), its solver, its result)."""
     import numpy as np
     import torch
-    from esoo_torch.ops import gemm
+    from esoo_torch.ops import launch_counts, reset_launch_counts
     from esoo_torch.orbital_optimization import kernels as K
     from esoo_torch.orbital_optimization.fused import _ORBITAL_VAG
     from esoo_torch.orbital_optimization.stiefel import value_and_grad
@@ -3711,7 +3681,6 @@ def phase_mesh(problem, casscf: dict, h4, optorb_energy: float):
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     launches = launch_counts()
-    routes = gemm.route_launch_counts()
     peak_bytes = torch.cuda.max_memory_allocated()
     E, stats = r.eigenvalue, r.stage_stats
 
@@ -3739,7 +3708,7 @@ def phase_mesh(problem, casscf: dict, h4, optorb_energy: float):
         rotation_err=check_close(rot_m, rot_u, f32, "sharded rotation"),
         energy_err=check_close(E_m, E_u, f32, "sharded objective"),
         gradient_err=check_close(G_m, G_u, f32, "sharded gradient"),
-        rotation_launches=gemm.route_launch_counts())
+        rotation_launches=launch_counts())
     failed = []
     if not abs(E - H8_CASSCF_REFERENCE) <= H8_CASSCF_TOL:
         failed.append(f"energy {E!r} not within {H8_CASSCF_TOL} of "
@@ -3748,10 +3717,10 @@ def phase_mesh(problem, casscf: dict, h4, optorb_energy: float):
     if not abs(first - casscf["first"]) <= MESH_TOL:
         failed.append(f"first outer energy {first!r} not within {MESH_TOL} "
                       f"of the unsharded {casscf['first']!r}")
-    if at_u["rotation_launches"]["shard"] != 16:
+    if at_u["rotation_launches"] != {"gemm.matmul": 16}:
         failed.append(f"the sharded rotation's launches "
                       f"{at_u['rotation_launches']}")
-    failed += _casscf_gates(r, witness, launches, routes, "shard", 4)
+    failed += _casscf_gates(r, witness, launches, "shard", 4)
     emit("mesh", problem="H8 cc-pVTZ m=112 -> 28 spin orbitals, "
          "FusedOptOrbCASSCF as in the casscf phase, g sharded on its last "
          "axis over a 4-shard mesh (m_loc = 28)", devices=devices,
@@ -3766,8 +3735,7 @@ def phase_mesh(problem, casscf: dict, h4, optorb_energy: float):
          bb_iterations=stats["bb_iterations"],
          peak_memory_bytes=peak_bytes, held_before_solve_bytes=held_bytes,
          unsharded_peak_memory_bytes=casscf["peak_memory_bytes"],
-         launches=launches, transform_route_launches=routes,
-         f64_witness=witness, gates_failed=failed)
+         launches=launches, f64_witness=witness, gates_failed=failed)
     if failed:
         raise AssertionError("mesh gates failed: " + "; ".join(failed))
 
@@ -3855,11 +3823,11 @@ def _peak_bytes_by_device(fn, devices) -> dict:
 
 
 def _solve_on_cards(solver, devices):
-    """(result, solve seconds, K1/K2 launches and transform routes, each
-    card's peak bytes and the bytes it held before) of one solve, the
-    launch counts zeroed just before it and read just after."""
+    """(result, solve seconds, the kernels' launches, each card's peak
+    bytes and the bytes it held before) of one solve, the launch counts
+    zeroed just before it and read just after."""
     import torch
-    from esoo_torch.ops import gemm
+    from esoo_torch.ops import launch_counts, reset_launch_counts
     cards = sorted({torch.device(d).index or 0 for d in devices})
     for i in cards:
         torch.cuda.synchronize(i)
@@ -3872,7 +3840,7 @@ def _solve_on_cards(solver, devices):
     for i in cards:
         torch.cuda.synchronize(i)
     solve_s = time.perf_counter() - t0
-    return (r, solve_s, launch_counts(), gemm.route_launch_counts(),
+    return (r, solve_s, launch_counts(),
             {f"cuda:{i}": torch.cuda.max_memory_allocated(i) for i in cards},
             held)
 
@@ -3972,8 +3940,7 @@ def phase_sector_mesh(h8, casscf: dict, mesh_solver, h4,
     solver = _casscf_solver(h8, 14, f32, dev, maxiter=2,
                             stopping_tolerance=1e-5, dispatch="two",
                             mesh=mesh, table_storage="compact")
-    r, solve_s, launches, routes, peak, held = _solve_on_cards(solver,
-                                                               devices)
+    r, solve_s, launches, peak, held = _solve_on_cards(solver, devices)
     paths["casscf_h8_n28_mesh4_compact"] = launches
     first = r.energy_convergence_list[0]
     if solver.table_storage != "sharded-compact":
@@ -3983,8 +3950,9 @@ def phase_sector_mesh(h8, casscf: dict, mesh_solver, h4,
                       f"{MESH_TOL} of the unsharded {casscf['first']!r}")
     failed += ["(b) " + f for f in _davidson_exit_gate(r)]
     rotations = r.stage_stats["davidson_solves"]
-    if routes != {"fused": 0, "chain": 0, "shard": 16 * rotations}:
-        failed.append(f"(b) {rotations} rotations, routes {routes}")
+    if not (launched(launches, "gemm.matmul") == 16 * rotations
+            and launched(launches, "transform.") == 0):
+        failed.append(f"(b) {rotations} rotations, launches {launches}")
     out["b"] = dict(table_storage=solver.table_storage, energy=r.eigenvalue,
                     outer_trace=r.energy_convergence_list,
                     unsharded_first_outer=casscf["first"],
@@ -4003,8 +3971,8 @@ def phase_sector_mesh(h8, casscf: dict, mesh_solver, h4,
                 stopping_tolerance=1e-5, dtype=f32, dispatch="two",
                 mesh=mesh_)
             cards = devices if mesh_ is not None else ["cuda:0"]
-            r, solve_s, launches, routes, peak, held = _solve_on_cards(
-                solver, cards)
+            r, solve_s, launches, peak, held = _solve_on_cards(solver,
+                                                               cards)
             runs[name] = dict(table_storage=solver.table_storage,
                               energy=r.eigenvalue,
                               first_outer=r.energy_convergence_list[0],
@@ -4032,7 +4000,7 @@ def phase_sector_mesh(h8, casscf: dict, mesh_solver, h4,
     e_u = _ssvqe_h4(h4, f64, dev).compute_energies().eigenvalues
     solver = _ssvqe_h4(h4, f64, dev, mesh=state_mesh)
     groups = [(str(g[0]), g[1].start, g[1].stop) for g in solver._groups]
-    r, solve_s, launches, routes, _, _ = _solve_on_cards(solver, devices)
+    r, solve_s, launches, _, _ = _solve_on_cards(solver, devices)
     paths["ssvqe_h4_state_mesh"] = launches
     d = float(abs(r.eigenvalues - e_u).max())
     if not d <= STATE_MESH_F64_TOL:
@@ -4041,7 +4009,7 @@ def phase_sector_mesh(h8, casscf: dict, mesh_solver, h4,
     out["d"] = dict(mesh=state_mesh.shape, groups=groups,
                     energies=list(r.eigenvalues), unsharded=list(e_u),
                     max_abs_diff=d, tolerance=STATE_MESH_F64_TOL,
-                    solve_s=solve_s, launches=launches, routes=routes)
+                    solve_s=solve_s, launches=launches)
 
     # (e) the bf16 split at N=28 on cuda:0
     split = {}
@@ -4060,8 +4028,7 @@ def phase_sector_mesh(h8, casscf: dict, mesh_solver, h4,
                 ms_f32=ms_f32, ms_split=ms_split)
         solver = _casscf_solver(h8, 14, f32, dev, maxiter=10,
                                 stopping_tolerance=1e-5, dispatch="two")
-        r, solve_s, launches, routes, peak, _ = _solve_on_cards(solver,
-                                                                ["cuda:0"])
+        r, solve_s, launches, peak, _ = _solve_on_cards(solver, ["cuda:0"])
         paths["casscf_h8_n28_split"] = launches
         U = torch.as_tensor(r.optimal_partial_unitary, device=dev)
         witness = _casscf_f64_witness(h8, solver, r, sec.build_values(
@@ -4071,8 +4038,7 @@ def phase_sector_mesh(h8, casscf: dict, mesh_solver, h4,
     if not abs(r.eigenvalue - H8_CASSCF_REFERENCE) <= H8_CASSCF_TOL:
         failed.append(f"(e) energy {r.eigenvalue!r} not within "
                       f"{H8_CASSCF_TOL} of {H8_CASSCF_REFERENCE}")
-    failed += ["(e) " + f for f in _casscf_gates(r, witness, launches,
-                                                  routes)]
+    failed += ["(e) " + f for f in _casscf_gates(r, witness, launches)]
     out["e"] = dict(kernels=split, energy=r.eigenvalue,
                     unsplit_energy=casscf["energy"],
                     outer_trace=r.energy_convergence_list,
@@ -4095,14 +4061,14 @@ def phase_sector_mesh(h8, casscf: dict, mesh_solver, h4,
 def _run_twin(name: str, argv: list, **prebuilt):
     """examples/torch_<name>.py's main(argv, **prebuilt) on the card, its
     printed lines captured: (returned numbers, printed text, wall
-    seconds, launch counts, route counts), the launch counts zeroed just
-    before the call and read just after."""
+    seconds, launch counts), the launch counts zeroed just before the
+    call and read just after."""
     import contextlib
     import io
     import os
     import runpy
     import torch
-    from esoo_torch.ops import gemm
+    from esoo_torch.ops import launch_counts, reset_launch_counts
     root = os.path.dirname(os.path.abspath(__file__))
     main = runpy.run_path(os.path.join(root, "examples", f"torch_{name}.py"),
                           run_name=f"torch_{name}")["main"]
@@ -4114,8 +4080,7 @@ def _run_twin(name: str, argv: list, **prebuilt):
         got = main(argv, **prebuilt)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return (got, buf.getvalue(), wall, launch_counts(),
-            gemm.route_launch_counts())
+    return got, buf.getvalue(), wall, launch_counts()
 
 
 def example_names() -> list:
@@ -4307,13 +4272,13 @@ def _example(name: str, argv: list, **prebuilt) -> dict:
     """Run one twin on the card, print its line, raise if a gate fails;
     returns its launch counts."""
     with LbfgsCount() as lbfgs:
-        got, out, wall, launches, routes = _run_twin(name, argv, **prebuilt)
+        got, out, wall, launches = _run_twin(name, argv, **prebuilt)
     numbers = {k: v for k, v in got.items() if k not in ("result", "solver")}
     failed = example_gates(name, got, out, card=True)
     emit("example", name=name, argv=argv, wall_s=wall, numbers=numbers,
          lbfgs_evaluations=sum(lbfgs.solves), lbfgs_solves=lbfgs.solves,
-         launches=launches, transform_route_launches=routes,
-         printed_tail=out.splitlines()[-6:], gates_failed=failed)
+         launches=launches, printed_tail=out.splitlines()[-6:],
+         gates_failed=failed)
     if failed:
         raise AssertionError(f"example {name}: " + "; ".join(failed))
     return launches
@@ -4341,7 +4306,7 @@ def phase_examples(h8) -> dict:
     f64, dev = torch.float64, "cuda"
     held = torch.cuda.memory_allocated()       # earlier phases' too
     torch.cuda.reset_peak_memory_stats()
-    got, out, wall, launches, routes = _run_twin(
+    got, out, wall, launches = _run_twin(
         "H8_scale_demo", ["--device", "cuda", "--maxiter", "1"], problem=h8)
     peak = torch.cuda.max_memory_allocated()
     r, solver = got.pop("result"), got.pop("solver")
@@ -4378,12 +4343,9 @@ def phase_examples(h8) -> dict:
     if not E >= lam - 1e-6:
         failed.append(f"E {E!r} below the exact sector ground energy "
                       f"{lam!r} at the final orbitals")
-    if not (launches["gemm.rotate_two_body_cuda"] > 0
-            and routes["fused"] == launches["gemm.rotate_two_body_cuda"]
-            and launches["gemm.matmul"] == 0 and routes["chain"] == 0
-            and routes["shard"] == 0):
-        failed.append(f"launches {launches}, routes {routes}: the one-pass "
-                      f"transform only")
+    if not (launched(launches, "transform.") > 0
+            and launched(launches, "gemm.matmul") == 0):
+        failed.append(f"launches {launches}: the one-pass transform only")
     solves = r.outer_iterations + 1            # the loop's and the tail's
     emit("examples", part="a", example="examples/torch_H8_scale_demo.py "
          "--maxiter 1", problem="H8 cc-pVTZ m=112 -> 16 spin orbitals, (4, "
@@ -4403,8 +4365,8 @@ def phase_examples(h8) -> dict:
                           device_busy_s=busy_s,
                           device_busy_share=busy_s / window_s),
          peak_memory_bytes=peak, held_before_solve_bytes=held,
-         launches=launches, transform_route_launches=routes,
-         printed_tail=out.splitlines()[-5:], gates_failed=failed)
+         launches=launches, printed_tail=out.splitlines()[-5:],
+         gates_failed=failed)
     if failed:
         raise AssertionError("H8 scale demo gates failed: "
                              + "; ".join(failed))
@@ -4499,7 +4461,8 @@ def main() -> int:
 
     table = []
     # K2's source is the one-pass kernel for n <= 8 (the VQE and SSVQE
-    # paths'); n > 8 keeps the four-launch chain of gemm.cu
+    # paths'); n > 8 keeps the four-launch chain of gemm.cu, whose
+    # launches are K1's
     sources = {"gemm.matmul": ("esoo_tpu/ops/pallas_kernels.py:58",
                                "esoo_torch/csrc/gemm.cu", {}),
                "gemm.rotate_two_body_cuda": (
@@ -4543,10 +4506,21 @@ def main() -> int:
                     "kernels.rotated_energy_spatial (the kron sandwich), "
                     "the route it replaces"})}
     # launches: the main paths' runs, each with the counts zeroed just
-    # before it; the numbers are at the row's `shape`, other shapes nested
+    # before it, under the row's keys; the numbers are at the row's
+    # `shape`, other shapes nested
+    keys = {"gemm.matmul": "gemm.matmul",
+            "gemm.rotate_two_body_cuda": "transform.",
+            "gate_scan.apply_rev_str": "gate_scan.",
+            "prot_scan.apply_prot_scan": "prot_scan.",
+            "pair_scan.apply_rev_pairs": "pair_scan.",
+            "sigma_lists.alpha_gather": "sigma_lists.alpha_gather",
+            "sigma_lists.beta_gather": "sigma_lists.beta_gather",
+            "orbital_vag.orbital_value_and_grad_cuda":
+                "orbital_vag.orbital_vag"}
     for name, (replaces, source, extra) in sources.items():
         rec = dict(timed[name])
-        by_path = {path: counts[name] for path, counts in paths.items()}
+        by_path = {path: launched(counts, keys[name])
+                   for path, counts in paths.items()}
         table.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
@@ -4556,7 +4530,7 @@ def main() -> int:
             **extra, **rec))
     # K7's pair-symmetry check, a sub-row of K7: its launches by path (one
     # a solver on the route, at the first BB descent)
-    by_path = {path: counts["orbital_vag.pair_asymmetry"]
+    by_path = {path: launched(counts, "orbital_vag.pair_asymmetry")
                for path, counts in paths.items()}
     k7 = next(row for row in table
               if row["name"] == "orbital_vag.orbital_value_and_grad_cuda")
@@ -4564,7 +4538,7 @@ def main() -> int:
         k7["pair_asymmetry"], source="esoo_torch/csrc/orbital_vag.cu "
         "pair_asym_tiles", launches=sum(by_path.values()),
         launches_by_path=by_path)
-    if paths["casscf_h8_n28"]["orbital_vag.pair_asymmetry"] != 1:
+    if by_path["casscf_h8_n28"] != 1:
         raise AssertionError(f"the casscf_h8_n28 solve checked g's pair "
                              f"symmetry {by_path['casscf_h8_n28']} times, "
                              f"not once")
@@ -4580,7 +4554,7 @@ def main() -> int:
                        ("casscf_h8_n28",
                         "orbital_vag.orbital_value_and_grad_cuda"),
                        ("vqe_h4", "orbital_vag.orbital_value_and_grad_cuda")):
-        if paths[path][name] <= 0:
+        if launched(paths[path], keys[name]) <= 0:
             raise AssertionError(f"the {name} kernels never launched on "
                                  f"the {path} path: {paths[path]}")
     emit("done", total_s=time.perf_counter() - t_start)

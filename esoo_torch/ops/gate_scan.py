@@ -26,8 +26,8 @@ matrix, one kernel launch forward and one backward.
 
 The plain version is sim/strings.py::_ApplyRevStr.  `apply_rev_str` runs
 it for tensors on the CPU; for CUDA tensors it launches the kernels or
-raises.  `apply_rev_str.launches` counts the kernel launches (one a
-direction), split by direction and route in `route_launch_counts`.
+raises.  ops/_build.py counts the launches by direction and route
+(`gate_scan.gate_scan_fwd.smem`, `gate_scan.gate_scan_bwd.global`, ...).
 
 Bound on an H100: the K-step serial dependence (see csrc/gate_scan.cu);
 the bytes a direction must move (the factored tables and the states in
@@ -57,16 +57,15 @@ _HEADER = 8                      # kHeader: nda ndb LA LB 1/nda 0 0 0
 _ROUTES = ("smem", "global")     # the kernel's route argument 0, 1
 
 
+_INTS = [ctypes.c_int] * 7                   # B K nA nB words stages route
+_build.entries("gate_scan", {
+    f"esoo_gate_scan_{d}_{t}": ([ctypes.c_void_p] * ptrs + _INTS, 1)
+    for d, ptrs in (("fwd", 5), ("bwd", 8)) for t in ("f32", "f64")})
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gate_scan")
-    ints = [ctypes.c_int] * 7                # B K nA nB words stages route
-    for fn in (lib.esoo_gate_scan_fwd_f32, lib.esoo_gate_scan_fwd_f64):
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + ints + [ctypes.c_void_p]
-    for fn in (lib.esoo_gate_scan_bwd_f32, lib.esoo_gate_scan_bwd_f64):
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 8 + ints + [ctypes.c_void_p]
     lib.esoo_gate_scan_smem_bytes.restype = ctypes.c_longlong
     lib.esoo_gate_scan_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.esoo_gate_scan_threads.restype = ctypes.c_int
@@ -211,21 +210,12 @@ def _launch(direction: str, V: torch.Tensor, tensors: list,
                          f"{V.device}; all must be on one CUDA device")
     scratch = torch.empty_like(V) \
         if route == "global" and direction == "bwd" else None
-    fn = getattr(_lib(), f"esoo_gate_scan_{direction}_"
-                 f"{'f32' if V.dtype == torch.float32 else 'f64'}")
     if direction == "bwd":
         tensors = tensors + [scratch]
-    args = [rec, c, s] + tensors
-    with torch.cuda.device(V.device):
-        rc = fn(*(None if t is None else t.data_ptr() for t in args), B, K,
-                nA, nB, words, plan["stages"], _ROUTES.index(route),
-                torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"gate scan {direction} kernel launch failed: "
-                           f"CUDA error {rc}")
-    apply_rev_str.launches += 1
-    apply_rev_str.direction_launches[direction] += 1
-    apply_rev_str.route_launches[route] += 1
+    _build.launch("gate_scan", f"esoo_gate_scan_{direction}_"
+                  f"{_build.TAGS[V.dtype]}", V.device, rec, c, s, *tensors,
+                  B, K, nA, nB, words, plan["stages"], _ROUTES.index(route),
+                  route=route)
 
 
 def _forward(V: torch.Tensor, c: torch.Tensor, s: torch.Tensor, tabs: dict,
@@ -293,23 +283,3 @@ def apply_rev_str(V0: torch.Tensor, theta: torch.Tensor,
                                           S.to(V0.dtype), flat)
     _check(V0, theta, tabs)
     return _GateScan.apply(V0, theta, tabs)
-
-
-def reset_launch_counts() -> None:
-    apply_rev_str.launches = 0
-    apply_rev_str.direction_launches = {"fwd": 0, "bwd": 0}
-    apply_rev_str.route_launches = dict.fromkeys(_ROUTES, 0)
-
-
-def launch_counts() -> dict:
-    return {"gate_scan.apply_rev_str": apply_rev_str.launches}
-
-
-def route_launch_counts() -> dict:
-    """The scan's launches by direction ("fwd", "bwd") and by route
-    ("smem", "global")."""
-    return {**apply_rev_str.direction_launches,
-            **apply_rev_str.route_launches}
-
-
-reset_launch_counts()

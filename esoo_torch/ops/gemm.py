@@ -23,10 +23,9 @@ and csrc/gemm.cu for what each design does about it.
 
 Each wrapper has a plain PyTorch twin (`matmul_plain`,
 `rotate_two_body_plain`).  The wrapper runs the twin only for tensors on
-the CPU; for CUDA tensors it launches the kernel or raises.  `launches`
-on each wrapper counts its kernel launches (reset_launch_counts /
-launch_counts; route_launch_counts splits the transform's by route), so a
-run can show that it went through the kernels.
+the CPU; for CUDA tensors it launches the kernel or raises.  The launches
+are counted by ops/_build.py: `gemm.matmul` (every K1 launch, the chain's
+and a shard's too) and `transform.transform` (two a one-pass call).
 """
 
 from __future__ import annotations
@@ -54,35 +53,23 @@ _SMEM_LIMIT = 232448             # shared memory a block may use (227 KB)
 _SMEM_TWO_BLOCKS = 115712        # (228 KB an SM - 1 KB a block) / 2
 
 
+# x, y, out, M, K, N, trans_x; g, u, partials, out, m, n, blocks, stages
+_build.entries("gemm", {
+    f"esoo_matmul_{t}": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4, 1)
+    for t in ("f32", "f64")})
+_build.entries("transform", {
+    f"esoo_transform_{t}": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4, 2)
+    for t in ("f32", "f64")})
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gemm")
-    for fn in (lib.esoo_matmul_f32, lib.esoo_matmul_f64):
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
     lib.esoo_matmul_narrow_plan.restype = ctypes.c_int
     lib.esoo_matmul_narrow_plan.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int)]
     return lib
-
-
-@functools.cache
-def _transform_lib() -> ctypes.CDLL:
-    lib = _build.load("transform")
-    for fn in (lib.esoo_transform_f32, lib.esoo_transform_f64):
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    return lib
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _transform_smem(m: int, n: int, itemsize: int, stages: int) -> int:
@@ -178,15 +165,8 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *,
         raise ValueError(f"matmul kernel shape out of range: M={M} K={K} "
                          f"N={N} trans_x={trans_x}")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    lib = _lib()
-    fn = lib.esoo_matmul_f32 if x.dtype == torch.float32 else \
-        lib.esoo_matmul_f64
-    with torch.cuda.device(x.device):             # launch on x's own device
-        rc = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), M, K, N,
-                int(bool(trans_x)), torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"gemm kernel launch failed: CUDA error {rc}")
-    matmul.launches += 1
+    _build.launch("gemm", f"esoo_matmul_{_build.TAGS[x.dtype]}", x.device,
+                  x, y, out, M, K, N, int(bool(trans_x)))
     return out
 
 
@@ -204,8 +184,10 @@ def rotate_two_body_cuda(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
     CUDA tensors take the route of `_transform_plan`: one pass over g
     (csrc/transform.cu, two launches from one C call) or the four-launch
-    chain (`rotate_two_body_chain`).  Not differentiable (the orbital
-    gradient path uses rotate_two_body_auto); CPU tensors run
+    K1 chain (`rotate_two_body_chain`).  Not differentiable: the BB
+    descent's gradient comes from ops/orbital_vag.py where
+    `orbital_vag.onepass_route` holds, else from autograd of
+    orbital_optimization.kernels.rotate_two_body_auto.  CPU tensors run
     `rotate_two_body_plain`."""
     if g.device.type == "cpu" and u.device.type == "cpu":
         return rotate_two_body_plain(g, u)
@@ -215,20 +197,11 @@ def rotate_two_body_cuda(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     if route == "chain":
         return rotate_two_body_chain(g, u)
     u = u.contiguous()
-    blocks = 2 * _sm_count(g.device.index)
+    blocks = 2 * _build.sm_count(g.device)
     partials = torch.empty((blocks, n ** 4), dtype=g.dtype, device=g.device)
     out = torch.empty((n,) * 4, dtype=g.dtype, device=g.device)
-    lib = _transform_lib()
-    fn = lib.esoo_transform_f32 if g.dtype == torch.float32 else \
-        lib.esoo_transform_f64
-    with torch.cuda.device(g.device):
-        rc = fn(g.data_ptr(), u.data_ptr(), partials.data_ptr(),
-                out.data_ptr(), m, n, blocks, stages,
-                torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"transform kernel launch failed: CUDA error {rc}")
-    rotate_two_body_cuda.launches += 2
-    rotate_two_body_cuda.fused_launches += 2
+    _build.launch("transform", f"esoo_transform_{_build.TAGS[g.dtype]}",
+                  g.device, g, u, partials, out, m, n, blocks, stages)
     return out
 
 
@@ -244,8 +217,6 @@ def rotate_two_body_chain(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     rest = m * m * m
     for _ in range(4):
         t = matmul(t.reshape(m, rest), u, trans_x=True)
-        rotate_two_body_cuda.launches += 1
-        rotate_two_body_cuda.chain_launches += 1
         rest = rest // m * n
     return t.reshape(n, n, n, n)
 
@@ -281,7 +252,6 @@ def rotate_two_body_shard(g_loc: torch.Tensor, u: torch.Tensor,
     t = matmul(t.reshape(m, m * m_loc * n), u, trans_x=True)
     t = matmul(t.reshape(m, m_loc * n * n), u, trans_x=True)
     t = matmul(t.reshape(m_loc, n ** 3), u_loc.contiguous(), trans_x=True)
-    rotate_two_body_shard.launches += 4
     return t.reshape(n, n, n, n)
 
 
@@ -329,28 +299,3 @@ def _check_transform_args(g: torch.Tensor, u: torch.Tensor) -> None:
                          f"{tuple(g.shape)} and {tuple(u.shape)}")
     if not g.is_contiguous():
         raise ValueError("rotate_two_body_cuda takes a contiguous g")
-
-
-def reset_launch_counts() -> None:
-    matmul.launches = 0
-    rotate_two_body_cuda.launches = 0
-    rotate_two_body_cuda.fused_launches = 0
-    rotate_two_body_cuda.chain_launches = 0
-    rotate_two_body_shard.launches = 0
-
-
-def launch_counts() -> dict:
-    return {"gemm.matmul": matmul.launches,
-            "gemm.rotate_two_body_cuda": rotate_two_body_cuda.launches}
-
-
-def route_launch_counts() -> dict:
-    """The transform's launches split by route: "fused" (transform.cu),
-    "chain" (four K1 launches) and "shard" (the four K1 launches of a
-    mesh shard's partial transform)."""
-    return {"fused": rotate_two_body_cuda.fused_launches,
-            "chain": rotate_two_body_cuda.chain_launches,
-            "shard": rotate_two_body_shard.launches}
-
-
-reset_launch_counts()

@@ -31,10 +31,8 @@ PyTorch (m x m).
     csrc/orbital_vag.cu's pair_asym_tiles on the card) within `pair_rtol`.
 
 It replaces no TPU kernel: the JAX package evaluates the energy with jnp
-and differentiates it with jax.grad.  `orbital_value_and_grad_cuda.launches`
-and `pair_asymmetry.launches` count the kernels' launches and
-`orbital_value_and_grad_cuda.routes` the calls by route ("kernel",
-"plain"): `launch_counts`, `route_counts`, `reset_launch_counts`.
+and differentiates it with jax.grad.  ops/_build.py counts the launches
+(`orbital_vag.orbital_vag`, four a call; `orbital_vag.pair_asymmetry`).
 """
 
 from __future__ import annotations
@@ -49,7 +47,6 @@ from . import _build
 _KERNEL_DTYPES = (torch.float32, torch.float64)
 _MAX_M = 256                # csrc/orbital_vag.cu kMaxM
 _MAX_N = 16                 # kMaxN
-_LAUNCHES = 4               # orbital_sym, orbital_pass, _finish, _combine
 # esoo_orbital_vag_plan's fields (csrc/orbital_vag.cu's Plan)
 _PLAN_FIELDS = ("nb", "mp", "spb", "threads", "steps", "depth", "per_sm",
                 "smem", "finish_smem", "work")
@@ -63,26 +60,24 @@ _PAIR_RTOL_F64 = 1e-10
 _PAIR_CHUNK = 1 << 23       # elements compared at once (64 MB at float64)
 
 
+_VAG = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3  # g u Gamma work out m n sms
+_ASYM = [ctypes.c_void_p] * 2 + [ctypes.c_int]     # g partials m
+# a value and gradient is four launches: orbital_sym, orbital_pass, _finish,
+# _combine
+_build.entries("orbital_vag", {
+    f"esoo_{kernel}_{t}": spec
+    for kernel, spec in (("orbital_vag", (_VAG, 4)),
+                         ("pair_asymmetry", (_ASYM, 1)))
+    for t in ("f32", "f64")})
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("orbital_vag")
-    for fn in (lib.esoo_orbital_vag_f32, lib.esoo_orbital_vag_f64):
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
     lib.esoo_orbital_vag_plan.restype = ctypes.c_int
     lib.esoo_orbital_vag_plan.argtypes = [ctypes.c_int] * 3 + [
         ctypes.POINTER(ctypes.c_int)]
-    for fn in (lib.esoo_pair_asymmetry_f32, lib.esoo_pair_asymmetry_f64):
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p]
     return lib
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _workspace(m: int, n: int) -> int:
@@ -149,16 +144,8 @@ def pair_asymmetry(g: torch.Tensor) -> float:
                          f"{g.dtype}, m={m}")
     tiles = -(-m * m // 32)
     partials = torch.empty((tiles * tiles, 2), dtype=g.dtype, device=g.device)
-    lib = _lib()
-    fn = lib.esoo_pair_asymmetry_f32 if g.dtype == torch.float32 else \
-        lib.esoo_pair_asymmetry_f64
-    with torch.cuda.device(g.device):
-        rc = fn(g.data_ptr(), partials.data_ptr(), m,
-                torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"pair-symmetry kernel launch failed: CUDA error "
-                           f"{rc}")
-    pair_asymmetry.launches += 1
+    _build.launch("orbital_vag", f"esoo_pair_asymmetry_{_build.TAGS[g.dtype]}",
+                  g.device, g, partials, m)
     worst, scale = partials.amax(dim=0).tolist()
     return worst / scale if scale > 0 else float("nan")
 
@@ -228,7 +215,6 @@ def orbital_value_and_grad_cuda(U: torch.Tensor, gamma: torch.Tensor,
     four launches from one C call for CUDA tensors, then the one-body part
     in PyTorch; `orbital_value_and_grad_plain` for CPU tensors."""
     if g.device.type == "cpu":
-        orbital_value_and_grad_cuda.routes["plain"] += 1
         return orbital_value_and_grad_plain(U, gamma, Gamma, h, g)
     U, gamma, Gamma, h = (t.detach() for t in (U, gamma, Gamma, h))
     _check(U, gamma, Gamma, h, g)
@@ -236,38 +222,9 @@ def orbital_value_and_grad_cuda(U: torch.Tensor, gamma: torch.Tensor,
     U, Gamma = U.contiguous(), Gamma.contiguous()
     work = torch.empty(_workspace(m, n), dtype=g.dtype, device=g.device)
     out = torch.empty(m * n + 1, dtype=g.dtype, device=g.device)
-    lib = _lib()
-    fn = lib.esoo_orbital_vag_f32 if g.dtype == torch.float32 else \
-        lib.esoo_orbital_vag_f64
-    with torch.cuda.device(g.device):
-        rc = fn(g.data_ptr(), U.data_ptr(), Gamma.data_ptr(),
-                work.data_ptr(), out.data_ptr(), m, n,
-                _sm_count(g.device.index),
-                torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"orbital kernel launch failed: CUDA error {rc}")
-    orbital_value_and_grad_cuda.launches += _LAUNCHES
-    orbital_value_and_grad_cuda.routes["kernel"] += 1
+    _build.launch("orbital_vag", f"esoo_orbital_vag_{_build.TAGS[g.dtype]}",
+                  g.device, g, U, Gamma, work, out, m, n,
+                  _build.sm_count(g.device))
     P = (h @ U) @ gamma.T
     G = out[:m * n].view(m, n).add_(P).addmm_(h.T, U @ gamma)
     return out[m * n] + torch.dot(U.reshape(-1), P.reshape(-1)), G
-
-
-def reset_launch_counts() -> None:
-    orbital_value_and_grad_cuda.launches = 0
-    orbital_value_and_grad_cuda.routes = {"kernel": 0, "plain": 0}
-    pair_asymmetry.launches = 0
-
-
-def launch_counts() -> dict:
-    return {"orbital_vag.orbital_value_and_grad_cuda":
-            orbital_value_and_grad_cuda.launches,
-            "orbital_vag.pair_asymmetry": pair_asymmetry.launches}
-
-
-def route_counts() -> dict:
-    """Calls by route: "kernel" (CUDA tensors) and "plain" (CPU)."""
-    return dict(orbital_value_and_grad_cuda.routes)
-
-
-reset_launch_counts()

@@ -31,8 +31,8 @@ forward and one backward.
 
 The plain version is sim/sector.py::_ApplyRev.  `apply_rev_pairs` runs
 it for tensors on the CPU; for CUDA tensors it launches the kernels or
-raises.  `apply_rev_pairs.launches` counts the kernel launches (one a
-direction), split by direction and route in `route_launch_counts`.
+raises.  ops/_build.py counts the launches by direction and route
+(`pair_scan.pair_scan_fwd.smem`, `pair_scan.pair_scan_bwd.global`, ...).
 
 Bound on an H100: the K-step serial dependence (see csrc/pair_scan.cu);
 the bytes a direction must move (the 8-byte pair records, the offsets, c,
@@ -65,16 +65,15 @@ _RECORD = 8                      # bytes a record (int2)
 _ROUTES = ("smem", "global")     # the kernel's route argument 0, 1
 
 
+_INTS = [ctypes.c_int] * 8    # B K n log_chunk chunks stages route threads
+_build.entries("pair_scan", {
+    f"esoo_pair_scan_{d}_{t}": ([ctypes.c_void_p] * ptrs + _INTS, 1)
+    for d, ptrs in (("fwd", 6), ("bwd", 9)) for t in ("f32", "f64")})
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("pair_scan")
-    ints = [ctypes.c_int] * 8     # B K n log_chunk chunks stages route threads
-    for fn in (lib.esoo_pair_scan_fwd_f32, lib.esoo_pair_scan_fwd_f64):
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + ints + [ctypes.c_void_p]
-    for fn in (lib.esoo_pair_scan_bwd_f32, lib.esoo_pair_scan_bwd_f64):
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 9 + ints + [ctypes.c_void_p]
     lib.esoo_pair_scan_smem_bytes.restype = ctypes.c_longlong
     lib.esoo_pair_scan_smem_bytes.argtypes = [ctypes.c_int] * 6
     lib.esoo_pair_scan_threads.restype = ctypes.c_int
@@ -244,8 +243,6 @@ def _launch(direction: str, v: torch.Tensor, tensors: list,
     `tensors` are its state arguments after the stream, offsets, c and s
     (forward: v0, out; backward: v, w, w0, dth).  `route` overrides the
     plan's (the card tests force the global route at small shapes)."""
-    fn = getattr(_lib(), f"esoo_pair_scan_{direction}_"
-                 f"{'f32' if v.dtype == torch.float32 else 'f64'}")
     B, n = v.shape
     K = int(c.shape[0])
     st = _stream(PARTNER, SFIELD)
@@ -268,18 +265,11 @@ def _launch(direction: str, v: torch.Tensor, tensors: list,
         if route == "global" and direction == "bwd" else None
     if direction == "bwd":
         tensors = tensors + [scratch]
-    args = [st["rec"], st["off"], c, s] + tensors
-    with torch.cuda.device(v.device):
-        rc = fn(*(None if t is None else t.data_ptr() for t in args), B, K,
-                n, ring["log_chunk"], ring["chunks"], ring["stages"],
-                _ROUTES.index(route), plan["threads"],
-                torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"pairs gate scan {direction} kernel launch "
-                           f"failed: CUDA error {rc}")
-    apply_rev_pairs.launches += 1
-    apply_rev_pairs.direction_launches[direction] += 1
-    apply_rev_pairs.route_launches[route] += 1
+    _build.launch("pair_scan", f"esoo_pair_scan_{direction}_"
+                  f"{_build.TAGS[v.dtype]}", v.device, st["rec"], st["off"],
+                  c, s, *tensors, B, K, n, ring["log_chunk"], ring["chunks"],
+                  ring["stages"], _ROUTES.index(route), plan["threads"],
+                  route=route)
 
 
 def _forward(v: torch.Tensor, c: torch.Tensor, s: torch.Tensor,
@@ -344,23 +334,3 @@ def apply_rev_pairs(v0: torch.Tensor, theta: torch.Tensor,
         return sector._ApplyRev.apply(v0, theta, PARTNER, SFIELD)
     _check(v0, theta, PARTNER, SFIELD)
     return _PairScan.apply(v0, theta, PARTNER, SFIELD)
-
-
-def reset_launch_counts() -> None:
-    apply_rev_pairs.launches = 0
-    apply_rev_pairs.direction_launches = {"fwd": 0, "bwd": 0}
-    apply_rev_pairs.route_launches = dict.fromkeys(_ROUTES, 0)
-
-
-def launch_counts() -> dict:
-    return {"pair_scan.apply_rev_pairs": apply_rev_pairs.launches}
-
-
-def route_launch_counts() -> dict:
-    """The scan's launches by direction ("fwd", "bwd") and by route
-    ("smem", "global")."""
-    return {**apply_rev_pairs.direction_launches,
-            **apply_rev_pairs.route_launches}
-
-
-reset_launch_counts()

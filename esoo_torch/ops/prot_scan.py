@@ -32,8 +32,8 @@ lax.scan over :256 `_scan_gates`, in sqrt(K) jax.checkpoint chunks past
 The plain version is sim/statevector.py::_ProtScan.  `apply_prot_scan`
 runs it for tensors on the CPU (on the CPU tables' (K, 2^N) sign table
 "FS" and flip axes "dims"); for CUDA tensors it launches the kernels or
-raises.  `apply_prot_scan.launches` counts the kernel launches (one a
-direction), split by direction and route in `route_launch_counts`.
+raises.  ops/_build.py counts the launches by direction and route
+(`prot_scan.prot_scan_fwd.smem`, `prot_scan.prot_scan_bwd.global`, ...).
 
 Bound on an H100: the serial dependence (see csrc/prot_scan.cu); a
 direction's operations (7.9 and 18.4 MFLOP at H8 -> 12 in float32) take
@@ -54,8 +54,6 @@ from . import _build
 
 _KERNEL_DTYPES = (torch.float32, torch.float64, torch.complex64,
                   torch.complex128)
-_TAGS = {torch.float32: "f32", torch.float64: "f64", torch.complex64: "c64",
-         torch.complex128: "c128"}
 _REAL = {torch.float32: torch.float32, torch.float64: torch.float64,
          torch.complex64: torch.float32, torch.complex128: torch.float64}
 # csrc/prot_scan.cu's constants, mirrored by _plan
@@ -68,17 +66,16 @@ _MAX_DIM = 1 << 30               # kMaxDim: 32-bit amplitude indices
 _ROUTES = ("smem", "global")     # the kernel's route argument 0, 1
 
 
+_INTS = [ctypes.c_int] * 7         # B K G dim stride window route
+_build.entries("prot_scan", {
+    f"esoo_prot_scan_{d}_{_build.TAGS[t]}":
+        ([ctypes.c_void_p] * ptrs + _INTS, 1)
+    for d, ptrs in (("fwd", 9), ("bwd", 11)) for t in _KERNEL_DTYPES})
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("prot_scan")
-    ints = [ctypes.c_int] * 7        # B K G dim stride window route
-    for tag in _TAGS.values():
-        fwd = getattr(lib, f"esoo_prot_scan_fwd_{tag}")
-        fwd.restype = ctypes.c_int
-        fwd.argtypes = [ctypes.c_void_p] * 9 + ints + [ctypes.c_void_p]
-        bwd = getattr(lib, f"esoo_prot_scan_bwd_{tag}")
-        bwd.restype = ctypes.c_int
-        bwd.argtypes = [ctypes.c_void_p] * 11 + ints + [ctypes.c_void_p]
     lib.esoo_prot_scan_smem_bytes.restype = ctypes.c_longlong
     lib.esoo_prot_scan_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.esoo_prot_scan_threads.restype = ctypes.c_int
@@ -244,19 +241,10 @@ def _launch(direction: str, B: int, dim: int, dtype, gates: list,
     fixed = _smem_bytes(dim, item, ritem, _BUFFERS if route == "smem" else 0,
                         0)
     window = window or _window(K, _SMEM_LIMIT - fixed, item, ritem)
-    fn = getattr(_lib(), f"esoo_prot_scan_{direction}_{_TAGS[dtype]}")
-    args = gates + tensors
-    dev = gates[0].device
-    with torch.cuda.device(dev):
-        rc = fn(*(None if t is None else t.data_ptr() for t in args),
-                B, K, G, dim, stride, window, _ROUTES.index(route),
-                torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"Pauli-rotation scan {direction} kernel launch "
-                           f"failed: CUDA error {rc}")
-    apply_prot_scan.launches += 1
-    apply_prot_scan.direction_launches[direction] += 1
-    apply_prot_scan.route_launches[route] += 1
+    _build.launch("prot_scan", f"esoo_prot_scan_{direction}_"
+                  f"{_build.TAGS[dtype]}", gates[0].device, *gates,
+                  *tensors, B, K, G, dim, stride, window,
+                  _ROUTES.index(route), route=route)
 
 
 def _forward(S: torch.Tensor, gates: list, stride: int = None,
@@ -339,23 +327,3 @@ def apply_prot_scan(state: torch.Tensor, ang: torch.Tensor,
     _check(state, ang, tabs["x"], tabs["z"], tabs["f"], tabs["groups"])
     return _ProtScanKernel.apply(state, ang, tabs["x"], tabs["z"],
                                  tabs["f"], tabs["groups"])
-
-
-def reset_launch_counts() -> None:
-    apply_prot_scan.launches = 0
-    apply_prot_scan.direction_launches = {"fwd": 0, "bwd": 0}
-    apply_prot_scan.route_launches = dict.fromkeys(_ROUTES, 0)
-
-
-def launch_counts() -> dict:
-    return {"prot_scan.apply_prot_scan": apply_prot_scan.launches}
-
-
-def route_launch_counts() -> dict:
-    """The scan's launches by direction ("fwd", "bwd") and by route
-    ("smem", "global")."""
-    return {**apply_prot_scan.direction_launches,
-            **apply_prot_scan.route_launches}
-
-
-reset_launch_counts()

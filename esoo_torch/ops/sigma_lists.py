@@ -21,8 +21,8 @@ H100 is in the source: the 1.57 GB of T written once (0.47 ms) and the
 353 MB of Y read once (0.105 ms) at H8 -> 28, float64.
 
 Each wrapper runs its plain version for tensors on the CPU; for CUDA
-tensors it launches its kernel or raises.  `alpha_gather.launches` and
-`beta_gather.launches` count the launches (`launch_counts`).
+tensors it launches its kernel or raises; ops/_build.py counts the
+launches (`sigma_lists.alpha_gather`, `sigma_lists.beta_gather`).
 """
 
 from __future__ import annotations
@@ -39,18 +39,18 @@ _MAX_OPS = 1024      # csrc/sigma_lists.cu's kMaxOps: beta_gather's operators
 _INT_MAX = 2 ** 31 - 1
 
 
+# alpha: V src sgn out q R ns; beta: Y src sgn base out q K ns C
+_ALPHA = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+_BETA = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+_build.entries("sigma_lists", {
+    f"esoo_{kind}_gather_{t}": (args, 1)
+    for kind, args in (("alpha", _ALPHA), ("beta", _BETA))
+    for t in ("f32", "f64")})
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("sigma_lists")
-    for tag in ("f32", "f64"):
-        fn = getattr(lib, f"esoo_alpha_gather_{tag}")
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
-        fn = getattr(lib, f"esoo_beta_gather_{tag}")
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
     lib.esoo_beta_gather_max_ops.restype = ctypes.c_int
     lib.esoo_beta_gather_max_ops.argtypes = []
     return lib
@@ -107,10 +107,6 @@ def _check_data(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: operands must be contiguous")
 
 
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def alpha_gather(V: torch.Tensor, src: torch.Tensor,
                  sgn: torch.Tensor) -> torch.Tensor:
     """(q, R, ns) T_q = V D_q^T of V (R, ns): one launch of csrc/
@@ -128,15 +124,8 @@ def alpha_gather(V: torch.Tensor, src: torch.Tensor,
     if max(q, R, ns) > _INT_MAX:
         raise ValueError("alpha gather: a dimension past 32 bits")
     out = torch.empty((q, R, ns), dtype=V.dtype, device=V.device)
-    fn = getattr(_lib(), "esoo_alpha_gather_"
-                 f"{'f32' if V.dtype == torch.float32 else 'f64'}")
-    with torch.cuda.device(V.device):
-        rc = fn(V.data_ptr(), src.data_ptr(), sgn.data_ptr(), out.data_ptr(),
-                q, R, ns, _stream(V.device))
-    if rc != 0:
-        raise RuntimeError(f"alpha gather kernel launch failed: CUDA error "
-                           f"{rc}")
-    alpha_gather.launches += 1
+    _build.launch("sigma_lists", f"esoo_alpha_gather_{_build.TAGS[V.dtype]}",
+                  V.device, V, src, sgn, out, q, R, ns)
     return out
 
 
@@ -162,27 +151,6 @@ def beta_gather(Y: torch.Tensor, src: torch.Tensor, sgn: torch.Tensor,
     if K * ns > _INT_MAX or C > _INT_MAX:
         raise ValueError("beta gather: a dimension past 32 bits")
     out = torch.empty_like(base)
-    fn = getattr(_lib(), "esoo_beta_gather_"
-                 f"{'f32' if Y.dtype == torch.float32 else 'f64'}")
-    with torch.cuda.device(Y.device):
-        rc = fn(Y.data_ptr(), src.data_ptr(), sgn.data_ptr(),
-                base.data_ptr(), out.data_ptr(), q, K, ns, C,
-                _stream(Y.device))
-    if rc != 0:
-        raise RuntimeError(f"beta gather kernel launch failed: CUDA error "
-                           f"{rc}")
-    beta_gather.launches += 1
+    _build.launch("sigma_lists", f"esoo_beta_gather_{_build.TAGS[Y.dtype]}",
+                  Y.device, Y, src, sgn, base, out, q, K, ns, C)
     return out
-
-
-def reset_launch_counts() -> None:
-    alpha_gather.launches = 0
-    beta_gather.launches = 0
-
-
-def launch_counts() -> dict:
-    return {"sigma_lists.alpha_gather": alpha_gather.launches,
-            "sigma_lists.beta_gather": beta_gather.launches}
-
-
-reset_launch_counts()

@@ -11,10 +11,13 @@ evaluated in the spatial basis (the spin-block factorization of the JAX
 package: one m-sized transform instead of a 2m-sized one).
 
 `rotate_two_body` on a CUDA tensor runs the hand-written transform
-(ops/gemm.py::rotate_two_body_cuda, four CUDA GEMM launches); on a CPU
+(ops/gemm.py::rotate_two_body_cuda: one pass over g in csrc/transform.cu
+for n <= 8, else the chain of four K1 launches of csrc/gemm.cu); on a CPU
 tensor it runs the plain tensordot chain.  The energy path
 (`rotated_energy_spatial`) stays plain PyTorch — matmul/tensordot, as the
-JAX package leaves it to XLA — and its gradient comes from autograd.
+JAX package leaves it to XLA — and autograd differentiates it wherever
+the BB descent does not take ops/orbital_vag.py (the value and gradient
+in one pass over g, where `orbital_vag.onepass_route` holds).
 """
 
 from __future__ import annotations

@@ -34,8 +34,8 @@ Per path:
 and for each, at the solve's final state, one L-BFGS evaluation (value
 and gradient of the energy): its wall (host clock over 5, synchronized),
 device ms and device events a call (torch.profiler, 3 calls), each scan
-kernel's launches a call (the wrappers the checkout has), and the busy
-share over 3 evaluations.  The default --paths is h4,h8_16.
+kernel's launches a call (ops/_build.py's count, by kernel and route),
+and the busy share over 3 evaluations.  The default --paths is h4,h8_16.
   * kernels: the string gate scan's, the Pauli-rotation scan's and the
     pairs scan's kernel rows, each at its shapes (GATE_SCAN_SHAPES,
     PROT_SCAN_SHAPES, PAIR_SCAN_SHAPES) as the kernels phase of the
@@ -72,32 +72,19 @@ import time
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _scan_wrappers() -> list:
-    """The scan kernel wrappers of the checkout under test (a checkout
-    before a kernel lacks its module)."""
-    import importlib
-    out = []
-    for name in ("gate_scan", "prot_scan", "pair_scan"):
-        try:
-            out.append(importlib.import_module(f"esoo_torch.ops.{name}"))
-        except ImportError:
-            pass
-    return out
-
-
 def _evaluation(C, vag, *args) -> dict:
     import torch
-    wrappers = _scan_wrappers()
+    from esoo_torch.ops import launch_counts, reset_launch_counts
     vag(*args)
     torch.cuda.synchronize()
-    for w in wrappers:
-        w.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     for _ in range(5):
         vag(*args)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / 5 * 1e3
-    scans = {k: v / 5 for w in wrappers for k, v in w.launch_counts().items()}
+    scans = {k: v / 5 for k, v in launch_counts().items()
+             if k.split(".")[0] in ("gate_scan", "prot_scan", "pair_scan")}
     device_ms, events = C.device_profile(lambda: vag(*args), reps=3)
     window_s, busy_s = C.busy_share(lambda: [vag(*args) for _ in range(3)])
     return dict(evaluation_wall_ms=wall_ms, evaluation_device_ms=device_ms,
@@ -265,24 +252,20 @@ def _at_threads(threads: int, direction: str, v, tensors: list, c, s,
     takes the plan's size): `tensors` are the forward's v0, out or the
     backward's v, w, w0, dth."""
     import torch
-    from esoo_torch.ops import pair_scan
+    from esoo_torch.ops import _build, pair_scan
     B, n = v.shape
     st = pair_scan._stream(P, S)
     ring = pair_scan._plan(n, v.dtype, len(c), st["max_pairs"],
                            st["total"])[direction]
-    fn = getattr(pair_scan._lib(), f"esoo_pair_scan_{direction}_"
-                 f"{'f32' if v.dtype == torch.float32 else 'f64'}")
     if direction == "bwd":
         tensors = tensors + [torch.empty_like(v)
                              if ring["route"] == "global" else None]
-    rc = fn(*(None if t is None else t.data_ptr()
-              for t in [st["rec"], st["off"], c, s] + tensors),
-            B, len(c), n, ring["log_chunk"], ring["chunks"], ring["stages"],
-            pair_scan._ROUTES.index(ring["route"]), threads,
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"pair_scan_{direction} at {threads} threads: "
-                           f"CUDA error {rc}")
+    _build.launch("pair_scan", f"esoo_pair_scan_{direction}_"
+                  f"{_build.TAGS[v.dtype]}", v.device, st["rec"], st["off"],
+                  c, s, *tensors, B, len(c), n, ring["log_chunk"],
+                  ring["chunks"], ring["stages"],
+                  pair_scan._ROUTES.index(ring["route"]), threads,
+                  route=ring["route"])
 
 
 def blocks(C) -> dict:

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from esoo_torch.ops import gemm
+from esoo_torch.ops import gemm, launch_counts, reset_launch_counts
 
 pytestmark = pytest.mark.cuda
 
@@ -31,6 +31,12 @@ def _close(out, ref):
     assert float((out - ref).abs().max()) <= tol
 
 
+def _launched(prefix: str) -> int:
+    """The counted device launches under the keys that start with prefix
+    (ops/_build.py's key scheme)."""
+    return sum(v for k, v in launch_counts().items() if k.startswith(prefix))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("M,K,N,trans_x", [(300, 700, 150, False),
                                            (300, 700, 150, True),
@@ -42,10 +48,10 @@ def test_matmul_kernel_matches_plain(card, dtype, M, K, N, trans_x):
     x = torch.as_tensor(rng.normal(size=(K, M) if trans_x else (M, K)),
                         device=card).to(dtype)
     y = torch.as_tensor(rng.normal(size=(K, N)), device=card).to(dtype)
-    before = gemm.launch_counts()["gemm.matmul"]
+    before = _launched("gemm.matmul")
     out = gemm.matmul(x, y, trans_x=trans_x)
     torch.cuda.synchronize()
-    assert gemm.launch_counts()["gemm.matmul"] == before + 1
+    assert _launched("gemm.matmul") == before + 1
     _close(out, gemm.matmul_plain(x, y, trans_x=trans_x))
 
 
@@ -187,13 +193,11 @@ def test_rotate_two_body_repeats_bit_for_bit(card, dtype):
 def test_rotate_two_body_launch_counts_per_route(card, m, n, route,
                                                  launches):
     g, u = _transform_inputs(m, n, torch.float32, card)
-    gemm.reset_launch_counts()
+    reset_launch_counts()
     gemm.rotate_two_body_cuda(g, u)
     torch.cuda.synchronize()
-    assert gemm.launch_counts() == {
-        "gemm.matmul": 0 if route == "fused" else 4,
-        "gemm.rotate_two_body_cuda": launches}
-    assert gemm.route_launch_counts()[route] == launches
+    kernel = "transform.transform" if route == "fused" else "gemm.matmul"
+    assert launch_counts() == {kernel: launches}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -204,12 +208,13 @@ def test_rotate_two_body_at_the_n2_shapes(card, dtype, m, n, route):
     tail), cc-pVTZ (58, 10) on the K1 chain, whose stage 1 has M = 58^3."""
     g, u = _transform_inputs(m, n, dtype, card)
     assert gemm._transform_plan(m, n, g.element_size())[0] == route
-    gemm.reset_launch_counts()
+    reset_launch_counts()
     out = gemm.rotate_two_body_cuda(g, u)
     again = gemm.rotate_two_body_cuda(g, u)
     torch.cuda.synchronize()
     per = 2 if route == "fused" else 4
-    assert gemm.route_launch_counts()[route] == 2 * per
+    kernel = "transform.transform" if route == "fused" else "gemm.matmul"
+    assert launch_counts() == {kernel: 2 * per}
     _close(out, gemm.rotate_two_body_plain(g, u))
     assert torch.equal(out, again)
     if route == "chain":
@@ -227,12 +232,12 @@ def test_casscf_n2_sto3g_on_the_card_matches_the_cpu(card):
                        basis="sto-3g").run().active_space()
     runs = []
     for device in ("cuda", "cpu"):
-        gemm.reset_launch_counts()
+        reset_launch_counts()
         runs.append(FusedOptOrbCASSCF(
             12, problem=p, maxiter=12, stopping_tolerance=1e-6,
             device=device, dtype=torch.float64).compute_minimum_energy())
         if device == "cuda":
-            assert gemm.route_launch_counts()["fused"] > 0
+            assert _launched("transform.transform") > 0
     assert abs(runs[0].eigenvalue - runs[1].eigenvalue) <= 1e-8
 
 
@@ -248,12 +253,12 @@ def test_fused_h2_on_the_card_matches_the_cpu(card):
     p = MoleculeDriver(atom="H 0 0 0; H 0 0 0.735", basis="6-31g").run()
     runs = []
     for device in ("cuda", "cpu"):
-        gemm.reset_launch_counts()
+        reset_launch_counts()
         runs.append(FusedOptOrbVQE(
             4, UCCSD(2, (1, 1), initial_state=HartreeFock(2, (1, 1))),
             problem=p, device=device).compute_minimum_energy().eigenvalue)
         if device == "cuda":
-            assert gemm.launch_counts()["gemm.rotate_two_body_cuda"] > 0
+            assert _launched("transform.transform") > 0
     assert abs(runs[0] - runs[1]) <= 1e-8
     assert abs(runs[0] + 1.8661038079694765) <= 5e-4
 
@@ -268,11 +273,10 @@ def test_chain_route_and_k1_at_the_casscf_shape(card):
                     generator=gen)
     u = torch.as_tensor(np.linalg.qr(np.random.default_rng(0).normal(
         size=(m, n)))[0], device=card).float()
-    gemm.reset_launch_counts()
+    reset_launch_counts()
     out = gemm.rotate_two_body_cuda(g, u)
     torch.cuda.synchronize()
-    assert gemm.route_launch_counts() == {"fused": 0, "chain": 4,
-                                          "shard": 0}
+    assert launch_counts() == {"gemm.matmul": 4}
     _close(out, gemm.rotate_two_body_plain(g, u))
     x = g.reshape(m, m ** 3)
     _close(gemm.matmul(x, u, trans_x=True),
@@ -285,12 +289,12 @@ def test_casscf_h2_on_the_card_matches_the_cpu(card):
     p = MoleculeDriver(atom="H 0 0 0; H 0 0 0.735", basis="6-31g").run()
     runs = []
     for device in ("cuda", "cpu"):
-        gemm.reset_launch_counts()
+        reset_launch_counts()
         runs.append(FusedOptOrbCASSCF(4, problem=p, maxiter=20, device=device,
                                       dtype=torch.float64
                                       ).compute_minimum_energy().eigenvalue)
         if device == "cuda":
-            assert gemm.launch_counts()["gemm.rotate_two_body_cuda"] > 0
+            assert _launched("transform.transform") > 0
     assert abs(runs[0] - runs[1]) <= 1e-8
     assert abs(runs[0] + 1.8661038) <= 1e-4
 
@@ -365,7 +369,7 @@ def test_ssvqe_h2_on_the_card_matches_the_cpu(card):
     p = MoleculeDriver(atom="H 0 0 0; H 0 0 0.735", basis="6-31g").run()
     runs = []
     for device in ("cuda", "cpu"):
-        gemm.reset_launch_counts()
+        reset_launch_counts()
         runs.append(FusedOptOrbSSVQE(
             4, UCCSD(2, (1, 1), reps=2),
             initial_states=[HartreeFock(2, (1, 1)),
@@ -373,7 +377,7 @@ def test_ssvqe_h2_on_the_card_matches_the_cpu(card):
             weight_vector=[2, 1], problem=p, maxiter=20, dtype=torch.float64,
             device=device).compute_energies().eigenvalues)
         if device == "cuda":
-            assert gemm.route_launch_counts()["fused"] > 0
+            assert _launched("transform.transform") > 0
     np.testing.assert_allclose(runs[0], runs[1], rtol=0, atol=1e-8)
     np.testing.assert_allclose(runs[0], [-1.85403538, -1.37044354], rtol=0,
                                atol=1.5e-3)
@@ -389,11 +393,10 @@ def test_one_pass_transform_at_the_full_space_shape(card):
                     generator=gen)
     u = torch.as_tensor(np.linalg.qr(np.random.default_rng(6).normal(
         size=(m, n)))[0], device=card).float()
-    gemm.reset_launch_counts()
+    reset_launch_counts()
     out = gemm.rotate_two_body_cuda(g, u)
     torch.cuda.synchronize()
-    assert gemm.route_launch_counts() == {"fused": 2, "chain": 0,
-                                          "shard": 0}
+    assert launch_counts() == {"transform.transform": 2}
     _close(out, gemm.rotate_two_body_plain(g, u))
 
 
@@ -432,14 +435,14 @@ def test_full_space_h2_on_the_card_matches_the_cpu(card):
     p = MoleculeDriver(atom="H 0 0 0; H 0 0 0.735", basis="6-31g").run()
     runs = []
     for device in ("cuda", "cpu"):
-        gemm.reset_launch_counts()
+        reset_launch_counts()
         solver = FusedOptOrbVQE(
             4, UCCSD(2, (1, 1), initial_state=HartreeFock(2, (1, 1))),
             problem=p, simulation="full", device=device)
         assert solver.simulation == "full"
         runs.append(solver.compute_minimum_energy().eigenvalue)
         if device == "cuda":
-            assert gemm.launch_counts()["gemm.rotate_two_body_cuda"] > 0
+            assert _launched("transform.transform") > 0
     assert abs(runs[0] - runs[1]) <= 1e-8
     assert abs(runs[0] + 1.8661038079694765) <= 5e-4
 
@@ -477,15 +480,15 @@ def test_class_optorb_h2_on_the_card_matches_the_cpu(card, kind):
     rebuild)."""
     from esoo_torch.chem import MoleculeDriver
     p = MoleculeDriver(atom="H 0 0 0; H 0 0 0.735", basis="6-31g").run()
-    gemm.reset_launch_counts()
+    reset_launch_counts()
     r_gpu = _class_optorb(kind, p, "cuda")
-    routes = gemm.route_launch_counts()
+    matmuls, fused = _launched("gemm.matmul"), _launched("transform.")
     r_cpu = _class_optorb(kind, p, "cpu")
     key = "eigenvalue" if kind == "vqe" else "eigenvalues"
     np.testing.assert_allclose(getattr(r_gpu, key), getattr(r_cpu, key),
                                rtol=0, atol=1e-8)
-    assert routes["chain"] == 0
-    assert routes["fused"] == 2 * len(r_gpu.metrics["hamiltonian_time"]) > 0
+    assert matmuls == 0
+    assert fused == 2 * len(r_gpu.metrics["hamiltonian_time"]) > 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -499,7 +502,7 @@ def test_rotate_two_body_shard_matches_plain(card, dtype, m, m_loc, n):
     g = torch.as_tensor(rng.normal(size=(m,) * 4) / m, device=card).to(dtype)
     u = torch.as_tensor(np.linalg.qr(rng.normal(size=(m, n)))[0],
                         device=card).to(dtype)
-    gemm.reset_launch_counts()
+    reset_launch_counts()
     parts = []
     for d in range(m // m_loc):
         g_loc = g[..., d * m_loc:(d + 1) * m_loc].contiguous()
@@ -508,8 +511,7 @@ def test_rotate_two_body_shard_matches_plain(card, dtype, m, m_loc, n):
         _close(out, gemm.rotate_two_body_shard_plain(g_loc, u, u_loc))
         parts.append(out)
     torch.cuda.synchronize()
-    assert gemm.route_launch_counts()["shard"] == 4 * (m // m_loc)
-    assert gemm.launch_counts()["gemm.matmul"] == 4 * (m // m_loc)
+    assert launch_counts() == {"gemm.matmul": 4 * (m // m_loc)}
     _close(sum(parts), gemm.rotate_two_body_plain(g, u))
 
 
@@ -574,15 +576,14 @@ def test_mesh_on_the_card_matches_the_cpu(card):
                        basis="6-31g").run()
     runs = []
     for dev in ("cuda", "cpu"):
-        gemm.reset_launch_counts()
+        reset_launch_counts()
         r = FusedOptOrbCASSCF(8, problem=p, device=dev,
                               mesh=make_orbital_mesh(devices=[dev] * 4)
                               ).compute_minimum_energy()
         runs.append(r.eigenvalue)
         if dev == "cuda":
-            routes = gemm.route_launch_counts()
-            assert routes["shard"] == 16 * (r.outer_iterations + 1)
-            assert routes["fused"] == routes["chain"] == 0
+            assert _launched("gemm.matmul") == 16 * (r.outer_iterations + 1)
+            assert _launched("transform.") == 0
     assert abs(runs[0] - runs[1]) <= 1e-8
 
 
@@ -630,15 +631,14 @@ def test_gate_scan_kernel_matches_plain(card, dtype, n, parts, batch, route):
     from esoo_torch.ops import gate_scan
     tabs, th, V0, ct = _scan_inputs(n, parts, dtype, batch, card)
     c, s = torch.cos(th), torch.sin(th)
-    gate_scan.reset_launch_counts()
+    reset_launch_counts()
     V = gate_scan._forward(V0, c, s, tabs, route)
     W, dth = gate_scan._backward(V, ct, c, s, tabs, route)
     torch.cuda.synchronize()
     plan = gate_scan._plan(V0.shape[1], V0.shape[2], dtype)
-    routes = [route or plan[d]["route"] for d in ("fwd", "bwd")]
-    counts = gate_scan.route_launch_counts()
-    assert counts["fwd"] == counts["bwd"] == 1
-    assert counts["global"] == routes.count("global")
+    assert launch_counts() == {
+        f"gate_scan.gate_scan_{d}.{route or plan[d]['route']}": 1
+        for d in ("fwd", "bwd")}
     V_ref, W_ref, dth_ref = _scan_plain(tabs, th, V0, ct)
     _close(V, V_ref)
     _close(W, W_ref)
@@ -655,13 +655,13 @@ def test_gate_scan_autograd_and_repeats(card, dtype):
     V0, ct = V0.reshape(2, 2, *V0.shape[1:]), ct.reshape(2, 2, *ct.shape[1:])
     runs = []
     for _ in range(2):
-        gate_scan.reset_launch_counts()
+        reset_launch_counts()
         v, t = V0.clone().requires_grad_(), th.clone().requires_grad_()
         V = gate_scan.apply_rev_str(v, t, tabs)
         torch.autograd.backward(V, ct)
         torch.cuda.synchronize()
-        assert gate_scan.route_launch_counts()["fwd"] == 1
-        assert gate_scan.route_launch_counts()["bwd"] == 1
+        assert _launched("gate_scan.gate_scan_fwd") == 1
+        assert _launched("gate_scan.gate_scan_bwd") == 1
         runs.append((V.detach(), v.grad, t.grad))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
@@ -716,15 +716,16 @@ def test_sector_vqe_on_the_card_never_runs_the_plain_scan(card, monkeypatch):
             def refuse(*args):
                 raise AssertionError("the plain gate scan ran on the card")
             monkeypatch.setattr(strings._ApplyRevStr, "apply", refuse)
-        gate_scan.reset_launch_counts()
+        reset_launch_counts()
         r = FusedOptOrbVQE(
             4, UCCSD(2, (1, 1), initial_state=HartreeFock(2, (1, 1))),
             problem=p, dtype=torch.float64, device=device
         ).compute_minimum_energy()
         energies[device] = r.eigenvalue
-    counts = gate_scan.route_launch_counts()
-    assert counts["bwd"] > 0 and counts["fwd"] >= counts["bwd"]
-    assert counts["bwd"] >= r.stage_stats["lbfgs_evaluations"]
+    fwd = _launched("gate_scan.gate_scan_fwd")
+    bwd = _launched("gate_scan.gate_scan_bwd")
+    assert bwd > 0 and fwd >= bwd
+    assert bwd >= r.stage_stats["lbfgs_evaluations"]
     assert abs(energies["cuda"] - energies["cpu"]) <= 1e-8
 
 
@@ -807,13 +808,13 @@ def test_prot_scan_kernel_matches_plain(card, nq, kind, dtype, batch, K,
     g = [tabs["x"], tabs["z"], tabs["f"], c, s, tabs["groups"]]
     plan = prot_scan._plan(s0.shape[1], batch, len(ang), dtype,
                            len(tabs["groups"]) - 1)
-    prot_scan.reset_launch_counts()
+    reset_launch_counts()
     out, ckpt = prot_scan._forward(s0, g, plan["stride"], True, route)
     w0, dang = prot_scan._backward(ckpt, ct, g, plan["stride"], route)
     torch.cuda.synchronize()
-    counts = prot_scan.route_launch_counts()
-    assert counts["fwd"] == counts["bwd"] == 1
-    assert counts["global"] == (2 if route == "global" else 0)
+    assert launch_counts() == {
+        f"prot_scan.prot_scan_{d}.{route or 'smem'}": 1
+        for d in ("fwd", "bwd")}
     ref = _prot_plain(tabs, ang, s0, ct, run)
     _close(out, ref[0])
     _close(w0, ref[1])
@@ -876,14 +877,14 @@ def test_prot_scan_autograd_and_repeats(card, dtype):
                                           seed=1)
     runs = []
     for _ in range(2):
-        prot_scan.reset_launch_counts()
+        reset_launch_counts()
         s = s0.reshape(2, 2, -1).clone().requires_grad_()
         a = ang.clone().requires_grad_()
         out = prot_scan.apply_prot_scan(s, a, tabs)
         torch.autograd.backward(out, ct.reshape(2, 2, -1))
         torch.cuda.synchronize()
-        counts = prot_scan.route_launch_counts()
-        assert counts["fwd"] == counts["bwd"] == 1
+        assert _launched("prot_scan.prot_scan_fwd") == \
+            _launched("prot_scan.prot_scan_bwd") == 1
         runs.append((out.detach().reshape(4, -1), s.grad.reshape(4, -1),
                      a.grad))
     for x, y in zip(*runs):
@@ -947,15 +948,16 @@ def test_full_space_vqe_on_the_card_never_runs_the_plain_scan(card,
                 raise AssertionError("the plain Pauli-rotation scan ran on "
                                      "the card")
             monkeypatch.setattr(TV._ProtScan, "apply", refuse)
-        prot_scan.reset_launch_counts()
+        reset_launch_counts()
         r = FusedOptOrbVQE(
             8, UCCSD(4, (2, 2), initial_state=HartreeFock(4, (2, 2))),
             problem=p, simulation="full", maxiter=3, dtype=torch.float64,
             device=device).compute_minimum_energy()
         energies[device] = r.eigenvalue
-    counts = prot_scan.route_launch_counts()
-    assert counts["bwd"] > 0 and counts["fwd"] >= counts["bwd"]
-    assert counts["bwd"] >= r.stage_stats["lbfgs_evaluations"]
+    fwd = _launched("prot_scan.prot_scan_fwd")
+    bwd = _launched("prot_scan.prot_scan_bwd")
+    assert bwd > 0 and fwd >= bwd
+    assert bwd >= r.stage_stats["lbfgs_evaluations"]
     assert abs(energies["cuda"] - energies["cpu"]) <= 1e-8
 
 
@@ -1001,7 +1003,7 @@ def test_pair_scan_kernel_matches_plain(card, dtype, n, parts, batch, route):
     from esoo_torch.ops import pair_scan
     P, S, th, v0, ct = _pair_inputs(n, parts, dtype, batch, card)
     c, s = torch.cos(th), torch.sin(th)
-    pair_scan.reset_launch_counts()
+    reset_launch_counts()
     out = pair_scan._forward(v0, c, s, P, S, route)
     w0, dth = pair_scan._backward(out, ct, c, s, P, S, route)
     torch.cuda.synchronize()
@@ -1009,10 +1011,9 @@ def test_pair_scan_kernel_matches_plain(card, dtype, n, parts, batch, route):
     plan = pair_scan._plan(v0.shape[1], dtype, P.shape[0], st["max_pairs"],
                            st["total"])
     assert st["plans"][v0.shape[1], dtype] == plan
-    routes = [route or plan[d]["route"] for d in ("fwd", "bwd")]
-    counts = pair_scan.route_launch_counts()
-    assert counts["fwd"] == counts["bwd"] == 1
-    assert counts["global"] == routes.count("global")
+    assert launch_counts() == {
+        f"pair_scan.pair_scan_{d}.{route or plan[d]['route']}": 1
+        for d in ("fwd", "bwd")}
     if n >= 8:
         assert all(plan[d]["chunks"] > plan[d]["stages"]
                    for d in ("fwd", "bwd"))
@@ -1053,14 +1054,14 @@ def test_pair_scan_autograd_and_repeats(card, dtype):
     P, S, th, v0, ct = _pair_inputs(6, (3, 3), dtype, 4, card, seed=1)
     runs = []
     for _ in range(2):
-        pair_scan.reset_launch_counts()
+        reset_launch_counts()
         v = v0.reshape(2, 2, -1).clone().requires_grad_()
         t = th.clone().requires_grad_()
         out = pair_scan.apply_rev_pairs(v, t, P, S)
         torch.autograd.backward(out, ct.reshape(2, 2, -1))
         torch.cuda.synchronize()
-        counts = pair_scan.route_launch_counts()
-        assert counts["fwd"] == counts["bwd"] == 1
+        assert _launched("pair_scan.pair_scan_fwd") == \
+            _launched("pair_scan.pair_scan_bwd") == 1
         runs.append((out.detach().reshape(4, -1), v.grad.reshape(4, -1),
                      t.grad))
     for x, y in zip(*runs):
@@ -1114,16 +1115,17 @@ def test_pairs_vqe_on_the_card_never_runs_the_plain_scan(card, monkeypatch):
             def refuse(*args):
                 raise AssertionError("the plain pairs scan ran on the card")
             monkeypatch.setattr(sector._ApplyRev, "apply", refuse)
-        pair_scan.reset_launch_counts()
+        reset_launch_counts()
         s = FusedOptOrbVQE(
             8, UCCSD(4, (2, 2), initial_state=HartreeFock(4, (2, 2))),
             problem=p, maxiter=3, dtype=torch.float64, device=device)
         assert s._sector.kernel == "pairs"
         r = s.compute_minimum_energy()
         energies[device] = r.eigenvalue
-    counts = pair_scan.route_launch_counts()
-    assert counts["bwd"] > 0 and counts["fwd"] >= counts["bwd"]
-    assert counts["bwd"] >= r.stage_stats["lbfgs_evaluations"]
+    fwd = _launched("pair_scan.pair_scan_fwd")
+    bwd = _launched("pair_scan.pair_scan_bwd")
+    assert bwd > 0 and fwd >= bwd
+    assert bwd >= r.stage_stats["lbfgs_evaluations"]
     assert abs(energies["cuda"] - energies["cpu"]) <= 1e-8
 
 
@@ -1147,10 +1149,10 @@ def test_sigma_list_gathers_match_plain_at_n28(card, dtype):
     rng = np.random.default_rng(28)
     ns = sec.nA
     V = torch.as_tensor(rng.normal(size=(ns, ns)), device=card).to(dtype)
-    SL.reset_launch_counts()
+    reset_launch_counts()
     T = SL.alpha_gather(V, tabs["SRC_A"], tabs["SGN_A"])
     torch.cuda.synchronize()
-    assert SL.launch_counts()["sigma_lists.alpha_gather"] == 1
+    assert launch_counts() == {"sigma_lists.alpha_gather": 1}
     assert torch.equal(T, SL.alpha_gather_plain(V, tabs["SRC_A"],
                                                 tabs["SGN_A"]))
     for K in (1, 2):
@@ -1158,10 +1160,10 @@ def test_sigma_list_gathers_match_plain_at_n28(card, dtype):
                             device=card).to(dtype)
         base = torch.as_tensor(rng.normal(size=(K, ns, ns)),
                                device=card).to(dtype)
-        before = SL.launch_counts()["sigma_lists.beta_gather"]
+        before = _launched("sigma_lists.beta_gather")
         out = SL.beta_gather(Y, tabs["SRC_B"], tabs["SGN_B"], base)
         torch.cuda.synchronize()
-        assert SL.launch_counts()["sigma_lists.beta_gather"] == before + 1
+        assert _launched("sigma_lists.beta_gather") == before + 1
         assert torch.equal(out, SL.beta_gather_plain(Y, tabs["SRC_B"],
                                                      tabs["SGN_B"], base))
         assert torch.equal(out, SL.beta_gather(Y, tabs["SRC_B"],
@@ -1203,11 +1205,11 @@ def test_list_sigma_matches_dense_at_n28(card):
     rng = np.random.default_rng(7)
     V = torch.as_tensor(rng.normal(size=(2, sec.nB, sec.nA)), device=card)
     for x in (V[0], V):
-        SL.reset_launch_counts()
+        reset_launch_counts()
         got = sec.sigma_values(x, vals, tabs)
         torch.cuda.synchronize()
-        assert SL.launch_counts() == {"sigma_lists.alpha_gather": 1,
-                                      "sigma_lists.beta_gather": 1}
+        assert launch_counts() == {"sigma_lists.alpha_gather": 1,
+                                   "sigma_lists.beta_gather": 1}
         ref = S.sigma(x, ops, tabs)
         _close(got, ref)
 
@@ -1248,7 +1250,7 @@ def test_h8_davidson_on_lists_matches_the_dense_sigma(card):
     v0 = sec.hf_matrix(torch.float64, device=card).reshape(-1)
     energies, matvecs = {}, 0
     for name, tabs in (("lists", lists), ("dense", dense)):
-        SL.reset_launch_counts()
+        reset_launch_counts()
         vals = sec.build_values(h_so, g_so, tabs)
         diag = sec.diagonal_values(vals, tabs).reshape(-1)
         res = davidson_ground(
@@ -1258,12 +1260,11 @@ def test_h8_davidson_on_lists_matches_the_dense_sigma(card):
         energies[name] = float(res.eigenvalue)
         if name == "lists":
             matvecs = res.iterations
-            assert SL.launch_counts() == {
+            assert launch_counts() == {
                 "sigma_lists.alpha_gather": matvecs,
                 "sigma_lists.beta_gather": 2 + matvecs}
         else:
-            assert SL.launch_counts() == {"sigma_lists.alpha_gather": 0,
-                                          "sigma_lists.beta_gather": 0}
+            assert launch_counts() == {}
     assert matvecs > 2
     assert abs(energies["lists"] - energies["dense"]) <= 1e-10
 
@@ -1296,19 +1297,15 @@ def _orbital_inputs(card, m, n, dtype, seed):
                                        (26, 8, torch.float32)])
 def test_orbital_vag_kernel_matches_plain(card, m, n, dtype):
     """The kernel against its plain twin (1e-11 relative at float64, 1e-5
-    at float32), two calls bit for bit, four launches and one kernel-route
-    call a call; odd and unaligned rows (13, 26 x 4 bytes) take the
-    element-wise copies."""
+    at float32), two calls bit for bit, four launches a call; odd and
+    unaligned rows (13, 26 x 4 bytes) take the element-wise copies."""
     from esoo_torch.ops import orbital_vag as OV
     args = _orbital_inputs(card, m, n, dtype, 31 * m + n)
-    OV.reset_launch_counts()
+    reset_launch_counts()
     E, G = OV.orbital_value_and_grad_cuda(*args)
     E2, G2 = OV.orbital_value_and_grad_cuda(*args)
     torch.cuda.synchronize()
-    assert OV.launch_counts() == {
-        "orbital_vag.orbital_value_and_grad_cuda": 8,
-        "orbital_vag.pair_asymmetry": 0}
-    assert OV.route_counts() == {"kernel": 2, "plain": 0}
+    assert launch_counts() == {"orbital_vag.orbital_vag": 8}
     assert torch.equal(E, E2) and torch.equal(G, G2)
     Er, Gr = OV.orbital_value_and_grad_plain(*args)
     tol = 1e-11 if dtype == torch.float64 else 1e-5
@@ -1383,13 +1380,14 @@ def test_casscf_on_the_card_takes_the_one_pass_route(card):
     solver = FusedOptOrbCASSCF(4, problem=p, device="cuda",
                                dtype=torch.float64)
     assert solver._g_pair_symmetric is None
-    OV.reset_launch_counts()
+    reset_launch_counts()
     st = solver.compute_minimum_energy().stage_stats
     assert solver._g_pair_symmetric is True
     assert solver._orbital_objective()[0] is fused._ORBITAL_ONEPASS_VAG
-    assert OV.launch_counts()["orbital_vag.pair_asymmetry"] == 1
+    assert _launched("orbital_vag.pair_asymmetry") == 1
     assert st["bb_vag_autograd"] == 0
-    assert st["bb_vag_onepass"] == OV.route_counts()["kernel"] > 0
+    assert st["bb_vag_onepass"] == _launched("orbital_vag.orbital_vag") / 4
+    assert st["bb_vag_onepass"] > 0
     h, g = p.spatial_integral_tensors()
     rng = np.random.default_rng(0)
     g = g + 1e-3 * rng.normal(size=g.shape)          # no pair symmetry
@@ -1417,10 +1415,10 @@ def test_pair_asymmetry_kernel_matches_plain(card, m, dtype):
     sym = (g + g.permute(2, 3, 0, 1)).contiguous()
     off = sym.clone()
     off[m - 1, 0, m // 2, 1] += 1e-3
-    OV.reset_launch_counts()
+    reset_launch_counts()
     assert OV.pair_asymmetry(sym) == 0.0
     assert OV.pair_symmetric(sym) and not OV.pair_symmetric(off)
     for x in (off, g):
         got, ref = OV.pair_asymmetry(x), OV.pair_asymmetry_plain(x)
         assert got == pytest.approx(ref, rel=1e-6) and got > 0
-    assert OV.launch_counts()["orbital_vag.pair_asymmetry"] == 5
+    assert launch_counts() == {"orbital_vag.pair_asymmetry": 5}

@@ -6,6 +6,10 @@ packages sum in different orders), 1e-10 for the 50-step BB trajectory;
 the GEMM plain paths against the Pallas kernel body (interpret mode) at
 float32 use the JAX package's own 5e-6 * max(1, max|ref|)."""
 
+import contextlib
+import ctypes
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +21,7 @@ from esoo_tpu.orbital_optimization import kernels as JK
 from esoo_tpu.orbital_optimization.fused import _inner_bb as jax_inner_bb
 from esoo_tpu.orbital_optimization.stiefel import (
     _bb_projected_descent as jax_bb, orth as jax_orth)
-from esoo_torch.ops import gemm
+from esoo_torch.ops import _build, gemm, launch_counts, reset_launch_counts
 from esoo_torch.orbital_optimization import kernels as TK
 from esoo_torch.orbital_optimization.fused import (
     _ORBITAL_VAG as TORCH_VAG, _inner_bb as torch_inner_bb)
@@ -175,12 +179,58 @@ def test_rotate_two_body_cuda_plain_matches_pallas_wrapper(m, n):
 
 
 def test_plain_paths_count_no_launches():
-    gemm.reset_launch_counts()
+    reset_launch_counts()
     _, g, u, _, _ = _random_problem(seed=7)
     gemm.rotate_two_body_cuda(_t(g), _t(u))
     gemm.matmul(_t(u).T.contiguous(), _t(u))
-    assert gemm.launch_counts() == {"gemm.matmul": 0,
-                                    "gemm.rotate_two_body_cuda": 0}
+    assert launch_counts() == {}
+
+
+def test_launch_seam_calls_checks_and_counts(monkeypatch):
+    """ops/_build.py's launch through a Python stand-in for a C entry
+    (the device guard and the stream lookup patched): a tensor goes as its
+    data pointer, None as NULL, the stream last; each call adds the
+    entry's declared launches under <source>.<kernel>[.<route>]; a
+    non-zero return raises RuntimeError naming the source and the entry
+    and counts nothing."""
+    calls, rc = [], [0]
+
+    def entry(*args):
+        calls.append(args)
+        return rc[0]
+
+    name, symbol = "probe", "esoo_probe_step_f64"
+    argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    monkeypatch.setitem(_build._ENTRIES, (name, symbol), (argtypes, 3))
+    monkeypatch.setattr(_build, "load",
+                        lambda n: types.SimpleNamespace(**{symbol: entry}))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a: types.SimpleNamespace(cuda_stream=77))
+    _build._entry.cache_clear()
+    x = torch.arange(4.0)
+    reset_launch_counts()
+    try:
+        _build.launch(name, symbol, x.device, x, None, 5)
+        assert calls == [(x.data_ptr(), None, 5, 77)]
+        assert entry.restype is ctypes.c_int
+        assert entry.argtypes == argtypes + [ctypes.c_void_p]
+        assert launch_counts() == {"probe.probe_step": 3}
+        _build.launch(name, symbol, x.device, x, None, 5, route="smem")
+        counts = launch_counts()
+        assert counts == {"probe.probe_step": 3, "probe.probe_step.smem": 3}
+        counts.clear()                                   # a copy
+        rc[0] = 700
+        with pytest.raises(RuntimeError, match=r"csrc/probe\.cu: "
+                           r"esoo_probe_step_f64 failed: CUDA error 700"):
+            _build.launch(name, symbol, x.device, x, None, 5)
+        assert launch_counts() == {"probe.probe_step": 3,
+                                   "probe.probe_step.smem": 3}
+        reset_launch_counts()
+        assert launch_counts() == {}
+    finally:
+        _build._entry.cache_clear()
 
 
 def test_wrappers_never_fall_back_off_the_cpu():

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from esoo_torch.ops import launch_counts, reset_launch_counts
 from esoo_torch.ops import orbital_vag as ov
 from esoo_torch.orbital_optimization import fused, kernels
 from esoo_torch.orbital_optimization.stiefel import orth, value_and_grad
@@ -92,15 +93,12 @@ def test_the_energy_path_matches_rotated_energy_spatial():
 
 
 def test_cpu_tensors_run_the_twin_and_count_its_route():
-    ov.reset_launch_counts()
+    reset_launch_counts()
     args = _inputs(10, 3, torch.float64, 7)
     E, G = ov.orbital_value_and_grad_cuda(*args)
     E2, G2 = ov.orbital_value_and_grad_plain(*args)
     assert torch.equal(E, E2) and torch.equal(G, G2)
-    assert ov.route_counts() == {"kernel": 0, "plain": 1}
-    assert ov.launch_counts() == {
-        "orbital_vag.orbital_value_and_grad_cuda": 0,
-        "orbital_vag.pair_asymmetry": 0}
+    assert not any(key.startswith("orbital_vag.") for key in launch_counts())
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])

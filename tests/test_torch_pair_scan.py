@@ -35,7 +35,8 @@ import torch
 
 from esoo_tpu.sim import HartreeFock as JHF, UCCSD as JUCCSD
 from esoo_tpu.sim import sector as JS
-from esoo_torch.ops import pair_scan
+from esoo_torch.ops import (_build, launch_counts, pair_scan,
+                            reset_launch_counts)
 from esoo_torch.sim import HartreeFock, UCCSD
 from esoo_torch.sim import sector as TS
 from test_torch_gate_scan import _pair_block_sum  # the dtheta tree
@@ -217,11 +218,11 @@ def _ring_walk(off, log_chunk, chunks, stages, reverse, stream):
 def test_plain_route_matches_jax(case, batch):
     (th, v0, ct), (out_ref, dv0_ref, dth_ref) = _reference(case, batch)
     P, S = _tables(case)
-    pair_scan.reset_launch_counts()
+    reset_launch_counts()
     v, t = _t(v0).requires_grad_(), _t(th).requires_grad_()
     out = pair_scan.apply_rev_pairs(v, t, P, S)
     torch.autograd.backward(out, _t(ct))
-    assert pair_scan.launch_counts()["pair_scan.apply_rev_pairs"] == 0
+    assert launch_counts() == {}
     _close(out.detach(), out_ref)
     _close(v.grad, dv0_ref)
     _close(t.grad, dth_ref)
@@ -271,13 +272,15 @@ def test_a_device_without_kernels_raises(monkeypatch):
     with pytest.raises(ValueError, match="CUDA device"):
         pair_scan.apply_rev_pairs(v0, th, P, S)
 
-    def no_nvcc():
-        raise RuntimeError("nvcc failed on csrc/pair_scan.cu")
+    def no_nvcc(name):
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu")
 
     monkeypatch.setattr(pair_scan, "_check", lambda *args: None)
-    monkeypatch.setattr(pair_scan, "_lib", no_nvcc)
+    monkeypatch.setattr(_build, "load", no_nvcc)
     with pytest.raises(RuntimeError, match="nvcc failed"):
-        pair_scan.apply_rev_pairs(v0, th, P.to("meta"), S.to("meta"))
+        # the tables on the CPU: their pair lists are read before the
+        # launch loads the kernel
+        pair_scan.apply_rev_pairs(v0, th, P, S)
 
 
 # -- (b) the kernels' emulation -----------------------------------------------

@@ -48,7 +48,8 @@ import torch
 import esoo_tpu.sim as J
 import esoo_torch.sim as T
 from esoo_tpu.ops import ParityMapper as JParity
-from esoo_torch.ops import ParityMapper, prot_scan
+from esoo_torch.ops import (ParityMapper, _build, launch_counts, prot_scan,
+                            reset_launch_counts)
 # the kernels' reductions
 from test_torch_gate_scan import _pair_thread_sums, _warp_tree
 
@@ -355,11 +356,11 @@ def _emulate(case, batch):
 
 def _plain_route(case, batch):
     (ang, s0, ct), _ = _reference(case, batch)
-    prot_scan.reset_launch_counts()
+    reset_launch_counts()
     st, a = _t(s0).requires_grad_(), _t(ang).requires_grad_()
     out = prot_scan.apply_prot_scan(st, a, _tabs(case))
     torch.autograd.backward(out, _t(ct))
-    assert prot_scan.launch_counts()["prot_scan.apply_prot_scan"] == 0
+    assert launch_counts() == {}
     return out.detach(), st.grad, a.grad
 
 
@@ -389,11 +390,11 @@ def test_a_kernel_that_fails_to_build_raises(monkeypatch):
     """No fallback: past the device check, a build failure propagates."""
     _, nq, real, xs, zs, factor = _case("real_n6")
 
-    def no_nvcc():
-        raise RuntimeError("nvcc failed on csrc/prot_scan.cu")
+    def no_nvcc(name):
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu")
 
     monkeypatch.setattr(prot_scan, "_check", lambda *args: None)
-    monkeypatch.setattr(prot_scan, "_lib", no_nvcc)
+    monkeypatch.setattr(_build, "load", no_nvcc)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         prot_scan.apply_prot_scan(
             torch.zeros(1 << nq, dtype=torch.float64, device="meta"),
