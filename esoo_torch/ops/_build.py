@@ -25,12 +25,17 @@ without `esoo_` and its dtype tag (`gemm.matmul`,
 `.<route>` where the entry takes a route argument: the scans'
 `gate_scan.gate_scan_fwd.smem`, `pair_scan.pair_scan_bwd.global`,
 `prot_scan.prot_scan_fwd.smem` and the like.  A key never names the
-dtype, and a kernel that never launched has no key.
+dtype, and a kernel that never launched has no key.  A launch made while
+a CUDA graph is captured runs only when the graph is replayed: inside
+`recording()` it is counted into the recording instead, and each replay
+`credit`s the recording to the count, so the count is the same whether a
+kernel ran from a graph or was queued one launch at a time.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import glob
@@ -135,6 +140,9 @@ def load(name: str) -> ctypes.CDLL:
 
 _ENTRIES: dict = {}          # (source, C entry) -> (argtypes, launches)
 _COUNTS = collections.Counter()
+# the open recordings, innermost last; process-wide, not per thread: a
+# captured backward launches from the autograd engine's own thread
+_RECORDINGS: list = []
 
 
 def entries(name: str, table: dict) -> None:
@@ -171,7 +179,8 @@ def launch(name: str, entry: str, device: torch.device, *args,
     if rc != 0:
         raise RuntimeError(f"csrc/{name}.cu: {entry} failed: CUDA error "
                            f"{rc}")
-    _COUNTS[key if route is None else f"{key}.{route}"] += launches
+    counts = _RECORDINGS[-1] if _RECORDINGS else _COUNTS
+    counts[key if route is None else f"{key}.{route}"] += launches
 
 
 def launch_counts() -> dict:
@@ -181,6 +190,24 @@ def launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     _COUNTS.clear()
+
+
+@contextlib.contextmanager
+def recording():
+    """Inside the block, launches are counted into the Counter it yields
+    and not into the process-wide count (wrap a CUDA graph's capture in
+    it, and `credit` the Counter at each replay)."""
+    rec = collections.Counter()
+    _RECORDINGS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDINGS.pop()
+
+
+def credit(counts: collections.Counter) -> None:
+    """Add a recording's launches to the count (a replay of its graph)."""
+    _COUNTS.update(counts)
 
 
 @functools.cache

@@ -59,7 +59,7 @@ from ..ops import orbital_vag
 from ..sim.circuit import QuantumCircuit
 from ..sim.rdm import one_rdm, rdm_energy, two_rdm
 from ..sim.statevector import compile_circuit
-from ..solvers.lbfgs import lbfgs_minimize
+from ..solvers.lbfgs import LBFGSGraphs, lbfgs_minimize
 from ..utils.config import check_same_device, resolve_device
 from ..utils.profiling import collect, count, span
 from .checkpoint import load_checkpoint, save_checkpoint
@@ -161,7 +161,15 @@ def _vqe_stage_fns(sector, compiled, n_active: int, vqe_maxiter: int,
     """(run_vqe, extract_rdms) for the eigensolver stage: in the sector
     (`sector`, over `tables`: a mesh's sector tables, or None for the
     lead device's own), or on the full statevector of `compiled` when
-    `sector` is None."""
+    `sector` is None.  A string-kernel sector's cost on the lead device's
+    own tables (no mesh) is marked capture-safe: its solves replay CUDA
+    graphs on a card, captured at the first and kept for the stage
+    functions' life (solvers/lbfgs.py).  The other costs keep the eager
+    loop, as a capture refuses what they do: the full statevector's
+    copies host tables to the device at each call (sim/rdm.py, the
+    constant gate matrices), and the pairs kernel's builds its gate
+    records at its first call on a sector's tables, through host reads
+    (ops/pair_scan.py::_stream)."""
     gtol = _gtol(dtype)
     N = 2 * n_active
 
@@ -181,10 +189,13 @@ def _vqe_stage_fns(sector, compiled, n_active: int, vqe_maxiter: int,
 
         return run_vqe, extract_rdms
 
+    graphs = (LBFGSGraphs(sector.energy_values)
+              if tables is None and sector.kernel == "strings" else None)
+
     def run_vqe(theta, h_act, g_act):
         vals = _sector_values(sector, h_act, g_act, tables)
         res = _lbfgs(sector.energy_values, theta, (vals, tables),
-                     vqe_maxiter, gtol, ftol, stats)
+                     vqe_maxiter, gtol, ftol, stats, graphs)
         return res.x, res.fun
 
     def extract_rdms(theta):
@@ -713,17 +724,21 @@ def _loop_stats() -> dict:
 def _vqe_stats() -> dict:
     """stage_stats of the L-BFGS solvers: _loop_stats, L-BFGS iterations,
     value-and-grad evaluations (lbfgs.eval spans) and seconds (lbfgs
-    spans)."""
+    spans), the evaluations by route (lbfgs_graph_evals: a replayed
+    trial; lbfgs_eager_evals), and the CUDA-graph captures (lbfgs.capture
+    spans: lbfgs_captures, lbfgs_capture_s)."""
     return {"lbfgs_iterations": 0, "lbfgs_evaluations": 0, "lbfgs_s": 0.0,
-            **_loop_stats()}
+            "lbfgs_graph_evals": 0, "lbfgs_eager_evals": 0,
+            "lbfgs_captures": 0, "lbfgs_capture_s": 0.0, **_loop_stats()}
 
 
-def _lbfgs(cost, theta, args, vqe_maxiter, gtol, ftol, stats):
+def _lbfgs(cost, theta, args, vqe_maxiter, gtol, ftol, stats, graphs=None):
     """lbfgs_minimize under the `lbfgs` span (lbfgs_s), its iterations
-    added to `stats`."""
+    added to `stats`; `graphs` (an LBFGSGraphs of `cost`) marks the cost
+    capture-safe."""
     with span("lbfgs", "lbfgs_s"):
         res = lbfgs_minimize(cost, theta, args=args, maxiter=vqe_maxiter,
-                             gtol=gtol, ftol=ftol)
+                             gtol=gtol, ftol=ftol, graphs=graphs)
     if stats is not None:
         stats["lbfgs_iterations"] += res.nit
     return res

@@ -665,7 +665,9 @@ class SectorUCC:
     def _initial(self, theta: torch.Tensor) -> torch.Tensor:
         v0 = torch.zeros(self.dim + 1, dtype=theta.dtype,
                          device=theta.device)
-        v0[self.init_index] = 1.0
+        # a fill, not an indexed store, which would copy 1.0 from the host
+        # (refused inside a CUDA graph's capture)
+        v0[self.init_index].fill_(1.0)
         return self.to_native(v0)
 
     def state_matrix(self, theta: torch.Tensor, tables: dict = None
